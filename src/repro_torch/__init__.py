@@ -1,0 +1,15 @@
+"""repro_torch — the PyTorch / CUDA port of the CRAM-KV serve path.
+
+Mirrors the module layout of the JAX package `repro` (the reference) for
+the slice it covers: the serve launcher's main path (dense decoder, the
+continuous-batching serve tier, the CRAM-KV cache) and its three kernels,
+hand-written in CUDA C++ for Hopper (`csrc/`).  Every entry point takes a
+`device=` that defaults to `"cuda"`; the CPU runs the kernels' plain
+PyTorch versions and is what the parity tests use.
+
+This package imports neither `jax` nor anything of `repro`.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,185 @@
+"""K3: batched decode attention over the CRAM-packed paged cache.
+
+Port of `repro.kernels.cram_attention.cram_decode_attention_batched`:
+per flat slot, the strip-tail marker check (implicit metadata), the delta
+decode of the packed pages, the split of bf16 K||V, GQA, the valid mask
+and the softmax; the second output is the per-sequence (raw, cram) bytes
+the step moves for exactly the layout walked, LLP re-probe included.
+
+The CUDA kernel is `csrc/cram_attention.cu`;
+`cram_decode_attention_batched_plain` is the plain PyTorch version (one
+softmax pass over the whole sequence, as the reference's oracle).
+`cram_decode_attention_batched` dispatches on the device of `q`: CPU runs
+the plain version, CUDA launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ref import (MARKER_LANES, NEG_INF, bf16_bits_to_f32, decode_slots,
+                  strip_is_packed)
+from . import cuda_lib
+
+# Default slot-block width (page groups per CTA split), as the reference.
+DEFAULT_BLOCK_GROUPS = 4
+
+# kernel launches; only the CUDA path counts
+LAUNCHES = {"decode_attention_pair": 0, "decode_attention_quad": 0}
+
+
+def resolve_block_groups(n_groups: int, block_groups: int | None) -> int:
+    """Largest divisor of `n_groups` not exceeding the requested width."""
+    bg = DEFAULT_BLOCK_GROUPS if block_groups is None else block_groups
+    bg = max(1, min(bg, n_groups))
+    while n_groups % bg:
+        bg -= 1
+    return bg
+
+
+def slot_geometry_bytes(page: int, hkv: int, d2: int) -> tuple[int, int]:
+    """(slot_bytes, strip_bytes) of one physical slot and its strip."""
+    return page * hkv * d2 * 2, hkv * (d2 + MARKER_LANES) * 2
+
+
+def bytes_moved_flat(is_packed, valid, predictor, *, lanes, slot_bytes,
+                     strip_bytes):
+    """Per-sequence (raw, cram) int32 bytes in the flat-slot form the kernel
+    uses: the lead slot of a packed group carries all `lanes` valid counts,
+    a raw group spreads one live page per slot; a mispredicted live group
+    costs one re-probe slot, judged by the lead slot's marker verdict.
+
+    is_packed (B, n) bool; valid (B, n, lanes); predictor (B, n//lanes)."""
+    b, n = is_packed.shape
+    live = valid > 0
+    n_live = live.sum(-1).to(torch.int64)
+    raw = n_live.sum(-1) * slot_bytes
+    per_slot = torch.where(is_packed & (n_live > 0),
+                           torch.full_like(n_live, slot_bytes + strip_bytes),
+                           n_live * (slot_bytes + strip_bytes))
+    grp_packed = is_packed.reshape(b, n // lanes, lanes)[..., 0]
+    grp_live = live.reshape(b, n // lanes, lanes * lanes).any(-1)
+    reprobe = ((predictor != 0) != grp_packed) & grp_live
+    cram = per_slot.sum(-1) + reprobe.to(torch.int64).sum(-1) * slot_bytes
+    return torch.stack([raw, cram], -1).to(torch.int32)
+
+
+def _batch(x, b, shared_cache):
+    return x.unsqueeze(0).expand(b, *x.shape) if shared_cache else x
+
+
+def cram_decode_attention_batched_plain(q, slots, strips, markers, valid,
+                                        predictor, *, lanes: int = 2,
+                                        block_groups: int | None = None,
+                                        shared_cache: bool = False):
+    """Plain version.  `block_groups` only orders the kernel's float sums,
+    so the one-pass softmax here ignores it (kept for the same signature)."""
+    del block_groups
+    b, hq, d = q.shape
+    slots = _batch(slots, b, shared_cache)
+    strips = _batch(strips, b, shared_cache)
+    valid = _batch(valid, b, shared_cache)
+    predictor = _batch(predictor, b, shared_cache)
+    _, n, page, hkv, d2 = slots.shape
+    slot_bytes, strip_bytes = slot_geometry_bytes(page, hkv, d2)
+    is_packed = strip_is_packed(strips, markers)
+    kv = bf16_bits_to_f32(decode_slots(slots, strips, is_packed, lanes))
+    t = n * lanes * page
+    k = kv[..., :d].reshape(b, t, hkv, d)
+    v = kv[..., d:].reshape(b, t, hkv, d)
+    tok = torch.arange(page, device=slots.device)
+    mask = (tok < valid[..., None]).reshape(b, t)
+    g = hq // hkv
+    kg = torch.repeat_interleave(k, g, dim=2)
+    vg = torch.repeat_interleave(v, g, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.to(torch.float32), kg)
+    s = s * (1.0 / math.sqrt(d))
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bht,bthd->bhd", p, vg)
+    byts = bytes_moved_flat(is_packed, valid, predictor, lanes=lanes,
+                            slot_bytes=slot_bytes, strip_bytes=strip_bytes)
+    return out, byts
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
+                                       predictor, *, lanes: int = 2,
+                                       block_groups: int | None = None,
+                                       shared_cache: bool = False):
+    """The CUDA kernel on the same contract as the plain version."""
+    _require(lanes in (2, 4), f"lanes must be 2 or 4, got {lanes}")
+    b, hq, d = q.shape
+    lead = () if shared_cache else (b,)
+    _require(slots.dim() == len(lead) + 4, "slots rank does not match "
+             "shared_cache")
+    n, page, hkv, d2 = slots.shape[-4:]
+    _require(d2 == 2 * d, f"slots D2={d2} != 2 * head_dim {d}")
+    _require(n % lanes == 0, f"flat slot count {n} not a multiple of {lanes}")
+    _require(hq % hkv == 0 and hq // hkv <= 8,
+             f"Hq={hq} / Hkv={hkv} must be a whole group of at most 8")
+    _require(d in (64, 128), f"head_dim {d}: the kernel is built for 64 "
+             "and 128")
+    expect = {
+        "slots": (slots, torch.int16, lead + (n, page, hkv, d2)),
+        "strips": (strips, torch.int16, lead + (n, hkv, d2 + MARKER_LANES)),
+        "markers": (markers, torch.int32, (n,)),
+        "valid": (valid, torch.int32, lead + (n, lanes)),
+        "predictor": (predictor, torch.int32, lead + (n // lanes,)),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        _require(t.device == q.device, f"{name} is on {t.device}, "
+                 f"q on {q.device}")
+        _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _require(tuple(t.shape) == shape,
+                 f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(q.dtype == torch.float32 and q.is_contiguous(),
+             "q must be contiguous float32")
+    kk = resolve_block_groups(n // lanes, block_groups) * lanes
+    nj = n // kk
+    dev = q.device
+    part_m = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hq, nj, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    byts = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    slot_bytes, strip_bytes = slot_geometry_bytes(page, hkv, d2)
+    p = cuda_lib.ptr
+    code = cuda_lib.load().cram_decode_attention(
+        p(q), p(slots), p(strips), p(markers), p(valid), p(predictor),
+        b, hq, d, n, page, hkv, lanes, kk, int(shared_cache),
+        1.0 / math.sqrt(d), slot_bytes, strip_bytes,
+        p(part_m), p(part_l), p(part_acc), p(out), p(byts),
+        cuda_lib.stream_ptr(q))
+    cuda_lib.check(code, "cram_decode_attention")
+    LAUNCHES["decode_attention_pair" if lanes == 2
+             else "decode_attention_quad"] += 1
+    return out, byts
+
+
+def cram_decode_attention_batched(q, slots, strips, markers, valid,
+                                  predictor, *, lanes: int = 2,
+                                  block_groups: int | None = None,
+                                  shared_cache: bool = False):
+    """Batched fused decode.
+
+    q (B, Hq, D); slots (B, n, page, Hkv, D2) int16 — or (n, ...) with
+    `shared_cache=True`; strips (B?, n, Hkv, D2+2); markers (n,) int32;
+    valid (B?, n, lanes) int32; predictor (B?, n // lanes) int32.
+    Returns (out (B, Hq, D) float32, bytes (B, 2) int32)."""
+    kw = dict(lanes=lanes, block_groups=block_groups,
+              shared_cache=shared_cache)
+    if q.device.type == "cpu":
+        return cram_decode_attention_batched_plain(
+            q, slots, strips, markers, valid, predictor, **kw)
+    return cram_decode_attention_batched_cuda(
+        q.to(torch.float32).contiguous(), slots, strips, markers,
+        valid.to(torch.int32).contiguous(),
+        predictor.to(torch.int32).contiguous(), **kw)

@@ -1,0 +1,130 @@
+"""Build and bind the port's CUDA kernels (nvcc + ctypes).
+
+Every `csrc/*.cu` compiles to an object with its own `nvcc` process, all
+started together, and the objects link into one shared library under the
+git-ignored `build/kernels/` directory of the checkout; the file name
+carries a hash of the sources, so an edited source rebuilds.  The build
+runs at first use — `load()` is called only by a wrapper about to launch
+a kernel on a CUDA tensor — never at import, so the CPU tests import every
+module on a machine without `nvcc`.
+
+Each C entry point returns `cudaGetLastError()`; `check()` raises on a
+non-zero code.  Pointers and the stream travel as `c_void_p`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # win, marker_lanes, enabled, B, W, lanes, page, hkv, d2,
+    # slots, over, strips, lay, fit, stream
+    "cram_layout_window": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P],
+    # q, slots, strips, markers, valid, pred, B, hq, D, n, page, hkv, lanes,
+    # kk, shared, scale, slot_bytes, strip_bytes, part_m, part_l, part_acc,
+    # out, bytes, stream
+    "cram_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
+                              _P, _P],
+}
+
+_state: dict = {"lib": None, "build_seconds": None}
+
+
+def build_dir() -> pathlib.Path:
+    """`build/kernels/` at the root of the checkout."""
+    return CSRC.parents[2] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> pathlib.Path:
+    """Compile every source in parallel and link the shared library."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
+    out_dir = build_dir()
+    lib_path = out_dir / f"libcram_kernels_{tag}.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [out_dir / f"{src.stem}_{tag}.o" for src in sources]
+    procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs, strict=True)]
+    failures = []
+    for src, proc in zip(sources, procs, strict=True):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failures.append(f"{src.name}:\n{log}")
+    if failures:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failures))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
+                           "-o", str(tmp)],
+                          capture_output=True, text=True, check=False)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed\n{link.stdout}{link.stderr}")
+    tmp.replace(lib_path)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The bound library, built on first call."""
+    if _state["lib"] is None:
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _state["lib"] = lib
+        _state["build_seconds"] = time.perf_counter() - t0
+    return _state["lib"]
+
+
+def build_seconds() -> float | None:
+    """Wall time of the first `load()` (build included), or None."""
+    return _state["build_seconds"]
+
+
+def check(code: int, name: str) -> None:
+    if code:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {code}")
+
+
+def stream_ptr(tensor) -> int:
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def ptr(tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(tensor.data_ptr())

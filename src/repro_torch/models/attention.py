@@ -1,0 +1,108 @@
+"""Blockwise attention in plain torch (port of `repro.models.attention`,
+the decode path).  Scores are materialised one (q_chunk x k_chunk) block
+at a time with an online-softmax (max, denom, acc) state, in the
+reference's order of operations and with its -1e30 masking; GQA repeats
+each KV head for its G query heads, chunk by chunk."""
+
+from __future__ import annotations
+
+import torch
+
+from .layers import apply_rope, rms_norm
+
+NEG_INF = -1e30
+
+
+def _block_attend(q, k, v, bias):
+    """One block: q (B,H,qc,D), k/v (B,kc,H,D), bias (qc,kc).  Returns the
+    online-softmax pieces m (B,H,qc), l (B,H,qc), o (B,H,qc,D) float32."""
+    s = torch.einsum("bhqd,bkhd->bhqk", q, k).to(torch.float32)
+    s = s + bias
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype), v)
+    return m, l, o.to(torch.float32)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
+                        q_chunk: int = 512, k_chunk: int = 1024,
+                        kv_length=None):
+    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D) -> (B,S,Hq,D).  `kv_length` is the
+    valid KV prefix length (decode against a preallocated cache)."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    assert hq % hkv == 0
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    q_chunk, k_chunk = min(q_chunk, s), min(k_chunk, t)
+    assert s % q_chunk == 0 and t % k_chunk == 0, (s, q_chunk, t, k_chunk)
+    nq, nk = s // q_chunk, t // k_chunk
+    dev = q.device
+    qb = (q * scale).reshape(b, nq, q_chunk, hq, d).permute(1, 0, 3, 2, 4)
+    kb = k.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
+    vb = v.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
+    q_pos = torch.arange(s, device=dev).reshape(nq, q_chunk) + q_offset
+    k_pos = torch.arange(t, device=dev).reshape(nk, k_chunk) + k_offset
+    outs = []
+    for i in range(nq):
+        m = torch.full((b, hq, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hq, q_chunk), dtype=torch.float32, device=dev)
+        o = torch.zeros((b, hq, q_chunk, d), dtype=torch.float32, device=dev)
+        for j in range(nk):
+            kc, vc = kb[j], vb[j]
+            if g > 1:
+                kc = torch.repeat_interleave(kc, g, dim=2)
+                vc = torch.repeat_interleave(vc, g, dim=2)
+            bias = torch.zeros((q_chunk, k_chunk), dtype=torch.float32,
+                               device=dev)
+            if causal:
+                bias = torch.where(q_pos[i][:, None] >= k_pos[j][None, :],
+                                   0.0, NEG_INF)
+            if kv_length is not None:
+                bias = bias + torch.where(k_pos[j][None, :] < kv_length,
+                                          0.0, NEG_INF)
+            bm, bl, bo = _block_attend(qb[i], kc, vc, bias)
+            m_new = torch.maximum(m, bm)
+            alpha = torch.exp(m - m_new)
+            beta = torch.exp(bm - m_new)
+            l = l * alpha + bl * beta
+            o = o * alpha[..., None] + bo * beta[..., None]
+            m = m_new
+        outs.append(o / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs)                     # (nq, B, Hq, qc, D)
+    return out.permute(1, 0, 3, 2, 4).reshape(b, s, hq, d).to(q.dtype)
+
+
+def chunked_decode_attention(q, k_cache, v_cache, length,
+                             k_chunk: int = 2048):
+    """Single-token decode: q (B,Hq,D) against cache (B,T,Hkv,D) with
+    `length` valid positions."""
+    out = blockwise_attention(
+        q[:, None], k_cache, v_cache, causal=False, q_chunk=1,
+        k_chunk=min(k_chunk, k_cache.shape[1]), kv_length=length)
+    return out[:, 0]
+
+
+def attention_apply(p, cfg, x, *, positions, cache, cache_index: int):
+    """GQA self-attention for the decode path.  x: (B,S,D); `p` holds the
+    projections in x's dtype; cache {k, v}: (B,T,Hkv,hd) is updated in
+    place at `cache_index` (the reference returns a new cache).  Returns
+    the block output (B,S,D)."""
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    cache["k"][:, cache_index:cache_index + s] = k
+    cache["v"][:, cache_index:cache_index + s] = v
+    out = chunked_decode_attention(
+        q[:, 0], cache["k"], cache["v"], length=cache_index + s,
+        k_chunk=cfg.attn_k_chunk)[:, None]
+    return out.reshape(b, s, hq * hd) @ p["wo"]
