@@ -16,21 +16,27 @@ Phases, each of which makes the script exit non-zero when it fails:
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
      the device time of one decode step from torch.profiler;
-  4. the serve tier alone: 8 compressible 200-token prompts, 48 decode
-     steps each followed by an attend, every attend held against the plain
-     attention on the same state, and the final physical state bit-exact
-     against the per-slot rebuild;
-  5. timings of every kernel at the shapes phases 3 and 4 gave it, beside
+  4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
+     1 incompressible, 1 alternating), 48 decode steps each followed by an
+     attend, every attend held against the plain attention on the same
+     state, and the final physical state bit-exact against the per-slot
+     rebuild (which packs with the plain version);
+  5. every kernel launch of phases 3 and 4, held against the plain version
+     on a copy of the inputs that launch was given: K1/K2 bit-exact on all
+     five outputs, K3 within atol = rtol = 2e-3 with the bytes exact;
+  6. timings of every kernel at the shapes phases 3 and 4 gave it, beside
      its plain version, its bound and, for K3, scaled_dot_product_attention
      on the materialised K/V: device time (ten calls captured in one CUDA
      graph, CUDA events, median of 20 replays) and one eager call with the
      host's dispatch (median of 20 after warm-up).
 
-The launch counters are set to 0 just before phase 3 and read just after
-phase 4; every kernel of the path must have launched.  The last two lines
-are the kernels' JSON record and {"ok": true, "device": {...}}.  It needs
-one CUDA card and a checkout of the repository around it.  `--report
-PATH` also writes the full report as JSON.
+Phases 3 and 4 drive four paths (launcher pair, launcher quad, serve
+attend pair, serve attend quad); the launch counters are set to 0 just
+before each and read just after it, and every kernel a path runs must
+have launched in it.  The last two lines are the kernels' JSON record and
+{"ok": true, "device": {...}}.  It needs one CUDA card and a checkout of
+the repository around it.  `--report PATH` also writes the full report as
+JSON.
 """
 
 from __future__ import annotations
@@ -49,7 +55,6 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 PAGE, N_KV, HEAD_DIM, N_HEADS = 16, 8, 128, 24
 ATOL = RTOL = 2e-3
 
@@ -62,6 +67,14 @@ KERNELS = {
                               "src/repro/kernels/cram_attention.py:309"),
     "decode_attention_quad": ("src/repro_torch/csrc/cram_attention.cu",
                               "src/repro/kernels/cram_attention.py:309"),
+}
+PACK_OUTPUTS = ("slots", "overflow", "strips", "lay", "fit")
+# the paths of the main path, each with the kernels it must launch
+PATHS = {
+    "launcher_pair": ("pack_pair",),
+    "launcher_quad": ("pack_quad",),
+    "serve_attend_pair": ("pack_pair", "decode_attention_pair"),
+    "serve_attend_quad": ("pack_quad", "decode_attention_quad"),
 }
 
 
@@ -79,33 +92,62 @@ def gpu_line() -> str:
 # ------------------------------------------------------------ recording
 
 class Recorder:
-    """Counts the shapes each CUDA wrapper is called with on the main path
-    and keeps one copy of the inputs of the most frequent shape."""
+    """Keeps a copy of the inputs and outputs of every launch a CUDA
+    wrapper makes while a path is driven, with the path and the ServeLoop
+    call it came from ("prefill", "step_all", "attend" or "other"), and
+    counts the ServeLoop calls of each path."""
 
-    def __init__(self):
-        self.calls: dict = {}
-        self.enabled = False
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls: list = []
+        self.loop_calls: dict = {}
+        self.path = None
+        self.part = "other"
 
-    def wrap(self, name_of, fn):
+    def _clone(self, x):
+        return x.clone() if self.torch.is_tensor(x) else x
+
+    def wrap(self, name_of, fn, launches: dict):
         def wrapped(*args, **kw):
-            if self.enabled:
-                name = name_of(args, kw)
-                shape = tuple(tuple(a.shape) for a in args
-                              if hasattr(a, "shape"))
-                per = self.calls.setdefault(name, {})
-                count, saved = per.get(shape, (0, None))
-                if saved is None:
-                    saved = ([a.clone() if hasattr(a, "clone") else a
-                              for a in args], dict(kw))
-                per[shape] = (count + 1, saved)
-            return fn(*args, **kw)
+            if self.path is None:
+                return fn(*args, **kw)
+            inputs = [self._clone(a) for a in args]
+            before = sum(launches.values())
+            outs = fn(*args, **kw)
+            if sum(launches.values()) > before:
+                self.calls.append({
+                    "name": name_of(args, kw), "path": self.path,
+                    "part": self.part, "args": inputs, "kw": dict(kw),
+                    "outs": [self._clone(o) for o in outs]})
+            return outs
         return wrapped
 
-    def most_frequent(self, name):
-        per = self.calls.get(name)
-        if not per:
+    def wrap_part(self, part: str, fn):
+        def wrapped(*args, **kw):
+            if self.path is not None:
+                key = (self.path, part)
+                self.loop_calls[key] = self.loop_calls.get(key, 0) + 1
+            outer, self.part = self.part, part
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.part = outer
+        return wrapped
+
+    def most_frequent(self, name, paths):
+        """(args, kw) of the first call of the shape `name` was launched
+        with most often on `paths`, or None."""
+        by_shape: dict = {}
+        for c in self.calls:
+            if c["name"] != name or c["path"] not in paths:
+                continue
+            shape = tuple(tuple(a.shape) for a in c["args"]
+                          if hasattr(a, "shape"))
+            by_shape.setdefault(shape, []).append(c)
+        if not by_shape:
             return None
-        return max(per.values(), key=lambda cs: cs[0])[1]
+        first = max(by_shape.values(), key=len)[0]
+        return first["args"], first["kw"]
 
 
 # ----------------------------------------------------------------- timing
@@ -199,9 +241,8 @@ def check_pack(torch, rng, device) -> dict:
         got = bdi_pack.pack_window_cuda(win, mk, enabled)
         torch.cuda.synchronize()
         want = bdi_pack.pack_window_plain(win, mk, enabled)
-        names = ("slots", "overflow", "strips", "lay", "fit")
         err = 0
-        for name, g, r in zip(names, got, want, strict=True):
+        for name, g, r in zip(PACK_OUTPUTS, got, want, strict=True):
             err = max(err, (g.int() - r.int()).abs().max().item())
             if not torch.equal(g, r):
                 fail(f"K{1 if lanes == 2 else 2} {name} differs from the "
@@ -267,7 +308,10 @@ def check_attention_once(torch, args, kw, label) -> float:
     return (out - ref).abs().max().item()
 
 
-def check_attention(torch, rng, device) -> None:
+def check_attention(torch, rng, device) -> dict:
+    """K3 against the plain version; returns the largest |difference| by
+    kernel name."""
+    errs = {}
     for lanes in (2, 4):
         for shared in (False, True):
             args = attention_inputs(torch, rng, lanes, 8, 8, device,
@@ -279,6 +323,10 @@ def check_attention(torch, rng, device) -> None:
                     f"block_groups={bg}")
                 print(f"kernel check: decode lanes={lanes} shared={shared} "
                       f"block_groups={bg} max|diff| {err:.3e}, bytes exact")
+                name = ("decode_attention_pair" if lanes == 2
+                        else "decode_attention_quad")
+                errs[name] = max(errs.get(name, 0.0), err)
+    return errs
 
 
 # --------------------------------------------------------- phase 3 / phase 4
@@ -364,8 +412,13 @@ def run_launcher(torch, packing: str) -> dict:
 def serve_attend_phase(torch, packing: str, device, *, slots=8,
                        prompt=200, steps=48, rng_seed=7) -> dict:
     """ServeLoop at the phi4 KV geometry; each attend is compared with the
-    plain attention on the same state.  Returns the loop and the max
-    |diff| seen."""
+    plain attention on the same state.  Slots 0-5 are compressible, slot 6
+    incompressible and slot 7 alternates 64-token runs of both: the
+    compressible tokens are within one bf16 ulp of each other, so only the
+    others give scores that differ across tokens, and the check fails
+    unless the reference output of slot 6 is far from the plain mean of
+    its V (so it sees the softmax weights, not only the lane decode).
+    Returns the loop and the max |diff| seen."""
     import numpy as np
 
     from repro_torch.kernels import cram_attention as ca
@@ -376,12 +429,19 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
     rng = np.random.default_rng(rng_seed)
     total = prompt + steps
     k, v = synthetic_kv_stream(rng, slots, total, N_KV, HEAD_DIM)
+    ki, vi = synthetic_kv_stream(rng, slots, total, N_KV, HEAD_DIM,
+                                 compressible=False)
+    k[6], v[6] = ki[6], vi[6]
+    for t0 in range(64, total, 128):
+        k[7, t0:t0 + 64], v[7, t0:t0 + 64] = (ki[7, t0:t0 + 64],
+                                              vi[7, t0:t0 + 64])
+    v6 = torch.from_numpy(v[6]).to(device).to(torch.bfloat16).float()
     loop = ServeLoop(slots=slots, max_pages=-(-total // PAGE), page=PAGE,
                      n_kv=N_KV, head_dim=HEAD_DIM, policy="static",
                      packing=packing, device=device)
     for i in range(slots):
         loop.prefill(i, k[i, :prompt], v[i, :prompt])
-    worst = 0.0
+    worst, spread = 0.0, math.inf
     lanes = loop.cache.group_lanes
     pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
     for step in range(steps):
@@ -404,13 +464,23 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
             fail(f"serve attend {packing} step {step}: max |diff| "
                  f"{(got - ref).abs().max().item():.3e}")
         worst = max(worst, (got - ref).abs().max().item())
+        mean_v = v6[:t + 1].mean(0).repeat_interleave(N_HEADS // N_KV, 0)
+        spread = min(spread, (ref[6] - mean_v).abs().max().item())
+    if spread < 10 * ATOL:
+        fail(f"serve attend {packing}: the incompressible slot's output is "
+             f"within {spread:.3e} of the mean of its V; the check would "
+             "not see wrong softmax weights")
+    print(f"serve attend {packing}: slot 6 output at least {spread:.3e} "
+          "from the mean of its V (the weights matter)")
     if (loop.cache.state["traffic"] < 0).any():
         fail(f"serve attend {packing}: a ledger accumulator went negative "
              "(int32 overflow)")
-    return {"loop": loop, "max_abs_err": worst}
+    return {"loop": loop, "max_abs_err": worst, "spread": spread}
 
 
 def check_final_state(torch, loop, packing) -> None:
+    """After a repack, every slot's physical rows bit-exact against the
+    per-slot rebuild, which packs on the host with the plain version."""
     c = loop.cache
     c.repack()
     for slot in range(loop.n_slots):
@@ -427,23 +497,68 @@ def check_final_state(torch, loop, packing) -> None:
           f"slots, decode saving {s['decode_saving']}")
 
 
-# -------------------------------------------------------- phase 5: timings
+# ------------------------------------------ phase 5: the main path's calls
+
+def check_main_path(torch, rec) -> dict:
+    """Every launch the main path made, held against the plain version on
+    a copy of its inputs: K1/K2 bit-exact on all five outputs, K3 within
+    atol = rtol = ATOL with the bytes exact.  Returns by kernel the calls
+    checked, their distinct shapes and the largest |difference|."""
+    from repro_torch.kernels import bdi_pack
+    from repro_torch.kernels import cram_attention as ca
+
+    seen: dict = {}
+    for i, c in enumerate(rec.calls):
+        name, args = c["name"], c["args"]
+        label = f"{name} launch {i} ({c['path']}, {c['part']})"
+        if name.startswith("pack"):
+            want = bdi_pack.pack_window_plain(*args)
+            for key, g, r in zip(PACK_OUTPUTS, c["outs"], want, strict=True):
+                if not torch.equal(g, r):
+                    fail(f"{label}: {key} differs from the plain version")
+            err, shape = 0.0, tuple(args[0].shape)
+        else:
+            out, byts = c["outs"]
+            ref, ref_b = ca.cram_decode_attention_batched_plain(*args,
+                                                                **c["kw"])
+            if not torch.isfinite(out).all():
+                fail(f"{label}: non-finite output")
+            err = (out - ref).abs().max().item()
+            if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL):
+                fail(f"{label}: max |diff| {err:.3e} beyond atol=rtol={ATOL}")
+            if not torch.equal(byts, ref_b):
+                fail(f"{label}: bytes {byts.tolist()} != {ref_b.tolist()}")
+            shape = tuple(args[1].shape)
+        s = seen.setdefault(name, {"calls": 0, "shapes": set(),
+                                   "max_abs_err": 0.0})
+        s["calls"] += 1
+        s["shapes"].add(shape)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+    for name, s in seen.items():
+        s["shapes"] = sorted(s["shapes"])
+        exact = ("bit-exact on 5 outputs" if name.startswith("pack")
+                 else f"max|diff| {s['max_abs_err']:.3e}, bytes exact")
+        print(f"main-path check: {name}: {s['calls']} launches at "
+              f"{len(s['shapes'])} shapes {s['shapes']}, {exact}")
+    return seen
+
+
+# -------------------------------------------------------- phase 6: timings
 
 def pack_bound(saved) -> tuple[float, str]:
     win, mk, en = saved[0][:3]
     b, w, lanes, page, hkv, d2 = win.shape
-    elems = win.numel()
     moved = (nbytes(win) + nbytes(mk) + nbytes(en)       # read
              + nbytes(win)                               # slots + overflow
              + b * w * hkv * (d2 + 2) * 2 + 2 * b * w)   # strips, lay, fit
-    ops = 4 * elems + 2 * elems                          # fit test + pack
-    return _bound(moved, ops)
+    return _bound(moved)
 
 
-def _bound(moved: int, ops: int) -> tuple[float, str]:
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(moved: int) -> tuple[float, str]:
+    """All three kernels are bound by bytes: integer compares and shifts
+    (K1/K2), and per live position 4 flops per element against 2 bytes of
+    K||V (K3), are far below the card's rates for the bytes they move."""
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def attention_bound(torch, saved) -> tuple[float, str]:
@@ -459,10 +574,7 @@ def attention_bound(torch, saved) -> tuple[float, str]:
     moved = (nbytes(q) + rows * hkv * d2 * 2 + live_slots * hkv * (d2 + 2) * 2
              + nbytes(markers) + nbytes(valid) + nbytes(pred)
              + b * hq * d * 4 + b * 8)
-    positions = int((torch.arange(page, device=v.device)
-                     < v[..., None]).sum())
-    ops = positions * hq * d * 4      # q.k and p.v per live position
-    return _bound(moved, ops)
+    return _bound(moved)
 
 
 def sdpa_call(torch, saved):
@@ -500,7 +612,7 @@ def _times(torch, row: dict, key: str, fn) -> None:
     row[key + "call_ms"] = call_ms(torch, fn)
 
 
-def timing_rows(torch, rec, phase: str) -> dict:
+def timing_rows(torch, rec, phase: str, paths) -> dict:
     """Device and eager-call times of every kernel at the most frequent
     shape the main path gave it, beside its plain version, its bound and,
     for K3, the library call."""
@@ -509,7 +621,7 @@ def timing_rows(torch, rec, phase: str) -> dict:
 
     rows = {}
     for name in ("pack_pair", "pack_quad"):
-        saved = rec.most_frequent(name)
+        saved = rec.most_frequent(name, paths)
         if saved is None:
             continue
         args = saved[0]
@@ -519,7 +631,7 @@ def timing_rows(torch, rec, phase: str) -> dict:
         _times(torch, r, "plain_", lambda: bdi_pack.pack_window_plain(*args))
         r["bound_ms"], r["bound_by"] = pack_bound(saved)
     for name in ("decode_attention_pair", "decode_attention_quad"):
-        saved = rec.most_frequent(name)
+        saved = rec.most_frequent(name, paths)
         if saved is None:
             continue
         args, kw = saved
@@ -586,30 +698,59 @@ def main(argv=None) -> int:
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
-    pack_errs = check_pack(torch, rng, device)
-    check_attention(torch, rng, device)
+    errs = {**check_pack(torch, rng, device),
+            **check_attention(torch, rng, device)}
 
-    # phases 3 + 4: the main path, with the launch counters from 0
-    rec = Recorder()
+    # phases 3 + 4: four paths, each with the launch counters from 0
+    from repro_torch.serving import ServeLoop
+
+    rec = Recorder(torch)
     bdi_pack.pack_window_cuda = rec.wrap(
         lambda a, kw: "pack_pair" if a[0].shape[2] == 2 else "pack_quad",
-        bdi_pack.pack_window_cuda)
+        bdi_pack.pack_window_cuda, bdi_pack.LAUNCHES)
     ca.cram_decode_attention_batched_cuda = rec.wrap(
         lambda a, kw: ("decode_attention_pair" if kw.get("lanes", 2) == 2
                        else "decode_attention_quad"),
-        ca.cram_decode_attention_batched_cuda)
-    for counts in (bdi_pack.LAUNCHES, ca.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
-    rec.enabled = True
+        ca.cram_decode_attention_batched_cuda, ca.LAUNCHES)
+    for part in ("prefill", "step_all", "attend"):
+        setattr(ServeLoop, part, rec.wrap_part(part, getattr(ServeLoop, part)))
+    by_path: dict = {}
+
+    def drive(path, fn):
+        for counts in (bdi_pack.LAUNCHES, ca.LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        rec.path = path
+        try:
+            result = fn()
+        finally:
+            rec.path = None
+        got = {**bdi_pack.LAUNCHES, **ca.LAUNCHES}
+        for name in PATHS[path]:
+            if got[name] == 0:
+                fail(f"{path}: the {name} kernel never launched")
+        calls = [c for c in rec.calls if c["path"] == path]
+        if len(calls) != sum(got.values()):
+            fail(f"{path}: {len(calls)} launches recorded, counters say "
+                 f"{got}")
+        steps = rec.loop_calls.get((path, "step_all"), 0)
+        by_path[path] = {}
+        for name in PATHS[path]:
+            mine = [c for c in calls if c["name"] == name]
+            prefill = sum(c["part"] == "prefill" for c in mine)
+            decode = sum(c["part"] in ("step_all", "attend") for c in mine)
+            by_path[path][name] = {
+                "launches": got[name], "prefill": prefill,
+                "decode_steps": steps,
+                "per_decode_step": decode / steps if steps else None}
+        print(f"launches [{path}]: {by_path[path]}")
+        return result
+
     reports = {}
     for packing in ("pair", "quad"):
-        before = dict(bdi_pack.LAUNCHES)
         t0 = time.perf_counter()
-        reports[packing] = run_launcher(torch, packing)
-        key = "pack_pair" if packing == "pair" else "pack_quad"
-        if bdi_pack.LAUNCHES[key] == before[key]:
-            fail(f"launcher {packing}: the {key} kernel never launched")
+        reports[packing] = drive(f"launcher_{packing}",
+                                 lambda p=packing: run_launcher(torch, p))
         walls = reports[packing]["walls"]
         print(f"launcher {packing}: {time.perf_counter() - t0:.1f} s "
               f"(model build {walls['model_build_s']:.2f} s, model prefill + "
@@ -620,47 +761,45 @@ def main(argv=None) -> int:
               f"{walls['decode_step_device_ms']} ms, busy share "
               f"{walls['decode_device_busy_share']}), "
               f"decode {reports[packing]['tokens_per_s']} tokens/s, prefill "
-              f"{reports[packing]['prefill_tokens_per_s']} tokens/s, "
-              f"{key} launches {bdi_pack.LAUNCHES[key] - before[key]}")
-    launcher_rec = rec.calls
-    rec.calls = {}
+              f"{reports[packing]['prefill_tokens_per_s']} tokens/s")
     phases = {}
     for packing in ("pair", "quad"):
-        phases[packing] = serve_attend_phase(torch, packing, device)
-    rec.enabled = False
-    launches = {**bdi_pack.LAUNCHES, **ca.LAUNCHES}
-    print(f"launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count == 0:
-            fail(f"{name} never launched on the main path")
+        phases[packing] = drive(
+            f"serve_attend_{packing}",
+            lambda p=packing: serve_attend_phase(torch, p, device))
     for packing, ph in phases.items():
         check_final_state(torch, ph["loop"], packing)
         print(f"serve attend {packing}: attend max |diff| vs plain "
               f"{ph['max_abs_err']:.3e}")
 
-    # phase 5: timings at the shapes of phases 3 and 4
-    serve_rec = rec.calls
-    rec.calls = launcher_rec
-    launcher_rows = timing_rows(torch, rec, "launcher")
-    rec.calls = serve_rec
-    serve_rows = timing_rows(torch, rec, "serve-attend")
+    # phase 5: every launch of phases 3 and 4 against its plain version
+    main_path = check_main_path(torch, rec)
+
+    # phase 6: timings at the shapes of phases 3 and 4
+    launcher_rows = timing_rows(torch, rec, "launcher",
+                                ("launcher_pair", "launcher_quad"))
+    serve_rows = timing_rows(torch, rec, "serve-attend",
+                             ("serve_attend_pair", "serve_attend_quad"))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = serve_rows[name]
-        err = (pack_errs[name] if name.startswith("pack")
-               else phases["pair" if name.endswith("pair")
-                           else "quad"]["max_abs_err"])
+        paths = {path: per[name] for path, per in by_path.items()
+                 if name in per}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "replaces": replaces,
+            "launches": sum(p["launches"] for p in paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": max(errs[name], main_path[name]["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
             {"card": card, "launcher": reports, "kernels": kernels,
+             "main_path_checks": main_path,
              "timing": {"launcher": launcher_rows,
                         "serve-attend": serve_rows}}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

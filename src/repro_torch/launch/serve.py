@@ -13,9 +13,8 @@ the stream.  The printed report has the reference's keys.
 
 Runs on the card by default (`--device cuda`); `--device cpu` runs the
 plain PyTorch versions of the kernels.  This slice has one lane per
-sequence: `--slots` below `--batch` (the spill tier) and `--kv-policy
-auto` (the AutoTuner) are refused until the next slice, and the spill
-flags are accepted for parity with the reference but never engage.
+sequence: `--slots` below `--batch` and the spill flags (the spill tier)
+and `--kv-policy auto` (the AutoTuner) are refused until the next slice.
 """
 
 from __future__ import annotations
@@ -135,8 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=0,
                     help="serve-tier batch lanes (0 = one per sequence)")
     ap.add_argument("--spill-pages", type=int, default=None,
-                    help="host spill-tier capacity in pages (the spill "
-                         "tier comes with the next slice)")
+                    help="host spill-tier capacity in pages (refused: the "
+                         "spill tier comes with the next slice)")
     ap.add_argument("--admit-rate", type=int, default=1,
                     help="admit one new sequence every N serve steps")
     ap.add_argument("--kv-policy", default="dynamic",
@@ -144,8 +143,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-packing", default="pair", choices=["pair", "quad"])
     ap.add_argument("--spill-packing", default="quad",
                     choices=["off", "pair", "quad"],
-                    help="spill-tier packing (the spill tier comes with "
-                         "the next slice)")
+                    help="spill-tier packing (only the default: the spill "
+                         "tier comes with the next slice)")
     ap.add_argument("--migrate-budget", type=int, default=1,
                     help="page-group columns re-laid per decode step while "
                          "a gate flip / packing switch migrates the cache")
@@ -153,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append / repack / account as separate calls "
                          "instead of the fused megastep")
     ap.add_argument("--sync-spill", action="store_true",
-                    help="(spill tier: next slice)")
+                    help="(refused: the spill tier comes with the next "
+                         "slice)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -168,6 +168,10 @@ def main(argv=None, *, params: dict | None = None) -> dict:
     args = ap.parse_args(argv)
     if args.slots and args.slots < args.batch:
         ap.error("--slots below --batch needs the spill tier: port slice 2")
+    if (args.spill_pages is not None or args.spill_packing != "quad"
+            or args.sync_spill):
+        ap.error("--spill-pages / --spill-packing / --sync-spill need the "
+                 "spill tier: port slice 2")
     if args.kv_policy == "auto":
         ap.error("--kv-policy auto needs the AutoTuner: port slice 2")
     device = resolve_device(args.device)

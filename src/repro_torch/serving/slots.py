@@ -336,7 +336,9 @@ class SlotKVCache(CRAMKVCache):
     def slot_reference_state(self, slot: int) -> dict:
         """Per-slot from-scratch rebuild over the slot's own active prefix
         under the per-group applied gate — the bit-exactness oracle,
-        mid-migration states included."""
+        mid-migration states included.  The pack runs on a host copy of
+        the pages, i.e. in its plain version, so on the card the oracle
+        does not go through the kernel it checks."""
         g = self.slot_groups(slot)
         assert g > 0, "empty slot has no reference state"
         lanes = self.group_lanes
@@ -357,7 +359,8 @@ class SlotKVCache(CRAMKVCache):
         else:
             build = (kops.build_cram_cache if self.packing == "pair"
                      else kops.build_cram_cache_quad)
-            packed = build(pages, key=self.key)
+            packed = {k: v.to(self.device)
+                      for k, v in build(pages.cpu(), key=self.key).items()}
             if applied.all():
                 c = {k: packed[k] for k in raw}
             else:

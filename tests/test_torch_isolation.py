@@ -101,6 +101,8 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_launcher_refuses_what_the_slice_lacks():
     from repro_torch.launch import serve
 
-    for argv in (["--slots", "1", "--batch", "2"], ["--kv-policy", "auto"]):
+    for argv in (["--slots", "1", "--batch", "2"], ["--kv-policy", "auto"],
+                 ["--spill-pages", "8"], ["--spill-packing", "pair"],
+                 ["--sync-spill"]):
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
