@@ -8,10 +8,19 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. the card's name and power limit; build of the CUDA kernels from
      `src/repro_torch/csrc` (nvcc, one process per source, in parallel);
-  2. kernels at the phi4-mini-3.8B KV geometry (page 16, 8 KV heads,
-     head_dim 128, 24 query heads): K1/K2 (window pack) bit-exact against
-     their plain versions, K3 (decode on the compressed cache) within
-     atol = rtol = 2e-3 (summation order, __expf) with the bytes exact;
+  2. kernels against their plain versions: at the phi4-mini-3.8B KV
+     geometry (page 16, 8 KV heads, head_dim 128, 24 query heads) K1/K2
+     (window pack) bit-exact and K3 (decode on the compressed cache)
+     within atol = rtol = 2e-3 (summation order, __expf) with the bytes
+     exact; the page codecs' group pack (K1/K2) and unpack (K4/K5)
+     bit-exact at three shapes (one group, six groups and two by three
+     groups of an odd geometry), pack -> unpack the identity where a group
+     fits; K7 (the compressibility scan) bit-exact on all four outputs at
+     1, 301, 1024 and 2^20 lines, two of them at keys other than the
+     default, with every marker class planted and each planted line's class
+     held; K6 (single-sequence decode) within 2e-3 at four slot counts,
+     three of them not a multiple of the lanes, one sequence with no valid
+     token;
   3. the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -19,20 +28,32 @@ Phases, each of which makes the script exit non-zero when it fails:
   4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
      1 incompressible, 1 alternating), 48 decode steps each followed by an
      attend, every attend held against the plain attention on the same
-     state, and the final physical state bit-exact against the per-slot
-     rebuild (which packs with the plain version);
-  5. every kernel launch of phases 3 and 4, held against the plain version
-     on a copy of the inputs that launch was given: K1/K2 bit-exact on all
-     five outputs, K3 within atol = rtol = 2e-3 with the bytes exact;
-  6. timings of every kernel at the shapes phases 3 and 4 gave it, beside
-     its plain version, its bound and, for K3, scaled_dot_product_attention
-     on the materialised K/V: device time (ten calls captured in one CUDA
-     graph, CUDA events, median of 20 replays) and one eager call with the
-     host's dispatch (median of 20 after warm-up).
+     state, K6 on each sequence's physical view at the last step held
+     against that sequence's row of K3's output, and the final physical
+     state bit-exact against the per-slot rebuild (which packs with the
+     plain version); then the page-codec round trip on the last step's
+     physical view: every packed slot through the registry's unpack (K4 or
+     K5) bit-exact against the plain decode, and the unpacked pages
+     through the registry's pack (K1 or K2) back to the same slot and base;
+  5. the compressibility scan of the Fig. 4 memory image at
+     n_lines_each = 2^21 (15,728,640 lines, 1,006,632,960 bytes, resident
+     on the card) in one K7 launch through the `hybrid` codec's scan
+     backend, the first 4,096 lines of each source held against the numpy
+     codec and marker reference, and the Fig. 4 statistics printed;
+  6. every kernel launch of phases 3 to 5, held against the plain version
+     on a copy of the inputs that launch was given (K7 in chunks of 2^20
+     lines over every line): bit-exact for K1, K2, K4, K5 and K7, within
+     atol = rtol = 2e-3 for K3 (bytes exact) and K6;
+  7. timings of every kernel at the shapes phases 3 to 5 gave it, beside
+     its plain version, its bound and, for K3 and K6,
+     scaled_dot_product_attention on the materialised K/V: device time
+     (calls captured in one CUDA graph, CUDA events, median of replays)
+     and one eager call with the host's dispatch; K7's plain version,
+     which walks the image in chunks, is timed eagerly with CUDA events.
 
-Phases 3 and 4 drive four paths (launcher pair, launcher quad, serve
-attend pair, serve attend quad); the launch counters are set to 0 just
-before each and read just after it, and every kernel a path runs must
+Phases 3 to 5 drive seven paths (launcher pair and quad, serve attend pair
+and quad, page codec pair and quad, scan); the launch counters are set to 0
+just before each and read just after it, and every kernel a path runs must
 have launched in it.  The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  It needs one CUDA card and a checkout of
 the repository around it.  `--report PATH` also writes the full report as
@@ -58,23 +79,42 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 PAGE, N_KV, HEAD_DIM, N_HEADS = 16, 8, 128, 24
 ATOL = RTOL = 2e-3
 
+SCAN_LINES_EACH = 2 ** 21       # Fig. 4 corpus: 15,728,640 lines, ~1.0 GB
+SCAN_CHUNK = 2 ** 20            # lines per plain-version chunk on the card
+
+_BDI_CU = "src/repro_torch/csrc/bdi_pack.cu"
+_ATT_CU = "src/repro_torch/csrc/cram_attention.cu"
 KERNELS = {
-    "pack_pair": ("src/repro_torch/csrc/bdi_pack.cu",
-                  "src/repro/kernels/bdi_pack.py:60"),
-    "pack_quad": ("src/repro_torch/csrc/bdi_pack.cu",
-                  "src/repro/kernels/bdi_pack.py:118"),
-    "decode_attention_pair": ("src/repro_torch/csrc/cram_attention.cu",
+    "pack_pair": (_BDI_CU, "src/repro/kernels/bdi_pack.py:60"),
+    "pack_quad": (_BDI_CU, "src/repro/kernels/bdi_pack.py:118"),
+    "decode_attention_pair": (_ATT_CU,
                               "src/repro/kernels/cram_attention.py:309"),
-    "decode_attention_quad": ("src/repro_torch/csrc/cram_attention.cu",
+    "decode_attention_quad": (_ATT_CU,
                               "src/repro/kernels/cram_attention.py:309"),
+    "pack_pair_group": (_BDI_CU, "src/repro/kernels/bdi_pack.py:60"),
+    "pack_quad_group": (_BDI_CU, "src/repro/kernels/bdi_pack.py:118"),
+    "unpack_pair": (_BDI_CU, "src/repro/kernels/bdi_pack.py:75"),
+    "unpack_quad": (_BDI_CU, "src/repro/kernels/bdi_pack.py:133"),
+    "decode_single_pair": (_ATT_CU,
+                           "src/repro/kernels/cram_attention.py:137"),
+    "decode_single_quad": (_ATT_CU,
+                           "src/repro/kernels/cram_attention.py:137"),
+    "compress_scan": ("src/repro_torch/csrc/compress_scan.cu",
+                      "src/repro/kernels/compress_scan.py:280"),
 }
 PACK_OUTPUTS = ("slots", "overflow", "strips", "lay", "fit")
+SCAN_OUTPUTS = ("sizes", "fpc", "bdi", "status")
 # the paths of the main path, each with the kernels it must launch
 PATHS = {
     "launcher_pair": ("pack_pair",),
     "launcher_quad": ("pack_quad",),
-    "serve_attend_pair": ("pack_pair", "decode_attention_pair"),
-    "serve_attend_quad": ("pack_quad", "decode_attention_quad"),
+    "serve_attend_pair": ("pack_pair", "decode_attention_pair",
+                          "decode_single_pair"),
+    "serve_attend_quad": ("pack_quad", "decode_attention_quad",
+                          "decode_single_quad"),
+    "page_codec_pair": ("unpack_pair", "pack_pair_group"),
+    "page_codec_quad": ("unpack_quad", "pack_quad_group"),
+    "scan": ("compress_scan",),
 }
 
 
@@ -87,6 +127,75 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def kernel_resources(cuda_lib) -> list[str]:
+    """One line per compiled kernel: its name and template arguments, its
+    registers and spills, from the build's ptxas report."""
+    import re
+
+    funcs = ("layout_window_kernel", "pack_pages_kernel",
+             "unpack_pages_kernel", "cram_decode_kernel",
+             "cram_decode_single_kernel", "cram_decode_combine",
+             "compress_scan_kernel")
+    lines = []
+    for r in cuda_lib.ptxas_report():
+        mangled = r["kernel"]
+        name = next((f for f in funcs if f"{len(f)}{f}" in mangled), mangled)
+        args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[-1])
+        label = f"{name}<{', '.join(args)}>" if args else name
+        lines.append(f"{label}: {r['registers']} registers, spill stores "
+                     f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+    return sorted(lines)
+
+
+# ------------------------------------------------- the Fig. 4 memory image
+
+def fig4_corpus(n_lines_each: int = 4096, seed: int = 0) -> dict:
+    """A copy of `benchmarks/fig4_compressibility.py:_corpus`: realistic
+    memory contents by source (model weights fp32/bf16, optimizer moments,
+    token ids, pointers, zero-heavy buffers, text, random bytes), each
+    n_lines_each 64-byte lines except bf16 weights (half as many)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_bytes = n_lines_each * 64
+    out = {}
+    w = (rng.standard_normal(n_bytes // 4) * 0.02).astype("<f4")
+    out["weights_fp32"] = w.view(np.uint8)
+    out["weights_bf16"] = np.ascontiguousarray(
+        w.astype("<f4").view("<u4") >> 16).astype("<u2").view(np.uint8)
+    m = (rng.standard_normal(n_bytes // 4) * 1e-8).astype("<f4")
+    m[rng.random(m.shape) < 0.6] = 0.0
+    out["adam_moments"] = m.view(np.uint8)
+    ids = rng.integers(0, 32000, n_bytes // 4).astype("<i4")
+    out["token_ids"] = ids.view(np.uint8)
+    ptr = (2**20 + np.cumsum(rng.integers(0, 64, n_bytes // 8))).astype(
+        "<i8")
+    out["pointers"] = ptr.view(np.uint8)
+    z = np.zeros(n_bytes, np.uint8)
+    nz = rng.random(n_bytes) < 0.05
+    z[nz] = rng.integers(1, 255, int(nz.sum()))
+    out["sparse_zero"] = z
+    txt = rng.choice(
+        np.frombuffer(b"the quick brown fox jumps over 0123456789,. \n",
+                      np.uint8), n_bytes)
+    out["text_ascii"] = txt
+    out["random"] = rng.integers(0, 256, n_bytes).astype(np.uint8)
+    return {k: v[: n_bytes] for k, v in out.items()}
+
+
+def pair_fit_stats(sizes) -> tuple[float, float]:
+    """A copy of `benchmarks/fig4_compressibility.py:pair_fit_stats`:
+    P(adjacent line pair compresses to <=64B, <=60B), the Fig. 4 statistic."""
+    import numpy as np
+
+    from repro_torch.compression.framing import PAYLOAD_BUDGET
+
+    sizes = np.asarray(sizes)
+    n = sizes.shape[0] - sizes.shape[0] % 2
+    pair = sizes[0:n:2] + sizes[1:n:2]
+    return float((pair <= 64).mean()), float((pair <= PAYLOAD_BUDGET).mean())
 
 
 # ------------------------------------------------------------ recording
@@ -105,7 +214,13 @@ class Recorder:
         self.part = "other"
 
     def _clone(self, x):
-        return x.clone() if self.torch.is_tensor(x) else x
+        if self.torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._clone(y) for y in x)
+        if isinstance(x, dict):
+            return {k: self._clone(v) for k, v in x.items()}
+        return x
 
     def wrap(self, name_of, fn, launches: dict):
         def wrapped(*args, **kw):
@@ -118,7 +233,7 @@ class Recorder:
                 self.calls.append({
                     "name": name_of(args, kw), "path": self.path,
                     "part": self.part, "args": inputs, "kw": dict(kw),
-                    "outs": [self._clone(o) for o in outs]})
+                    "outs": self._clone(outs)})
             return outs
         return wrapped
 
@@ -141,13 +256,21 @@ class Recorder:
         for c in self.calls:
             if c["name"] != name or c["path"] not in paths:
                 continue
-            shape = tuple(tuple(a.shape) for a in c["args"]
-                          if hasattr(a, "shape"))
+            shape = tuple(tuple(a.shape) for a in _tensors(c["args"]))
             by_shape.setdefault(shape, []).append(c)
         if not by_shape:
             return None
         first = max(by_shape.values(), key=len)[0]
         return first["args"], first["kw"]
+
+
+def _tensors(args):
+    """The tensors among args, tuples of tensors flattened."""
+    for a in args:
+        if isinstance(a, (tuple, list)):
+            yield from _tensors(a)
+        elif hasattr(a, "shape"):
+            yield a
 
 
 # ----------------------------------------------------------------- timing
@@ -329,7 +452,181 @@ def check_attention(torch, rng, device) -> dict:
     return errs
 
 
-# --------------------------------------------------------- phase 3 / phase 4
+def delta_pages(torch, rng, lanes, lead, page, hkv, d2, device):
+    """`lanes` int16 pages of shape lead + (page, Hkv, D2): every other
+    group within the codec's delta range of its base row, the rest not."""
+    import numpy as np
+
+    g = int(np.prod(lead)) if lead else 1
+    row = rng.integers(-3000, 3000, (g, 1, hkv, d2))
+    spread = 100 if lanes == 2 else 6
+    fits = np.arange(g) % 2 == 0
+    pages = []
+    for _ in range(lanes):
+        noise = np.where(fits[:, None, None, None],
+                         rng.integers(-spread, spread, (g, page, hkv, d2)),
+                         rng.integers(-2**14, 2**14, (g, page, hkv, d2)))
+        pages.append((row + noise).astype("int16"))
+    pages[0][:, 0] = row[:, 0]                  # lane A's token-0 row
+    return [torch.from_numpy(x.reshape(*lead, page, hkv, d2)).to(device)
+            for x in pages]
+
+
+def check_page_codecs(torch, rng, device) -> dict:
+    """The page codecs' group pack (K1/K2) and unpack (K4/K5) against
+    `pagepack`, bit-exact, at three shapes; pack -> unpack the identity on
+    every fitting group.  Returns the largest |difference| by kernel."""
+    from repro_torch.compression import pagepack
+    from repro_torch.kernels import bdi_pack
+
+    errs = {}
+    d2 = 2 * HEAD_DIM
+    shapes = (((), PAGE, N_KV, d2), ((6,), PAGE, N_KV, d2),
+              ((2, 3), 5, 3, 16))
+    for lanes in (2, 4):
+        plain_pack = pagepack.pack_pair if lanes == 2 else pagepack.pack_quad
+        plain_unpack = (pagepack.unpack_pair if lanes == 2
+                        else pagepack.unpack_quad)
+        for lead, page, hkv, dd in shapes:
+            pages = delta_pages(torch, rng, lanes, lead, page, hkv, dd, device)
+            packed, base, ok = bdi_pack.pack_pages_cuda(pages)
+            torch.cuda.synchronize()
+            ok_p, packed_p, base_p = plain_pack(*pages)
+            if not (torch.equal(ok, ok_p) and torch.equal(packed, packed_p)
+                    and torch.equal(base, base_p)):
+                fail(f"group pack lanes={lanes} {lead}: differs from the "
+                     "plain version")
+            got = bdi_pack.unpack_pages_cuda(packed, base, lanes)
+            torch.cuda.synchronize()
+            for j, (a, b) in enumerate(zip(got, plain_unpack(packed, base),
+                                           strict=True)):
+                if not torch.equal(a, b):
+                    fail(f"K{4 if lanes == 2 else 5} {lead} lane {j}: "
+                         "differs from the plain version")
+            g = ok.numel()
+            fit = ok.reshape(g)
+            for a, pg in zip(got, pages, strict=True):
+                if not torch.equal(a.reshape(g, -1)[fit],
+                                   pg.reshape(g, -1)[fit]):
+                    fail(f"lanes={lanes} {lead}: pack -> unpack is not the "
+                         "identity on a fitting group")
+            print(f"kernel check: group pack + unpack lanes={lanes} groups "
+                  f"{lead or '(1)'} of {(page, hkv, dd)} bit-exact, "
+                  f"{int(fit.sum())}/{g} fit, round trip exact")
+        tag = "pair" if lanes == 2 else "quad"
+        errs[f"pack_{tag}_group"] = errs[f"unpack_{tag}"] = 0.0
+    return errs
+
+
+def scan_image(rng, n, key, plant: bool):
+    """(n, 64) uint8 lines of every FPC/BDI family; with `plant`, each
+    marker class at spread slots of `key`'s family.  Returns (lines,
+    {slot: expected LineStatus})."""
+    import numpy as np
+
+    from repro_torch.compression.marker import LineStatus
+    from repro_torch.kernels.compress_scan import (device_il_words,
+                                                   device_markers)
+
+    lines = rng.integers(0, 256, (n, 64)).astype(np.uint8)
+    lines[0::7] = 0
+    lines[1::7] = np.tile(rng.integers(0, 256, 8).astype(np.uint8), 8)
+    for r, elems in ((2, (2**40 + rng.integers(-300, 300, (n, 8))).astype(
+            "<i8")), (3, rng.integers(-100, 100, (n, 16)).astype("<i4")),
+            (4, (1000 + rng.integers(-120, 120, (n, 32))).astype("<i2"))):
+        k = len(lines[r::7])
+        lines[r::7] = elems[:k].view(np.uint8).reshape(k, 64)
+    want = {}
+    if not plant:
+        return lines, want
+    classes = (LineStatus.COMP2, LineStatus.COMP4, LineStatus.INVALID,
+               LineStatus.MAYBE_INVERTED, LineStatus.MAYBE_INVERTED,
+               LineStatus.MAYBE_INVERTED)
+    slots = np.linspace(1, n - 1, 4 * len(classes)).astype(np.int64)
+    m2, m4 = device_markers(slots, key)
+    il = device_il_words(slots, key)
+    for i, slot in enumerate(slots):
+        kind = i % len(classes)
+        tail = (m2[i], m4[i], None, ~m2[i], ~m4[i], None)[kind]
+        if tail is not None:
+            lines[slot, -4:] = np.frombuffer(tail.tobytes(), np.uint8)
+        else:
+            words = il[i] if kind == 2 else ~il[i]
+            lines[slot] = words.astype("<u4").view(np.uint8)
+        want[int(slot)] = int(classes[kind])
+    return lines, want
+
+
+def check_scan(torch, rng, device) -> dict:
+    """K7 against its plain version on the card, bit-exact on all four
+    outputs, at four image sizes and three keys; every marker class planted
+    and each planted line's class held."""
+    import numpy as np
+
+    from repro_torch.compression.marker import LineStatus
+    from repro_torch.kernels import compress_scan as cs
+
+    for n, key, plant in ((1, 0x5EED, False), (301, 0xDEADBEEF, True),
+                          (1024, 0x5EED, True), (2 ** 20, 0x1234ABCD, True)):
+        lines, want = scan_image(rng, n, key, plant)
+        img = torch.from_numpy(lines).to(device)
+        got = cs.compress_scan_cuda(img, key=key)
+        torch.cuda.synchronize()
+        ref = cs.compress_scan_plain(img, key=key)
+        for name in SCAN_OUTPUTS:
+            if not torch.equal(got[name], ref[name]):
+                bad = int((got[name] != ref[name]).sum())
+                fail(f"K7 N={n} key={key:#x}: {name} differs from the plain "
+                     f"version on {bad} lines")
+        status = got["status"].cpu().numpy()
+        for slot, cls in want.items():
+            if status[slot] != cls:
+                fail(f"K7 N={n}: planted slot {slot} classed {status[slot]}, "
+                     f"expected {cls}")
+        if plant and set(status.tolist()) != {int(c) for c in LineStatus}:
+            fail(f"K7 N={n}: classes {sorted(set(status.tolist()))}, "
+                 "expected every LineStatus")
+        if n <= 4096 and not np.array_equal(
+                status, cs.classify_image_ref(lines, key)):
+            fail(f"K7 N={n}: status differs from classify_image_ref")
+        print(f"kernel check: scan N={n} key={key:#x} bit-exact on 4 "
+              f"outputs, {len(want)} planted lines classed as expected, "
+              f"status counts {np.bincount(status, minlength=5).tolist()}")
+    return {"compress_scan": 0.0}
+
+
+def check_single_decode(torch, rng, device) -> dict:
+    """K6 against its plain version within atol = rtol = ATOL at four slot
+    counts (three not a multiple of the lanes) over one sequence's physical
+    view; sequence 1 has no valid token."""
+    from repro_torch.kernels import cram_attention as ca
+
+    errs = {}
+    for lanes in (2, 4):
+        q, slots, strips, markers, valid, _ = attention_inputs(
+            torch, rng, lanes, 3, 4, device)
+        n_all = slots.shape[1]
+        for seq, n in ((0, n_all), (1, n_all - 1), (2, n_all - 3), (0, 1)):
+            args = [x[:n].contiguous() for x in (slots[seq], strips[seq],
+                                                 markers, valid[seq])]
+            out = ca.cram_decode_attention_cuda(q[seq].contiguous(), *args,
+                                                lanes=lanes)
+            torch.cuda.synchronize()
+            ref = ca.cram_decode_attention_plain(q[seq], *args, lanes=lanes)
+            label = f"K6 lanes={lanes} n={n} seq={seq}"
+            if not torch.isfinite(out).all():
+                fail(f"{label}: non-finite output")
+            err = (out - ref).abs().max().item()
+            if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL):
+                fail(f"{label}: max |diff| {err:.3e} beyond atol=rtol={ATOL}")
+            name = f"decode_single_{'pair' if lanes == 2 else 'quad'}"
+            errs[name] = max(errs.get(name, 0.0), err)
+            print(f"kernel check: single decode lanes={lanes} n={n} "
+                  f"(valid tokens {int(args[3].sum())}) max|diff| {err:.3e}")
+    return errs
+
+
+# ------------------------------------------------------- phases 3, 4 and 5
 
 def _timed(torch, walls: dict, outs: dict, name: str, fn):
     """fn, with its wall time (ended by a device synchronise) added to
@@ -466,6 +763,20 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
         worst = max(worst, (got - ref).abs().max().item())
         mean_v = v6[:t + 1].mean(0).repeat_interleave(N_HEADS // N_KV, 0)
         spread = min(spread, (ref[6] - mean_v).abs().max().item())
+    # K6 on each sequence's physical view against its row of K3's output
+    # (the reference's per-sequence parity relation), at the last step
+    qd = torch.from_numpy(q).to(device)
+    single_err = 0.0
+    for i in range(slots):
+        one = ca.cram_decode_attention(qd[i], s[i], st[i], mk, fv[i],
+                                       lanes=lanes)
+        err = (one - got[i]).abs().max().item()
+        if not torch.allclose(one, got[i], atol=ATOL, rtol=RTOL):
+            fail(f"serve attend {packing}: K6 on sequence {i} is {err:.3e} "
+                 "from its row of K3")
+        single_err = max(single_err, err)
+    print(f"serve attend {packing}: K6 on each of {slots} sequences within "
+          f"{single_err:.3e} of K3's row")
     if spread < 10 * ATOL:
         fail(f"serve attend {packing}: the incompressible slot's output is "
              f"within {spread:.3e} of the mean of its V; the check would "
@@ -475,7 +786,116 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
     if (loop.cache.state["traffic"] < 0).any():
         fail(f"serve attend {packing}: a ledger accumulator went negative "
              "(int32 overflow)")
-    return {"loop": loop, "max_abs_err": worst, "spread": spread}
+    return {"loop": loop, "max_abs_err": worst, "spread": spread,
+            "single_vs_batched": single_err, "view": (s, st, mk)}
+
+
+def page_codec_roundtrip(torch, view, packing: str) -> dict:
+    """The registry's page-codec device pair on a serve cache: every slot
+    whose strip marker matches goes through the unpack (K4 or K5), held
+    bit-exact against the plain decode of the physical view; the pages it
+    gives go through the pack (K1 or K2) and must give back the slot, its
+    base row and a fit."""
+    from repro_torch.compression import get_codec
+    from repro_torch.kernels.ref import decode_slots, strip_is_packed
+
+    slots, strips, markers = view
+    lanes = 2 if packing == "pair" else 4
+    pack, unpack = get_codec("int8-delta" if lanes == 2
+                             else "int4-delta").pallas()
+    is_packed = strip_is_packed(strips, markers)
+    d2 = slots.shape[-1]
+    packed = slots[is_packed].contiguous()
+    base = strips[is_packed][..., :d2].contiguous()
+    groups = packed.shape[0]
+    if groups == 0:
+        fail(f"page codec {packing}: no packed slot to round-trip")
+    pages = unpack(packed, base)
+    want = decode_slots(slots, strips, is_packed, lanes)[is_packed]
+    for j, page in enumerate(pages):
+        if not torch.equal(page, want[:, j]):
+            fail(f"page codec {packing}: unpacked lane {j} differs from the "
+                 "plain decode")
+    again, again_base, ok = pack(*pages)
+    if not (bool(ok.all()) and torch.equal(again, packed)
+            and torch.equal(again_base, base)):
+        fail(f"page codec {packing}: pack(unpack(slot)) is not the slot")
+    print(f"page codec {packing}: {groups} packed groups of "
+          f"{is_packed.numel()} slots unpacked bit-exact and packed back to "
+          "the same slots")
+    return {"groups": groups, "slots": is_packed.numel()}
+
+
+def scan_phase(torch, device) -> dict:
+    """The compressibility scan of the Fig. 4 memory image at
+    SCAN_LINES_EACH lines per source, resident on the card, in one launch
+    of the `hybrid` codec's scan backend, as `benchmarks/run.py`'s
+    compress sweep does.  Returns its statistics and wall times."""
+    import numpy as np
+
+    from repro_torch.compression import bdi, fpc, get_codec, hybrid
+    from repro_torch.kernels.compress_scan import classify_image_ref
+
+    t0 = time.perf_counter()
+    names, images = zip(*sorted(fig4_corpus(SCAN_LINES_EACH).items()),
+                        strict=True)
+    lines = np.concatenate([v.reshape(-1, 64) for v in images])
+    t_corpus = time.perf_counter() - t0
+    img = torch.from_numpy(lines).to(device)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0 - t_corpus
+    scan = get_codec("hybrid").scan()
+    t1 = time.perf_counter()
+    out = scan(img)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t1
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    del img
+
+    def stats(sizes, status):
+        p64, p60 = pair_fit_stats(sizes)
+        uniq, cnt = np.unique(status, return_counts=True)
+        return {"pair_fits_64B": p64, "pair_fits_60B": p60,
+                "mean_size": float(sizes.mean()),
+                "status_counts": {int(u): int(c)
+                                  for u, c in zip(uniq, cnt, strict=True)}}
+
+    per_source, ofs = {}, 0
+    for name, image in zip(names, images, strict=True):
+        n = image.size // 64
+        head = image.reshape(-1, 64)[:4096]
+        sl = slice(ofs, ofs + head.shape[0])
+        checks = {"sizes": hybrid.compressed_sizes(head),
+                  "fpc": fpc.fpc_size_bytes(head),
+                  "bdi": bdi.bdi_sizes(head)[0],
+                  "status": classify_image_ref(head, first_slot=ofs)}
+        for key, want in checks.items():
+            if not np.array_equal(host[key][sl], want):
+                fail(f"scan: {name} {key} of the first 4096 lines differs "
+                     "from the numpy reference")
+        per_source[name] = stats(host["sizes"][ofs:ofs + n],
+                                 host["status"][ofs:ofs + n])
+        ofs += n
+    report = {"per_source": per_source,
+              "overall": stats(host["sizes"], host["status"]),
+              "lines_scanned": int(lines.shape[0]),
+              "bytes_scanned": int(lines.nbytes),
+              "wall_s": {"corpus_host": t_corpus, "copy_to_card": t_copy,
+                         "scan": t_scan,
+                         "total": time.perf_counter() - t0}}
+    o = report["overall"]
+    print(f"scan: {report['lines_scanned']} lines ({report['bytes_scanned']} "
+          f"bytes) in one launch; overall pair_fits_64B {o['pair_fits_64B']}"
+          f", pair_fits_60B {o['pair_fits_60B']}, mean size "
+          f"{o['mean_size']}, status counts {o['status_counts']}; first 4096 "
+          "lines of each source equal the numpy codec and marker reference")
+    for name, st in per_source.items():
+        print(f"scan: {name}: p64 {st['pair_fits_64B']}, p60 "
+              f"{st['pair_fits_60B']}, mean size {st['mean_size']}, status "
+              f"{st['status_counts']}")
+    print(f"scan: wall corpus {t_corpus:.2f} s, copy to card {t_copy:.3f} s, "
+          f"scan call {t_scan * 1e3:.3f} ms")
+    return report
 
 
 def check_final_state(torch, loop, packing) -> None:
@@ -497,56 +917,137 @@ def check_final_state(torch, loop, packing) -> None:
           f"slots, decode saving {s['decode_saving']}")
 
 
-# ------------------------------------------ phase 5: the main path's calls
+# ------------------------------------------ phase 6: the main path's calls
+
+def _check_window_pack(torch, label, args, kw, outs):
+    from repro_torch.kernels import bdi_pack
+
+    want = bdi_pack.pack_window_plain(*args)
+    for key, g, r in zip(PACK_OUTPUTS, outs, want, strict=True):
+        if not torch.equal(g, r):
+            fail(f"{label}: {key} differs from the plain version")
+    return 0.0, tuple(args[0].shape), "bit-exact on 5 outputs"
+
+
+def _check_batched_decode(torch, label, args, kw, outs):
+    from repro_torch.kernels import cram_attention as ca
+
+    out, byts = outs
+    ref, ref_b = ca.cram_decode_attention_batched_plain(*args, **kw)
+    err = _close(torch, label, out, ref)
+    if not torch.equal(byts, ref_b):
+        fail(f"{label}: bytes {byts.tolist()} != {ref_b.tolist()}")
+    return err, tuple(args[1].shape), f"within atol=rtol={ATOL}, bytes exact"
+
+
+def _check_single_decode(torch, label, args, kw, outs):
+    from repro_torch.kernels import cram_attention as ca
+
+    ref = ca.cram_decode_attention_plain(*args, **kw)
+    return (_close(torch, label, outs, ref), tuple(args[1].shape),
+            f"within atol=rtol={ATOL}")
+
+
+def _close(torch, label, out, ref) -> float:
+    if not torch.isfinite(out).all():
+        fail(f"{label}: non-finite output")
+    err = (out - ref).abs().max().item()
+    if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL):
+        fail(f"{label}: max |diff| {err:.3e} beyond atol=rtol={ATOL}")
+    return err
+
+
+def _check_group_pack(torch, label, args, kw, outs):
+    from repro_torch.compression import pagepack
+
+    pages = args[0]
+    plain = pagepack.pack_pair if len(pages) == 2 else pagepack.pack_quad
+    ok, packed, base = plain(*pages)
+    for key, g, r in zip(("packed", "base", "ok"), outs, (packed, base, ok),
+                         strict=True):
+        if not torch.equal(g, r):
+            fail(f"{label}: {key} differs from the plain version")
+    return 0.0, tuple(pages[0].shape), "bit-exact on 3 outputs"
+
+
+def _check_unpack(torch, label, args, kw, outs):
+    from repro_torch.compression import pagepack
+
+    packed, base, lanes = args
+    plain = pagepack.unpack_pair if lanes == 2 else pagepack.unpack_quad
+    for j, (g, r) in enumerate(zip(outs, plain(packed, base), strict=True)):
+        if not torch.equal(g, r):
+            fail(f"{label}: lane {j} differs from the plain version")
+    return 0.0, tuple(packed.shape), f"bit-exact on {lanes} pages"
+
+
+def _check_scan(torch, label, args, kw, outs):
+    """The one-launch scan against the plain version on the card, in
+    chunks of SCAN_CHUNK lines (each at its own first slot) over every
+    line."""
+    from repro_torch.kernels import compress_scan as cs
+
+    lines = args[0]
+    for o in range(0, lines.shape[0], SCAN_CHUNK):
+        want = cs.compress_scan_plain(lines[o:o + SCAN_CHUNK], first_slot=o,
+                                      **kw)
+        for key in SCAN_OUTPUTS:
+            if not torch.equal(outs[key][o:o + SCAN_CHUNK], want[key]):
+                fail(f"{label}: {key} differs from the plain version in the "
+                     f"chunk at line {o}")
+    return 0.0, tuple(lines.shape), "bit-exact on 4 outputs, every line"
+
+
+MAIN_PATH_CHECKS = {
+    "pack_pair": _check_window_pack, "pack_quad": _check_window_pack,
+    "decode_attention_pair": _check_batched_decode,
+    "decode_attention_quad": _check_batched_decode,
+    "decode_single_pair": _check_single_decode,
+    "decode_single_quad": _check_single_decode,
+    "pack_pair_group": _check_group_pack, "pack_quad_group": _check_group_pack,
+    "unpack_pair": _check_unpack, "unpack_quad": _check_unpack,
+    "compress_scan": _check_scan,
+}
+
 
 def check_main_path(torch, rec) -> dict:
     """Every launch the main path made, held against the plain version on
-    a copy of its inputs: K1/K2 bit-exact on all five outputs, K3 within
-    atol = rtol = ATOL with the bytes exact.  Returns by kernel the calls
-    checked, their distinct shapes and the largest |difference|."""
-    from repro_torch.kernels import bdi_pack
-    from repro_torch.kernels import cram_attention as ca
-
+    a copy of its inputs (the checker of each kernel above).  Returns by
+    kernel the calls checked, their distinct shapes and the largest
+    |difference|."""
     seen: dict = {}
     for i, c in enumerate(rec.calls):
-        name, args = c["name"], c["args"]
+        name = c["name"]
         label = f"{name} launch {i} ({c['path']}, {c['part']})"
-        if name.startswith("pack"):
-            want = bdi_pack.pack_window_plain(*args)
-            for key, g, r in zip(PACK_OUTPUTS, c["outs"], want, strict=True):
-                if not torch.equal(g, r):
-                    fail(f"{label}: {key} differs from the plain version")
-            err, shape = 0.0, tuple(args[0].shape)
-        else:
-            out, byts = c["outs"]
-            ref, ref_b = ca.cram_decode_attention_batched_plain(*args,
-                                                                **c["kw"])
-            if not torch.isfinite(out).all():
-                fail(f"{label}: non-finite output")
-            err = (out - ref).abs().max().item()
-            if not torch.allclose(out, ref, atol=ATOL, rtol=RTOL):
-                fail(f"{label}: max |diff| {err:.3e} beyond atol=rtol={ATOL}")
-            if not torch.equal(byts, ref_b):
-                fail(f"{label}: bytes {byts.tolist()} != {ref_b.tolist()}")
-            shape = tuple(args[1].shape)
+        err, shape, how = MAIN_PATH_CHECKS[name](torch, label, c["args"],
+                                                 c["kw"], c["outs"])
         s = seen.setdefault(name, {"calls": 0, "shapes": set(),
-                                   "max_abs_err": 0.0})
+                                   "max_abs_err": 0.0, "how": how})
         s["calls"] += 1
         s["shapes"].add(shape)
         s["max_abs_err"] = max(s["max_abs_err"], err)
     for name, s in seen.items():
         s["shapes"] = sorted(s["shapes"])
-        exact = ("bit-exact on 5 outputs" if name.startswith("pack")
-                 else f"max|diff| {s['max_abs_err']:.3e}, bytes exact")
         print(f"main-path check: {name}: {s['calls']} launches at "
-              f"{len(s['shapes'])} shapes {s['shapes']}, {exact}")
+              f"{len(s['shapes'])} shapes {s['shapes']}, max|diff| "
+              f"{s['max_abs_err']:.3e} {s.pop('how')}")
     return seen
 
 
-# -------------------------------------------------------- phase 6: timings
+# -------------------------------------------------------- phase 7: timings
 
-def pack_bound(saved) -> tuple[float, str]:
-    win, mk, en = saved[0][:3]
+def _bound(moved: int) -> tuple[float, str]:
+    """Every kernel's floor is counted in bytes (each input read once, each
+    output written once, over 3.35 TB/s): integer compares and shifts (K1,
+    K2, K4, K5) and per live position 4 flops per element against 2 bytes
+    of K||V (K3, K6) are far below the card's rates for the bytes they
+    move; K7's integer work has no row in the peak-rate table the port
+    measures against, so its bytes (80 per line) are the floor counted."""
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def pack_bound(args) -> tuple[float, str]:
+    win, mk, en = args[:3]
     b, w, lanes, page, hkv, d2 = win.shape
     moved = (nbytes(win) + nbytes(mk) + nbytes(en)       # read
              + nbytes(win)                               # slots + overflow
@@ -554,16 +1055,12 @@ def pack_bound(saved) -> tuple[float, str]:
     return _bound(moved)
 
 
-def _bound(moved: int) -> tuple[float, str]:
-    """All three kernels are bound by bytes: integer compares and shifts
-    (K1/K2), and per live position 4 flops per element against 2 bytes of
-    K||V (K3), are far below the card's rates for the bytes they move."""
-    return moved / HBM_BYTES_PER_S * 1e3, "bytes"
-
-
-def attention_bound(torch, saved) -> tuple[float, str]:
-    q, slots, strips, markers, valid, pred = saved[0]
-    shared = saved[1].get("shared_cache", False)
+def attention_bound(torch, args, kw) -> tuple[float, str]:
+    """K3 and (with pred None and a batch of one) K6: the live rows of the
+    slots this run's valid counts reach, their strips, q, markers, valid,
+    the predictor and the outputs."""
+    q, slots, strips, markers, valid, pred = args
+    shared = kw.get("shared_cache", False)
     b, hq, d = q.shape
     n, page, hkv, d2 = slots.shape[-4:]
     v = valid if not shared else valid[None]
@@ -572,19 +1069,19 @@ def attention_bound(torch, saved) -> tuple[float, str]:
     rows = int(torch.where(dead, torch.full_like(top, page), top).sum())
     live_slots = int((torch.where(dead, torch.ones_like(top), top) > 0).sum())
     moved = (nbytes(q) + rows * hkv * d2 * 2 + live_slots * hkv * (d2 + 2) * 2
-             + nbytes(markers) + nbytes(valid) + nbytes(pred)
-             + b * hq * d * 4 + b * 8)
+             + nbytes(markers) + nbytes(valid) + b * hq * d * 4)
+    if pred is not None:
+        moved += nbytes(pred) + b * 8                      # + the byte pair
     return _bound(moved)
 
 
-def sdpa_call(torch, saved):
+def sdpa_call(torch, args, kw):
     """scaled_dot_product_attention on the already-materialised bf16 K/V of
     the same inputs, as a zero-argument call (a yardstick; the port never
     calls it)."""
     from repro_torch.kernels.ref import decode_slots, strip_is_packed
 
-    q, slots, strips, markers, valid, _ = saved[0]
-    kw = saved[1]
+    q, slots, strips, markers, valid = args[:5]
     lanes = kw["lanes"]
     b, hq, d = q.shape
     if kw.get("shared_cache"):
@@ -605,43 +1102,94 @@ def sdpa_call(torch, saved):
     return lambda: f(qb, k, vv, attn_mask=mask)
 
 
-def _times(torch, row: dict, key: str, fn) -> None:
-    """row[key + "ms"]: device time of one call (CUDA graph replay);
-    row[key + "call_ms"]: one eager call, host dispatch included."""
-    row[key + "ms"] = device_ms(torch, fn)
-    row[key + "call_ms"] = call_ms(torch, fn)
+def timing_spec(torch, name, args, kw) -> dict:
+    """For kernel `name` on the inputs of one main-path launch: its shape,
+    the kernel call, the plain call, the library call (or None) and the
+    bound."""
+    from repro_torch.compression import pagepack
+    from repro_torch.kernels import bdi_pack
+    from repro_torch.kernels import compress_scan as cs
+    from repro_torch.kernels import cram_attention as ca
+
+    if name in ("pack_pair", "pack_quad"):
+        return {"shape": args[0].shape,
+                "kernel": lambda: bdi_pack.pack_window_cuda(*args),
+                "plain": lambda: bdi_pack.pack_window_plain(*args),
+                "library": None, "bound": pack_bound(args)}
+    if name.startswith("decode_attention"):
+        return {"shape": args[1].shape,
+                "kernel": lambda: ca.cram_decode_attention_batched_cuda(
+                    *args, **kw),
+                "plain": lambda: ca.cram_decode_attention_batched_plain(
+                    *args, **kw),
+                "library": sdpa_call(torch, args, kw),
+                "bound": attention_bound(torch, args, kw)}
+    if name.startswith("decode_single"):
+        one = (args[0][None], args[1][None], args[2][None], args[3],
+               args[4][None], None)
+        return {"shape": args[1].shape,
+                "kernel": lambda: ca.cram_decode_attention_cuda(*args, **kw),
+                "plain": lambda: ca.cram_decode_attention_plain(*args, **kw),
+                "library": sdpa_call(torch, one, kw),
+                "bound": attention_bound(torch, one, kw)}
+    if name.endswith("_group"):
+        pages = args[0]
+        plain = pagepack.pack_pair if len(pages) == 2 else pagepack.pack_quad
+        groups = pages[0].numel() // math.prod(pages[0].shape[-3:])
+        moved = (sum(nbytes(x) for x in pages) + nbytes(pages[0])
+                 + nbytes(pages[0][..., 0, :, :]) + 4 * groups)
+        return {"shape": pages[0].shape,
+                "kernel": lambda: bdi_pack.pack_pages_cuda(pages),
+                "plain": lambda: plain(*pages), "library": None,
+                "bound": _bound(moved)}
+    if name.startswith("unpack"):
+        packed, base, lanes = args
+        plain = pagepack.unpack_pair if lanes == 2 else pagepack.unpack_quad
+        moved = nbytes(packed) + nbytes(base) + lanes * nbytes(packed)
+        return {"shape": packed.shape,
+                "kernel": lambda: bdi_pack.unpack_pages_cuda(packed, base,
+                                                             lanes),
+                "plain": lambda: plain(packed, base), "library": None,
+                "bound": _bound(moved)}
+    lines = args[0]
+    n = lines.shape[0]
+    return {"shape": lines.shape,
+            "kernel": lambda: cs.compress_scan_cuda(lines, **kw),
+            "plain": lambda: [cs.compress_scan_plain(
+                lines[o:o + SCAN_CHUNK], first_slot=o, **kw)
+                for o in range(0, n, SCAN_CHUNK)],
+            "library": None, "bound": _bound(n * 64 + 4 * 4 * n)}
 
 
 def timing_rows(torch, rec, phase: str, paths) -> dict:
     """Device and eager-call times of every kernel at the most frequent
     shape the main path gave it, beside its plain version, its bound and,
-    for K3, the library call."""
-    from repro_torch.kernels import bdi_pack
-    from repro_torch.kernels import cram_attention as ca
-
+    for K3 and K6, the library call.  The scan's plain version walks a
+    gigabyte in chunks and is timed eagerly (CUDA events around the call,
+    three calls after one warm-up), not in a CUDA graph."""
     rows = {}
-    for name in ("pack_pair", "pack_quad"):
+    for name in KERNELS:
         saved = rec.most_frequent(name, paths)
         if saved is None:
             continue
-        args = saved[0]
-        r = rows[name] = {"shape": list(args[0].shape), "library_ms": None,
-                          "library_call_ms": None}
-        _times(torch, r, "", lambda: bdi_pack.pack_window_cuda(*args))
-        _times(torch, r, "plain_", lambda: bdi_pack.pack_window_plain(*args))
-        r["bound_ms"], r["bound_by"] = pack_bound(saved)
-    for name in ("decode_attention_pair", "decode_attention_quad"):
-        saved = rec.most_frequent(name, paths)
-        if saved is None:
-            continue
-        args, kw = saved
-        r = rows[name] = {"shape": list(args[1].shape)}
-        _times(torch, r, "", lambda: ca.cram_decode_attention_batched_cuda(
-            *args, **kw))
-        _times(torch, r, "plain_",
-               lambda: ca.cram_decode_attention_batched_plain(*args, **kw))
-        _times(torch, r, "library_", sdpa_call(torch, saved))
-        r["bound_ms"], r["bound_by"] = attention_bound(torch, saved)
+        spec = timing_spec(torch, name, *saved)
+        r = rows[name] = {"shape": list(spec["shape"])}
+        big = name == "compress_scan"
+        r["ms"] = device_ms(torch, spec["kernel"], reps=10 if big else 20,
+                            inner=3 if big else 10)
+        r["call_ms"] = call_ms(torch, spec["kernel"], reps=5 if big else 20)
+        if big:
+            r["plain_ms"] = r["plain_call_ms"] = call_ms(
+                torch, spec["plain"], reps=3, warmup=1)
+        else:
+            r["plain_ms"] = device_ms(torch, spec["plain"])
+            r["plain_call_ms"] = call_ms(torch, spec["plain"])
+        if spec["library"] is None:
+            r["library_ms"] = r["library_call_ms"] = None
+        else:
+            r["library_ms"] = device_ms(torch, spec["library"])
+            r["library_call_ms"] = call_ms(torch, spec["library"])
+        r["bound_ms"], r["bound_by"] = spec["bound"]
 
     def fmt(x):
         return "none" if x is None else f"{x:.4f} ms"
@@ -680,6 +1228,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch.kernels import bdi_pack, cuda_lib
+    from repro_torch.kernels import compress_scan as cs
     from repro_torch.kernels import cram_attention as ca
 
     t_start = time.perf_counter()
@@ -695,13 +1244,19 @@ def main(argv=None) -> int:
     # phase 1: build
     cuda_lib.load()
     print(f"build: {cuda_lib.build_seconds():.2f} s")
+    for line in kernel_resources(cuda_lib):
+        print(f"build: {line}")
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
     errs = {**check_pack(torch, rng, device),
-            **check_attention(torch, rng, device)}
+            **check_attention(torch, rng, device),
+            **check_page_codecs(torch, rng, device),
+            **check_scan(torch, rng, device),
+            **check_single_decode(torch, rng, device)}
+    print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 + 4: four paths, each with the launch counters from 0
+    # phases 3 to 5: seven paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -712,12 +1267,26 @@ def main(argv=None) -> int:
         lambda a, kw: ("decode_attention_pair" if kw.get("lanes", 2) == 2
                        else "decode_attention_quad"),
         ca.cram_decode_attention_batched_cuda, ca.LAUNCHES)
+    ca.cram_decode_attention_cuda = rec.wrap(
+        lambda a, kw: ("decode_single_pair" if kw.get("lanes", 2) == 2
+                       else "decode_single_quad"),
+        ca.cram_decode_attention_cuda, ca.LAUNCHES)
+    bdi_pack.pack_pages_cuda = rec.wrap(
+        lambda a, kw: ("pack_pair_group" if len(a[0]) == 2
+                       else "pack_quad_group"),
+        bdi_pack.pack_pages_cuda, bdi_pack.LAUNCHES)
+    bdi_pack.unpack_pages_cuda = rec.wrap(
+        lambda a, kw: "unpack_pair" if a[2] == 2 else "unpack_quad",
+        bdi_pack.unpack_pages_cuda, bdi_pack.LAUNCHES)
+    cs.compress_scan_cuda = rec.wrap(lambda a, kw: "compress_scan",
+                                     cs.compress_scan_cuda, cs.LAUNCHES)
+    launches = (bdi_pack.LAUNCHES, ca.LAUNCHES, cs.LAUNCHES)
     for part in ("prefill", "step_all", "attend"):
         setattr(ServeLoop, part, rec.wrap_part(part, getattr(ServeLoop, part)))
     by_path: dict = {}
 
     def drive(path, fn):
-        for counts in (bdi_pack.LAUNCHES, ca.LAUNCHES):
+        for counts in launches:
             for key in counts:
                 counts[key] = 0
         rec.path = path
@@ -725,7 +1294,7 @@ def main(argv=None) -> int:
             result = fn()
         finally:
             rec.path = None
-        got = {**bdi_pack.LAUNCHES, **ca.LAUNCHES}
+        got = {k: v for counts in launches for k, v in counts.items()}
         for name in PATHS[path]:
             if got[name] == 0:
                 fail(f"{path}: the {name} kernel never launched")
@@ -767,23 +1336,43 @@ def main(argv=None) -> int:
         phases[packing] = drive(
             f"serve_attend_{packing}",
             lambda p=packing: serve_attend_phase(torch, p, device))
+    codec = {}
     for packing, ph in phases.items():
         check_final_state(torch, ph["loop"], packing)
         print(f"serve attend {packing}: attend max |diff| vs plain "
               f"{ph['max_abs_err']:.3e}")
+        codec[packing] = drive(
+            f"page_codec_{packing}",
+            lambda v=ph["view"], p=packing: page_codec_roundtrip(torch, v, p))
+    t0 = time.perf_counter()
+    scan_report = drive("scan", lambda: scan_phase(torch, device))
+    if by_path["scan"]["compress_scan"]["launches"] != 1:
+        fail(f"scan: {by_path['scan']} launches, expected exactly one")
+    print(f"scan path: {time.perf_counter() - t0:.1f} s")
 
-    # phase 5: every launch of phases 3 and 4 against its plain version
+    # phase 6: every launch of phases 3 to 5 against its plain version
+    t0 = time.perf_counter()
     main_path = check_main_path(torch, rec)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
-    # phase 6: timings at the shapes of phases 3 and 4
-    launcher_rows = timing_rows(torch, rec, "launcher",
-                                ("launcher_pair", "launcher_quad"))
-    serve_rows = timing_rows(torch, rec, "serve-attend",
-                             ("serve_attend_pair", "serve_attend_quad"))
+    # phase 7: timings at the shapes of phases 3 to 5
+    t0 = time.perf_counter()
+    timing = {
+        "launcher": timing_rows(torch, rec, "launcher",
+                                ("launcher_pair", "launcher_quad")),
+        "serve-attend": timing_rows(torch, rec, "serve-attend",
+                                    ("serve_attend_pair",
+                                     "serve_attend_quad")),
+        "page-codec": timing_rows(torch, rec, "page-codec",
+                                  ("page_codec_pair", "page_codec_quad")),
+        "scan": timing_rows(torch, rec, "scan", ("scan",))}
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    main_rows = {**timing["serve-attend"], **timing["page-codec"],
+                 **timing["scan"]}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        r = serve_rows[name]
+        r = main_rows[name]
         paths = {path: per[name] for path, per in by_path.items()
                  if name in per}
         kernels.append({
@@ -799,9 +1388,12 @@ def main(argv=None) -> int:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
             {"card": card, "launcher": reports, "kernels": kernels,
-             "main_path_checks": main_path,
-             "timing": {"launcher": launcher_rows,
-                        "serve-attend": serve_rows}}, indent=1))
+             "ptxas": cuda_lib.ptxas_report(),
+             "main_path_checks": main_path, "scan": scan_report,
+             "page_codec": codec,
+             "single_vs_batched": {p: ph["single_vs_batched"]
+                                   for p, ph in phases.items()},
+             "timing": timing}, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-// K3: batched decode attention over the CRAM-packed paged KV cache.
+// K3: batched decode attention over the CRAM-packed paged KV cache, and
+// K6: the single-sequence decode over one sequence's physical slots.
 //
-// Replaces the Pallas kernel repro/kernels/cram_attention.py:_batched_kernel
+// K3 replaces the Pallas kernel repro/kernels/cram_attention.py:_batched_kernel
 // (cram_decode_attention_batched).  Inputs are the flat physical view that
 // kernels/ops.py:physical_view / physical_view_quad builds:
 //
@@ -9,6 +10,12 @@
 //   i32, with Bc = 1 for a shared cache and B otherwise
 //   -> out (B, Hq, D) f32 and bytes (B, 2) i32 = (raw, cram) bytes the step
 //      moves for exactly the layout walked, LLP re-probe included.
+//
+// K6 replaces repro/kernels/cram_attention.py:_kernel (cram_decode_attention,
+// grid=(n,)): q (Hq, D) f32 and one sequence's slots (n, page, Hkv, D2),
+// strips, markers (n,), valid (n, LANES) -> out (Hq, D) f32, with no
+// predictor and no bytes, at any n (n need not be a multiple of LANES).
+// Its entry shares K3's device body (decode_split) and merge kernel.
 //
 // Per flat slot: the marker check over all Hkv strip tails (uint32 compare),
 // the delta decode of the head's LANES pages, the split of bf16 K||V, the
@@ -22,13 +29,14 @@
 // token, far below the card's operations-per-byte balance, so the floor is
 // the live slot rows + strips + q / 3.35 TB/s.  Design: a grid of
 // (B, Hkv, splits); each CTA owns the G query heads of one KV head and
-// walks block_groups * LANES flat slots, so block_groups only changes the
-// order of the float sums.  Each warp takes a token row, loads it once
-// (D/32 elements of K and of V per lane) and decodes all LANES pages from
-// it in registers; the scores reduce with warp shuffles; every warp keeps
-// its own online-softmax state, the warps are merged through shared memory
-// and a second small kernel merges the splits.  The byte pair is summed in
-// integers by thread 0 of the head-0 CTAs and added with atomicAdd.
+// walks kk flat slots (the last split may be shorter), so the split width
+// only changes the order of the float sums.  Each warp takes a token row,
+// loads it once (D/32 elements of K and of V per lane) and decodes all LANES
+// pages from it in registers; the scores reduce with warp shuffles; every
+// warp keeps its own online-softmax state, the warps are merged through
+// shared memory and a second small kernel merges the splits.  K3's byte
+// pair is summed in integers by thread 0 of the head-0 CTAs and added with
+// atomicAdd.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,25 +65,20 @@ __device__ __forceinline__ int decode_lane(int raw, int base, int j, bool packed
   return (int)(int16_t)(uint16_t)(uint32_t)(base + delta);
 }
 
-template <int LANES, int DPL>
-__global__ void __launch_bounds__(WARPS * 32)
-cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slots,
-                   const int16_t* __restrict__ strips,
-                   const int32_t* __restrict__ markers,
-                   const int32_t* __restrict__ valid,
-                   const int32_t* __restrict__ pred, int n, int page, int hkv,
-                   int G, int kk, int shared, float scale, int slot_bytes,
-                   int strip_bytes, float* __restrict__ part_m,
-                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                   int32_t* __restrict__ bytes) {
+// One CTA's split: query heads h*G .. h*G+G-1 of sequence b (cache row bs)
+// over the flat slots [j*kk, min((j+1)*kk, n)); BYTES adds K3's byte pair.
+template <int LANES, int DPL, bool BYTES>
+__device__ __forceinline__ void decode_split(
+    const float* __restrict__ q, const int16_t* __restrict__ slots,
+    const int16_t* __restrict__ strips, const int32_t* __restrict__ markers,
+    const int32_t* __restrict__ valid, const int32_t* __restrict__ pred, int b,
+    int bs, int h, int j, int nj, int n, int page, int hkv, int G, int kk,
+    float scale, int slot_bytes, int strip_bytes, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    int32_t* __restrict__ bytes) {
   constexpr int D = 32 * DPL;
   constexpr int D2 = 2 * D;
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int j = blockIdx.z;
-  const int nj = gridDim.z;
   const int hq = hkv * G;
-  const int bs = shared ? 0 : b;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -103,7 +106,8 @@ cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slot
   }
   uint32_t raw_b = 0, cram_b = 0;
 
-  for (int s = j * kk; s < (j + 1) * kk; ++s) {
+  const int s_end = min((j + 1) * kk, n);
+  for (int s = j * kk; s < s_end; ++s) {
     const int16_t* st = strips + ((long long)bs * n + s) * hkv * srow;
     int ok = 1;
     for (int hh = tid; hh < hkv; hh += blockDim.x) {
@@ -119,7 +123,7 @@ cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slot
       vc[q2] = vseq[s * LANES + q2];
       top = max(top, vc[q2]);
     }
-    if (h == 0 && tid == 0) {
+    if (BYTES && h == 0 && tid == 0) {
       // flat-slot form of the ops.hbm_bytes_moved group model
       uint32_t n_live = 0;
 #pragma unroll
@@ -184,7 +188,7 @@ cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slot
     }
   }
 
-  if (h == 0 && tid == 0) {
+  if (BYTES && h == 0 && tid == 0) {
     atomicAdd(reinterpret_cast<unsigned int*>(bytes + 2 * b), raw_b);
     atomicAdd(reinterpret_cast<unsigned int*>(bytes + 2 * b + 1), cram_b);
   }
@@ -222,6 +226,42 @@ cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slot
       part_l[idx] = lsum;
     }
   }
+}
+
+template <int LANES, int DPL>
+__global__ void __launch_bounds__(WARPS * 32)
+cram_decode_kernel(const float* __restrict__ q, const int16_t* __restrict__ slots,
+                   const int16_t* __restrict__ strips,
+                   const int32_t* __restrict__ markers,
+                   const int32_t* __restrict__ valid,
+                   const int32_t* __restrict__ pred, int n, int page, int hkv,
+                   int G, int kk, int shared, float scale, int slot_bytes,
+                   int strip_bytes, float* __restrict__ part_m,
+                   float* __restrict__ part_l, float* __restrict__ part_acc,
+                   int32_t* __restrict__ bytes) {
+  const int b = blockIdx.x;
+  decode_split<LANES, DPL, true>(q, slots, strips, markers, valid, pred, b,
+                                 shared ? 0 : b, blockIdx.y, blockIdx.z,
+                                 gridDim.z, n, page, hkv, G, kk, scale,
+                                 slot_bytes, strip_bytes, part_m, part_l,
+                                 part_acc, bytes);
+}
+
+template <int LANES, int DPL>
+__global__ void __launch_bounds__(WARPS * 32)
+cram_decode_single_kernel(const float* __restrict__ q,
+                          const int16_t* __restrict__ slots,
+                          const int16_t* __restrict__ strips,
+                          const int32_t* __restrict__ markers,
+                          const int32_t* __restrict__ valid, int n, int page,
+                          int hkv, int G, int kk, float scale,
+                          float* __restrict__ part_m,
+                          float* __restrict__ part_l,
+                          float* __restrict__ part_acc) {
+  decode_split<LANES, DPL, false>(q, slots, strips, markers, valid, nullptr, 0,
+                                  0, blockIdx.x, blockIdx.y, gridDim.y, n,
+                                  page, hkv, G, kk, scale, 0, 0, part_m,
+                                  part_l, part_acc, nullptr);
 }
 
 __global__ void cram_decode_combine(const float* __restrict__ part_m,
@@ -303,5 +343,40 @@ extern "C" int cram_decode_attention(const void* q, const void* slots,
   cram_decode_combine<<<B * hq, D < 1024 ? D : 1024, 0, s>>>(
       (const float*)part_m, (const float*)part_l, (const float*)part_acc, nj, D,
       (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cram_decode_attention_single(const void* q, const void* slots,
+                                            const void* strips,
+                                            const void* markers,
+                                            const void* valid, int hq, int D,
+                                            int n, int page, int hkv, int lanes,
+                                            int kk, float scale, void* part_m,
+                                            void* part_l, void* part_acc,
+                                            void* out, void* stream) {
+  if (n <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > MAXG || kk <= 0 ||
+      (D != 64 && D != 128) || (lanes != 2 && lanes != 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int G = hq / hkv;
+  const int nj = (n + kk - 1) / kk;
+  const dim3 grid(hkv, nj);
+#define CRAM_SINGLE(LANES, DPL)                                                \
+  cram_decode_single_kernel<LANES, DPL><<<grid, WARPS * 32, 0, s>>>(          \
+      (const float*)q, (const int16_t*)slots, (const int16_t*)strips,          \
+      (const int32_t*)markers, (const int32_t*)valid, n, page, hkv, G, kk,     \
+      scale, (float*)part_m, (float*)part_l, (float*)part_acc)
+  if (lanes == 2) {
+    if (D == 64) CRAM_SINGLE(2, 2); else CRAM_SINGLE(2, 4);
+  } else {
+    if (D == 64) CRAM_SINGLE(4, 2); else CRAM_SINGLE(4, 4);
+  }
+#undef CRAM_SINGLE
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  cram_decode_combine<<<hq, D, 0, s>>>((const float*)part_m,
+                                       (const float*)part_l,
+                                       (const float*)part_acc, nj, D,
+                                       (float*)out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,6 @@
-"""The CRAM-KV kernels: K1/K2 window pack (`bdi_pack`), K3 decode on the
-compressed cache (`cram_attention`), their wrappers (`ops`,
+"""The CRAM kernels: K1/K2 window pack and the page codecs' group pack and
+K4/K5 unpack (`bdi_pack`), K3 batched and K6 single-sequence decode on the
+compressed cache (`cram_attention`), K7 the one-pass compressibility scan
+of a memory image (`compress_scan`), their wrappers (`ops`,
 `prefill_pack`), the plain oracles (`ref`) and the CUDA build
 (`cuda_lib`)."""

@@ -1,17 +1,27 @@
-"""K1 / K2: the window pack (pair int8-delta 2:1, quad int4-delta 4:1).
+"""K1 / K2: the window pack (pair int8-delta 2:1, quad int4-delta 4:1),
+and the page codecs' device pair: group pack (K1 / K2) and unpack (K4 / K5).
 
-Port of `repro.kernels.bdi_pack.pack_pair` / `pack_quad` together with
-the (B, W) vmap and framing of `repro.kernels.ops.pack_window` /
-`pack_quad_window`: one launch lays a whole gathered window.  The CUDA
-kernel is `csrc/bdi_pack.cu`; `pack_window_plain` is the plain PyTorch
-version of the same function.
+`pack_window` ports `repro.kernels.bdi_pack.pack_pair` / `pack_quad`
+together with the (B, W) vmap and framing of `repro.kernels.ops.
+pack_window` / `pack_quad_window`: one launch lays a whole gathered window;
+`pack_window_plain` is its plain PyTorch version.
 
-`pack_window` dispatches on the tensor's device: a CPU tensor runs the
-plain version, a CUDA tensor launches the kernel or raises.  There is no
-fallback between the two.
+`pack_pair` / `pack_quad` / `unpack_pair` / `unpack_quad` are the
+registry's device backends of the int8-delta and int4-delta codecs
+(`compression/codecs.py`), with the reference's return conventions:
+pack -> (packed, base, ok), the truncated deltas written whatever ok says;
+unpack -> the tuple of pages.  Any leading axes are a group axis walked in
+one launch (the reference batches the single-group kernel with a vmap).
+Their plain versions are `compression.pagepack`'s.
+
+The CUDA kernels are in `csrc/bdi_pack.cu`.  Every entry dispatches on the
+tensor's device: a CPU tensor runs the plain version, a CUDA tensor
+launches the kernel or raises.  There is no fallback between the two.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,7 +30,8 @@ from ..compression.framing import MARKER_LANES
 from . import cuda_lib
 
 # kernel launches, by kernel; only the CUDA path counts
-LAUNCHES = {"pack_pair": 0, "pack_quad": 0}
+LAUNCHES = {"pack_pair": 0, "pack_quad": 0, "pack_pair_group": 0,
+            "pack_quad_group": 0, "unpack_pair": 0, "unpack_quad": 0}
 
 
 def pack_window_plain(win, marker_lanes, enabled):
@@ -100,3 +111,93 @@ def pack_window(win, marker_lanes, enabled):
     if win.device.type == "cpu":
         return pack_window_plain(win, marker_lanes, enabled)
     return pack_window_cuda(win, marker_lanes, enabled)
+
+
+# ------------------------------------------------- the page codecs' device pair
+
+def _groups(shape, name):
+    """(leading shape, groups, page, hkv, d2) of a (..., page, Hkv, D2)
+    tensor shape; D2 must fill 16-byte vectors."""
+    if len(shape) < 3:
+        raise ValueError(f"{name} must be (..., page, Hkv, D2), got {shape}")
+    lead, (page, hkv, d2) = tuple(shape[:-3]), tuple(shape[-3:])
+    if d2 % 8:
+        raise ValueError(f"D2={d2} must be a multiple of 8 (16-byte vectors)")
+    return lead, math.prod(lead), page, hkv, d2
+
+
+def pack_pages_cuda(pages):
+    """`lanes` (..., page, Hkv, D2) int16 CUDA pages -> (packed, base
+    (..., Hkv, D2), ok (...) bool), deltas written whatever ok says."""
+    lanes = len(pages)
+    if lanes not in (2, 4):
+        raise ValueError(f"a group is 2 or 4 pages, got {lanes}")
+    lead, g, page, hkv, d2 = _groups(tuple(pages[0].shape), "pages")
+    for i, pg in enumerate(pages):
+        _check(pg, f"page {i}", torch.int16, pages[0].shape)
+    dev = pages[0].device
+    packed = torch.empty(pages[0].shape, dtype=torch.int16, device=dev)
+    base = torch.empty((*lead, hkv, d2), dtype=torch.int16, device=dev)
+    ok = torch.ones(lead, dtype=torch.int32, device=dev)
+    if g * page * hkv * d2 == 0:
+        return packed, base, ok.bool()
+    p = cuda_lib.ptr
+    quad = pages if lanes == 4 else (*pages, None, None)
+    code = cuda_lib.load().cram_pack_pages(
+        *(None if x is None else p(x) for x in quad), g, lanes, page, hkv, d2,
+        p(packed), p(base), p(ok), cuda_lib.stream_ptr(packed))
+    cuda_lib.check(code, "cram_pack_pages")
+    LAUNCHES["pack_pair_group" if lanes == 2 else "pack_quad_group"] += 1
+    return packed, base, ok.bool()
+
+
+def unpack_pages_cuda(packed, base, lanes: int):
+    """packed (..., page, Hkv, D2) int16 + base (..., Hkv, D2) on the card
+    -> `lanes` (..., page, Hkv, D2) int16 pages."""
+    if lanes not in (2, 4):
+        raise ValueError(f"lanes must be 2 or 4, got {lanes}")
+    lead, g, page, hkv, d2 = _groups(tuple(packed.shape), "packed")
+    _check(packed, "packed", torch.int16, packed.shape)
+    _check(base, "base", torch.int16, (*lead, hkv, d2))
+    out = torch.empty((lanes, *packed.shape), dtype=torch.int16,
+                      device=packed.device)
+    if g * page * hkv * d2:
+        p = cuda_lib.ptr
+        code = cuda_lib.load().cram_unpack_pages(
+            p(packed), p(base), g, lanes, page, hkv, d2, p(out),
+            cuda_lib.stream_ptr(packed))
+        cuda_lib.check(code, "cram_unpack_pages")
+        LAUNCHES["unpack_pair" if lanes == 2 else "unpack_quad"] += 1
+    return tuple(out.unbind(0))
+
+
+def pack_pair(page_a, page_b):
+    """Pair pack (K1, the int8-delta codec's device pack): -> (packed,
+    base, ok)."""
+    if page_a.device.type == "cpu":
+        ok, packed, base = pagepack.pack_pair(page_a, page_b)
+        return packed, base, ok
+    return pack_pages_cuda((page_a, page_b))
+
+
+def pack_quad(page_a, page_b, page_c, page_d):
+    """Quad pack (K2, the int4-delta codec's device pack): -> (packed,
+    base, ok)."""
+    if page_a.device.type == "cpu":
+        ok, packed, base = pagepack.pack_quad(page_a, page_b, page_c, page_d)
+        return packed, base, ok
+    return pack_pages_cuda((page_a, page_b, page_c, page_d))
+
+
+def unpack_pair(packed, base):
+    """K4: inverse of pack_pair -> (page_a, page_b)."""
+    if packed.device.type == "cpu":
+        return pagepack.unpack_pair(packed, base)
+    return unpack_pages_cuda(packed, base, 2)
+
+
+def unpack_quad(packed, base):
+    """K5: inverse of pack_quad -> (page_a, page_b, page_c, page_d)."""
+    if packed.device.type == "cpu":
+        return pagepack.unpack_quad(packed, base)
+    return unpack_pages_cuda(packed, base, 4)

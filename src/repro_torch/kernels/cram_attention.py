@@ -1,6 +1,7 @@
-"""K3: batched decode attention over the CRAM-packed paged cache.
+"""K3: batched decode attention over the CRAM-packed paged cache, and K6:
+the single-sequence decode.
 
-Port of `repro.kernels.cram_attention.cram_decode_attention_batched`:
+K3 ports `repro.kernels.cram_attention.cram_decode_attention_batched`:
 per flat slot, the strip-tail marker check (implicit metadata), the delta
 decode of the packed pages, the split of bf16 K||V, GQA, the valid mask
 and the softmax; the second output is the per-sequence (raw, cram) bytes
@@ -11,6 +12,12 @@ The CUDA kernel is `csrc/cram_attention.cu`;
 softmax pass over the whole sequence, as the reference's oracle).
 `cram_decode_attention_batched` dispatches on the device of `q`: CPU runs
 the plain version, CUDA launches the kernel or raises.
+
+K6 ports `repro.kernels.cram_attention.cram_decode_attention` (one
+sequence's `n` physical slots, any `n`, no predictor, no bytes); its CUDA
+entry shares K3's device body, and its plain version is
+`ref.cram_decode_attention_ref`, the reference's oracle, on the same
+inputs.  It is the per-sequence parity reference for K3.
 """
 
 from __future__ import annotations
@@ -19,15 +26,16 @@ import math
 
 import torch
 
-from .ref import (MARKER_LANES, NEG_INF, bf16_bits_to_f32, decode_slots,
-                  strip_is_packed)
+from .ref import (MARKER_LANES, NEG_INF, bf16_bits_to_f32,
+                  cram_decode_attention_ref, decode_slots, strip_is_packed)
 from . import cuda_lib
 
 # Default slot-block width (page groups per CTA split), as the reference.
 DEFAULT_BLOCK_GROUPS = 4
 
 # kernel launches; only the CUDA path counts
-LAUNCHES = {"decode_attention_pair": 0, "decode_attention_quad": 0}
+LAUNCHES = {"decode_attention_pair": 0, "decode_attention_quad": 0,
+            "decode_single_pair": 0, "decode_single_quad": 0}
 
 
 def resolve_block_groups(n_groups: int, block_groups: int | None) -> int:
@@ -109,30 +117,18 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
-                                       predictor, *, lanes: int = 2,
-                                       block_groups: int | None = None,
-                                       shared_cache: bool = False):
-    """The CUDA kernel on the same contract as the plain version."""
+def _check_geometry(lanes, hq, d, hkv, d2):
     _require(lanes in (2, 4), f"lanes must be 2 or 4, got {lanes}")
-    b, hq, d = q.shape
-    lead = () if shared_cache else (b,)
-    _require(slots.dim() == len(lead) + 4, "slots rank does not match "
-             "shared_cache")
-    n, page, hkv, d2 = slots.shape[-4:]
     _require(d2 == 2 * d, f"slots D2={d2} != 2 * head_dim {d}")
-    _require(n % lanes == 0, f"flat slot count {n} not a multiple of {lanes}")
     _require(hq % hkv == 0 and hq // hkv <= 8,
              f"Hq={hq} / Hkv={hkv} must be a whole group of at most 8")
     _require(d in (64, 128), f"head_dim {d}: the kernel is built for 64 "
              "and 128")
-    expect = {
-        "slots": (slots, torch.int16, lead + (n, page, hkv, d2)),
-        "strips": (strips, torch.int16, lead + (n, hkv, d2 + MARKER_LANES)),
-        "markers": (markers, torch.int32, (n,)),
-        "valid": (valid, torch.int32, lead + (n, lanes)),
-        "predictor": (predictor, torch.int32, lead + (n // lanes,)),
-    }
+
+
+def _check_tensors(q, expect: dict) -> None:
+    """Each of `expect`'s (tensor, dtype, shape) on q's device, of that
+    type and shape, contiguous; q contiguous float32."""
     for name, (t, dtype, shape) in expect.items():
         _require(t.device == q.device, f"{name} is on {t.device}, "
                  f"q on {q.device}")
@@ -142,6 +138,27 @@ def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(q.dtype == torch.float32 and q.is_contiguous(),
              "q must be contiguous float32")
+
+
+def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
+                                       predictor, *, lanes: int = 2,
+                                       block_groups: int | None = None,
+                                       shared_cache: bool = False):
+    """The CUDA kernel on the same contract as the plain version."""
+    b, hq, d = q.shape
+    lead = () if shared_cache else (b,)
+    _require(slots.dim() == len(lead) + 4, "slots rank does not match "
+             "shared_cache")
+    n, page, hkv, d2 = slots.shape[-4:]
+    _check_geometry(lanes, hq, d, hkv, d2)
+    _require(n % lanes == 0, f"flat slot count {n} not a multiple of {lanes}")
+    _check_tensors(q, {
+        "slots": (slots, torch.int16, lead + (n, page, hkv, d2)),
+        "strips": (strips, torch.int16, lead + (n, hkv, d2 + MARKER_LANES)),
+        "markers": (markers, torch.int32, (n,)),
+        "valid": (valid, torch.int32, lead + (n, lanes)),
+        "predictor": (predictor, torch.int32, lead + (n // lanes,)),
+    })
     kk = resolve_block_groups(n // lanes, block_groups) * lanes
     nj = n // kk
     dev = q.device
@@ -183,3 +200,59 @@ def cram_decode_attention_batched(q, slots, strips, markers, valid,
         q.to(torch.float32).contiguous(), slots, strips, markers,
         valid.to(torch.int32).contiguous(),
         predictor.to(torch.int32).contiguous(), **kw)
+
+
+# ------------------------------------------------------------------ K6
+
+def cram_decode_attention_plain(q, slots, strips, markers, valid, *,
+                                lanes: int = 2):
+    """Plain version of K6: the reference's oracle on the same inputs."""
+    return cram_decode_attention_ref(q, slots, strips, markers,
+                                     valid.reshape(-1), lanes=lanes)
+
+
+def cram_decode_attention_cuda(q, slots, strips, markers, valid, *,
+                               lanes: int = 2):
+    """The CUDA kernel (K6) on the same contract as the plain version."""
+    hq, d = q.shape
+    _require(slots.dim() == 4, "slots must be (n, page, Hkv, D2)")
+    n, page, hkv, d2 = slots.shape
+    _require(n > 0, "a sequence needs at least one slot")
+    _check_geometry(lanes, hq, d, hkv, d2)
+    _check_tensors(q, {
+        "slots": (slots, torch.int16, (n, page, hkv, d2)),
+        "strips": (strips, torch.int16, (n, hkv, d2 + MARKER_LANES)),
+        "markers": (markers, torch.int32, (n,)),
+        "valid": (valid, torch.int32, (n, lanes)),
+    })
+    kk = DEFAULT_BLOCK_GROUPS * lanes
+    nj = -(-n // kk)
+    dev = q.device
+    part_m = torch.empty((hq, nj), dtype=torch.float32, device=dev)
+    part_l = torch.empty((hq, nj), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((hq, nj, d), dtype=torch.float32, device=dev)
+    out = torch.empty((hq, d), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    code = cuda_lib.load().cram_decode_attention_single(
+        p(q), p(slots), p(strips), p(markers), p(valid), hq, d, n, page, hkv,
+        lanes, kk, 1.0 / math.sqrt(d), p(part_m), p(part_l), p(part_acc),
+        p(out), cuda_lib.stream_ptr(q))
+    cuda_lib.check(code, "cram_decode_attention_single")
+    LAUNCHES["decode_single_pair" if lanes == 2 else "decode_single_quad"] += 1
+    return out
+
+
+def cram_decode_attention(q, slots, strips, markers, valid, *,
+                          lanes: int = 2):
+    """Single-sequence fused decode.
+
+    q (Hq, D); slots (n, page, Hkv, D2) int16; strips (n, Hkv, D2+2) int16;
+    markers (n,) int32 expected pack markers; valid (n, lanes) int32 valid
+    tokens per logical page.  `lanes` selects the slot format: 2 = pair
+    (int8-delta), 4 = quad (int4-delta).  Returns (Hq, D) float32."""
+    if q.device.type == "cpu":
+        return cram_decode_attention_plain(q, slots, strips, markers, valid,
+                                           lanes=lanes)
+    return cram_decode_attention_cuda(
+        q.to(torch.float32).contiguous(), slots, strips, markers,
+        valid.to(torch.int32).contiguous(), lanes=lanes)

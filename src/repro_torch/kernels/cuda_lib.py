@@ -9,7 +9,9 @@ a kernel on a CUDA tensor — never at import, so the CPU tests import every
 module on a machine without `nvcc`.
 
 Each C entry point returns `cudaGetLastError()`; `check()` raises on a
-non-zero code.  Pointers and the stream travel as `c_void_p`.
+non-zero code.  Pointers and the stream travel as `c_void_p`.  The
+compiles run with `-Xptxas -v`; `ptxas_report()` gives each kernel's
+registers and spills from the build of the library in use.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _U = ctypes.c_longlong, ctypes.c_uint32
 SIGNATURES = {
     # win, marker_lanes, enabled, B, W, lanes, page, hkv, d2,
     # slots, over, strips, lay, fit, stream
@@ -38,6 +42,17 @@ SIGNATURES = {
     "cram_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                               _P, _P],
+    # q, slots, strips, markers, valid, hq, D, n, page, hkv, lanes, kk,
+    # scale, part_m, part_l, part_acc, out, stream
+    "cram_decode_attention_single": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _F, _P, _P, _P, _P, _P],
+    # page_a, page_b, page_c, page_d, G, lanes, page, hkv, d2,
+    # packed, base, ok, stream
+    "cram_pack_pages": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # packed, base, G, lanes, page, hkv, d2, out, stream
+    "cram_unpack_pages": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # lines, n, key, out, stream
+    "cram_compress_scan": [_P, _L, _U, _P, _P],
 }
 
 _state: dict = {"lib": None, "build_seconds": None}
@@ -71,20 +86,24 @@ def build() -> pathlib.Path:
     lib_path = out_dir / f"libcram_kernels_{tag}.so"
     if lib_path.exists():
         return lib_path
+    ptxas_path = lib_path.with_suffix(".ptxas.txt")
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [out_dir / f"{src.stem}_{tag}.o" for src in sources]
     procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs, strict=True)]
-    failures = []
+    failures, logs = [], []
     for src, proc in zip(sources, procs, strict=True):
         log, _ = proc.communicate()
+        logs.append(log)
         if proc.returncode:
             failures.append(f"{src.name}:\n{log}")
     if failures:
         raise RuntimeError("nvcc failed\n" + "\n".join(failures))
+    ptxas_path.write_text("".join(logs))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                            "-o", str(tmp)],
@@ -107,6 +126,30 @@ def load() -> ctypes.CDLL:
         _state["lib"] = lib
         _state["build_seconds"] = time.perf_counter() - t0
     return _state["lib"]
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """Per kernel of an `nvcc -Xptxas -v` log (mangled name): registers,
+    spill stores and loads in bytes."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        out.append({"kernel": block.split("'", 1)[0],
+                    "registers": int(regs.group(1)),
+                    "spill_stores": int(spill.group(1)),
+                    "spill_loads": int(spill.group(2))})
+    return out
+
+
+def ptxas_report() -> list[dict]:
+    """`parse_ptxas` of the build log of the library `load()` bound (empty
+    before a load, or for a library built without the log)."""
+    if _state["lib"] is None:
+        return []
+    log = pathlib.Path(_state["lib"]._name).with_suffix(".ptxas.txt")
+    return parse_ptxas(log.read_text()) if log.exists() else []
 
 
 def build_seconds() -> float | None:

@@ -11,7 +11,8 @@ slot view and returns the attention output together with the per-sequence
 (raw, cram) bytes the kernel measured; `decode_attention` /
 `decode_attention_batched` / `decode_attention_quad_batched` are aliases
 that drop the bytes.  `hbm_bytes_moved` is the standalone byte model the
-kernel's byte output matches bit for bit.
+kernel's byte output matches bit for bit.  `cram_decode_attention` (K6,
+one sequence's physical view) is exported here as in the reference.
 
 Every function here is batch-generic over leading axes (the reference's
 `vmap`s become the batch dimension written out), and follows the device
@@ -27,7 +28,9 @@ import torch
 from ..compression.framing import DEFAULT_MARKER_KEY, DOMAIN_PAIR, DOMAIN_QUAD
 from . import bdi_pack
 from . import ref as _ref
-from .cram_attention import cram_decode_attention_batched, slot_geometry_bytes
+from .cram_attention import (cram_decode_attention,  # noqa: F401  (K6)
+                             cram_decode_attention_batched,
+                             slot_geometry_bytes)
 from .ref import MARKER_LANES, marker_to_lanes, slot_markers
 
 

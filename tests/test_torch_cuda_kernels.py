@@ -5,12 +5,16 @@ fixture skips it.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-K1/K2 (window pack) must be bit-exact on all five outputs.  K3 (decode on
-the compressed cache) must agree within atol = rtol = 2e-3 (the kernel's
-online softmax sums in another order and uses __expf) with its byte
-output exact.  The shapes are small and odd on purpose: they cover what
-the chip_smoke run at the phi4 geometry does not (head_dim 64, one query
-head per KV head, the largest group of 8, one slot block per sequence).
+K1/K2 (window pack and the registry's group pack), K4/K5 (unpack) and K7
+(the compressibility scan) must be bit-exact.  K3 (batched decode on the
+compressed cache) and K6 (single-sequence decode) must agree within
+atol = rtol = 2e-3 (the kernels' online softmax sums in another order and
+uses __expf), K3 with its byte output exact.  The shapes are small and
+odd on purpose: they cover what the chip_smoke run at the phi4 geometry
+does not (head_dim 64, one query head per KV head, the largest group of 8,
+one slot block per sequence, a single group, a slot count that is not a
+multiple of the lanes, an image whose line count is not a multiple of the
+kernel's block).
 
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
@@ -21,7 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.compression import pagepack
+from repro_torch.compression.marker import LineStatus
 from repro_torch.kernels import bdi_pack
+from repro_torch.kernels import compress_scan as cs
 from repro_torch.kernels import cram_attention as ca
 from repro_torch.kernels import ops
 from repro_torch.kv import synthetic_kv_stream
@@ -139,12 +146,132 @@ def test_decode_attention_kernel_refuses_what_it_cannot_run(cuda):
         ca.cram_decode_attention_batched_cuda(*args, lanes=2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("lead,page,hkv,hd", [((), 4, 2, 8), ((1,), 5, 3, 8),
+                                              ((3, 2), 16, 8, 128)])
+def test_group_pack_and_unpack_kernels_bit_exact(cuda, lanes, lead, page,
+                                                 hkv, hd):
+    """K1/K2 group pack (deltas written whatever ok says) and K4/K5 unpack
+    against `pagepack`, on fitting and non-fitting groups; pack -> unpack
+    is the identity where the group fits."""
+    rng = np.random.default_rng([lanes, page, hkv, hd, len(lead)])
+    g = int(np.prod(lead)) if lead else 1
+    win = _window(rng, max(g, 2), 1, lanes, page, hkv, hd, cuda)[:g, 0]
+    pages = [win[:, j].reshape(*lead, page, hkv, 2 * hd).contiguous()
+             for j in range(lanes)]
+    pack = bdi_pack.pack_pair if lanes == 2 else bdi_pack.pack_quad
+    unpack = bdi_pack.unpack_pair if lanes == 2 else bdi_pack.unpack_quad
+    packed, base, ok = pack(*pages)
+    torch.cuda.synchronize()
+    plain = pagepack.pack_pair if lanes == 2 else pagepack.pack_quad
+    ok_p, packed_p, base_p = plain(*pages)
+    assert torch.equal(ok, ok_p) and ok.shape == lead
+    assert torch.equal(packed, packed_p) and torch.equal(base, base_p)
+    got = unpack(packed, base)
+    torch.cuda.synchronize()
+    plain_un = pagepack.unpack_pair if lanes == 2 else pagepack.unpack_quad
+    for a, b in zip(got, plain_un(packed, base), strict=True):
+        assert torch.equal(a, b)
+    fit = ok.reshape(-1)
+    for a, p in zip(got, pages, strict=True):
+        assert torch.equal(a.reshape(g, -1)[fit], p.reshape(g, -1)[fit])
+    if g > 1:
+        assert bool(fit.any()) and not bool(fit.all())
+
+
+def _scan_image(rng, n, key):
+    lines = rng.integers(0, 256, (n, 64)).astype(np.uint8)
+    lines[0::5] = 0
+    lines[1::5] = np.tile(rng.integers(0, 256, 8).astype(np.uint8), 8)
+    k = len(lines[2::5])
+    lines[2::5] = (2**40 + rng.integers(-300, 300, (k, 8))).astype(
+        "<i8").view(np.uint8).reshape(k, 64)
+    k = len(lines[3::5])
+    lines[3::5] = rng.integers(-100, 100, (k, 16)).astype(
+        "<i4").view(np.uint8).reshape(k, 64)
+    slots = np.unique(np.linspace(0, n - 1, 6).astype(np.int64))
+    m2, m4 = cs.device_markers(slots, key)
+    il = cs.device_il_words(slots, key)
+    for i, s in enumerate(slots):
+        if i % 6 == 0:
+            lines[s, -4:] = np.frombuffer(m2[i].tobytes(), np.uint8)
+        elif i % 6 == 1:
+            lines[s, -4:] = np.frombuffer(m4[i].tobytes(), np.uint8)
+        elif i % 6 == 2:
+            lines[s] = il[i].astype("<u4").view(np.uint8)
+        elif i % 6 == 3:
+            lines[s, -4:] = np.frombuffer((~m2[i]).tobytes(), np.uint8)
+        elif i % 6 == 4:
+            lines[s] = (~il[i]).astype("<u4").view(np.uint8)
+        else:
+            lines[s, -4:] = np.frombuffer((~m4[i]).tobytes(), np.uint8)
+    return lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 4097])
+@pytest.mark.parametrize("key", [0x5EED, 0xDEADBEEF])
+def test_compress_scan_kernel_bit_exact(cuda, n, key):
+    rng = np.random.default_rng([n, key])
+    lines = _scan_image(rng, n, key)
+    img = torch.from_numpy(lines).to(cuda)
+    got = cs.compress_scan(img, key=key)
+    torch.cuda.synchronize()
+    want = cs.compress_scan_plain(img, key=key)
+    for name in ("sizes", "fpc", "bdi", "status"):
+        assert got[name].device == img.device
+        assert torch.equal(got[name], want[name]), name
+    assert np.array_equal(got["status"].cpu().numpy(),
+                          cs.classify_image_ref(lines, key))
+    if n >= 6:
+        assert set(got["status"].tolist()) == {int(s) for s in LineStatus}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("hkv,hq,hd", [(2, 2, 64), (1, 8, 128), (3, 9, 64)])
+@pytest.mark.parametrize("cut", [0, 1, 3])
+def test_single_decode_kernel_matches_plain(cuda, lanes, hkv, hq, hd, cut):
+    """K6 over one sequence's physical view, cut to n % lanes != 0; the
+    sequence of index 0 has no valid token."""
+    rng = np.random.default_rng([lanes, hkv, hq, hd, cut])
+    q, slots, strips, markers, valid, _ = _attention_args(
+        rng, lanes, 3, 5, 4, hkv, hq, hd, cuda, False)
+    n = slots.shape[1] - cut
+    for i in range(3):
+        args = [x[:n].contiguous() for x in (slots[i], strips[i], markers,
+                                             valid[i])]
+        out = ca.cram_decode_attention_cuda(q[i].contiguous(), *args,
+                                            lanes=lanes)
+        torch.cuda.synchronize()
+        ref = ca.cram_decode_attention_plain(q[i], *args, lanes=lanes)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_cannot_run(cuda):
+    img = torch.zeros((8 * 64 + 1,), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        cs.compress_scan_cuda(img[1:].view(8, 64))
+    rng = np.random.default_rng(0)
+    q, slots, strips, markers, valid, _ = _attention_args(
+        rng, 2, 1, 2, 4, 1, 9, 64, cuda, False)
+    with pytest.raises(ValueError, match="at most 8"):
+        ca.cram_decode_attention_cuda(q[0].contiguous(), slots[0], strips[0],
+                                      markers, valid[0], lanes=2)
+    packed = torch.zeros((2, 4, 2, 12), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bdi_pack.unpack_pair(packed, packed[:, 0])
+
+
 # ------------------------------------------------- the CPU half (runs here)
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     rng = np.random.default_rng(1)
     cpu = torch.device("cpu")
-    before = {**bdi_pack.LAUNCHES, **ca.LAUNCHES}
+    before = {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES}
     win = _window(rng, 2, 2, 2, 4, 2, 8, cpu).contiguous()
     mk = torch.zeros((2, 2), dtype=torch.int16)
     enabled = torch.tensor([True, False])
@@ -155,7 +282,45 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     out, byts = ca.cram_decode_attention_batched(*args, lanes=4)
     ref, ref_b = ca.cram_decode_attention_batched_plain(*args, lanes=4)
     assert torch.equal(out, ref) and torch.equal(byts, ref_b)
-    assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES} == before
+    pages = [win[:, 0, j] for j in range(2)]
+    packed, base, ok = bdi_pack.pack_pair(*pages)
+    ok_p, packed_p, base_p = pagepack.pack_pair(*pages)
+    assert torch.equal(packed, packed_p) and torch.equal(ok, ok_p)
+    for a, b in zip(bdi_pack.unpack_pair(packed, base),
+                    pagepack.unpack_pair(packed, base), strict=True):
+        assert torch.equal(a, b)
+    q, slots, strips, markers, valid, _ = args
+    one = ca.cram_decode_attention(q[0], slots[0], strips[0], markers,
+                                   valid[0], lanes=4)
+    assert torch.equal(one, ca.cram_decode_attention_plain(
+        q[0], slots[0], strips[0], markers, valid[0], lanes=4))
+    img = torch.from_numpy(rng.integers(0, 256, (9, 64)).astype(np.uint8))
+    got = cs.compress_scan(img)
+    want = cs.compress_scan_plain(img)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES} == before
+
+
+def test_ptxas_log_parse():
+    from repro_torch.kernels.cuda_lib import parse_ptxas
+
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z6kernelILi2EEvPKs' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z6kernelILi2EEvPKs\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, used 1 barriers, 8448 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z4scanPK5uint4' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 111 registers, used 0 barriers\n")
+    assert parse_ptxas(log) == [
+        {"kernel": "_Z6kernelILi2EEvPKs", "registers": 80,
+         "spill_stores": 12, "spill_loads": 16},
+        {"kernel": "_Z4scanPK5uint4", "registers": 111, "spill_stores": 0,
+         "spill_loads": 0}]
+    assert parse_ptxas("") == []
 
 
 def test_cuda_entry_refuses_cpu_tensors_before_building():
@@ -163,3 +328,10 @@ def test_cuda_entry_refuses_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA tensor"):
         bdi_pack.pack_window_cuda(win, torch.zeros((1, 2), dtype=torch.int16),
                                   torch.ones(1, dtype=torch.bool))
+    page = torch.zeros((4, 2, 16), dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bdi_pack.pack_pages_cuda((page, page))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bdi_pack.unpack_pages_cuda(page, page[0], 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cs.compress_scan_cuda(torch.zeros((2, 64), dtype=torch.uint8))

@@ -25,6 +25,7 @@ from repro_torch.compression import pagepack as t_pagepack
 from repro_torch.kernels import ops as T
 from repro_torch.kernels import prefill_pack as t_prefill
 from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import cram_attention as t_ca
 from repro_torch.kernels.cram_attention import resolve_block_groups
 
 torch.set_num_threads(1)
@@ -305,6 +306,53 @@ def test_shared_cache_aliases_and_byte_events_match_reference():
     t_adapters.kv_repack_event(led_t, **geo)
     assert led_r.as_dict() == led_t.as_dict()
     assert led_r.saving() == led_t.saving()
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("cut", [0, 1, 3])
+def test_single_sequence_decode_matches_reference_kernel(lanes, cut):
+    """K6 on one sequence's physical view, cut to n % lanes != 0, against
+    the reference's `cram_decode_attention` (Pallas, interpret mode).
+    Sequence 1 has no valid token: both average V over every position."""
+    from repro.kernels.cram_attention import cram_decode_attention as r_k6
+
+    rng = np.random.default_rng([lanes, cut])
+    n_groups = 3
+    cache = _caches(rng, lanes, 2, n_groups)
+    valid = _ragged_valid(rng, 2, n_groups * lanes)
+    pv = T.physical_view if lanes == 2 else T.physical_view_quad
+    for seq in (0, 1):
+        one = {k: _t(v if k == "markers" else v[seq])
+               for k, v in cache.items()}
+        s, st, mk, v = pv(one, _t(valid[seq]))
+        n = s.shape[0] - cut
+        args = [x[:n].contiguous() for x in (s, st, mk, v)]
+        q = rng.standard_normal((HQ, HD)).astype(np.float32)
+        got = t_ca.cram_decode_attention(_t(q), *args, lanes=lanes)
+        want = r_k6(jnp.asarray(q), *(jnp.asarray(a.numpy()) for a in args),
+                    lanes=lanes, interpret=True)
+        assert got.shape == (HQ, HD) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+        assert torch.equal(got, t_ca.cram_decode_attention_plain(
+            _t(q), *args, lanes=lanes))
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_single_sequence_decode_is_k3_per_sequence(lanes):
+    """K6 on each sequence's physical view equals that sequence's row of
+    the batched decode (the reference's `_legacy_vmap_decode` relation)."""
+    rng = np.random.default_rng(lanes)
+    b, n_groups = 3, 4
+    cache = {k: _t(v) for k, v in _caches(rng, lanes, b, n_groups).items()}
+    valid = _t(_ragged_valid(rng, b, n_groups * lanes))
+    q = _t(rng.standard_normal((b, HQ, HD)).astype(np.float32))
+    out, _, _ = T.decode_attention_fused(q, cache, valid, lanes=lanes)
+    pv = T.physical_view if lanes == 2 else T.physical_view_quad
+    s, st, mk, v = pv(cache, valid)
+    for i in range(b):
+        one = t_ca.cram_decode_attention(q[i], s[i], st[i], mk, v[i],
+                                         lanes=lanes)
+        np.testing.assert_allclose(one.numpy(), out[i].numpy(), **TOL)
 
 
 @pytest.mark.parametrize("n_groups,want", [(8, None), (6, 4), (6, 5),
