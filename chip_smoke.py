@@ -28,8 +28,9 @@ Phases, each of which makes the script exit non-zero when it fails:
   4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
      1 incompressible, 1 alternating), 48 decode steps each followed by an
      attend, every attend held against the plain attention on the same
-     state, K6 on each sequence's physical view at the last step held
-     against that sequence's row of K3's output, and the final physical
+     state, K6 on each sequence's physical view at the last step equal
+     to that sequence's row of K3's output (torch.equal: one device body,
+     one split), and the final physical
      state bit-exact against the per-slot rebuild (which packs with the
      plain version); then the page-codec round trip on the last step's
      physical view: every packed slot through the registry's unpack (K4 or
@@ -50,6 +51,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      (calls captured in one CUDA graph, CUDA events, median of replays)
      and one eager call with the host's dispatch; K7's plain version,
      which walks the image in chunks, is timed eagerly with CUDA events.
+     Then K3 and K6 once more at a long-context shape (B = 8 sequences of
+     4,096 all-compressible tokens, every token valid: 256 flat slots),
+     each checked once (K3 within 2e-3 with bytes exact, K6 equal to K3's
+     row) and timed the same way, so that their byte bound is well above
+     launch latency.
 
 Phases 3 to 5 drive seven paths (launcher pair and quad, serve attend pair
 and quad, page codec pair and quad, scan); the launch counters are set to 0
@@ -79,6 +85,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 PAGE, N_KV, HEAD_DIM, N_HEADS = 16, 8, 128, 24
 ATOL = RTOL = 2e-3
 
+LONG_BATCH, LONG_TOKENS = 8, 4096   # phase 7's long-context attention shape
 SCAN_LINES_EACH = 2 ** 21       # Fig. 4 corpus: 15,728,640 lines, ~1.0 GB
 SCAN_CHUNK = 2 ** 20            # lines per plain-version chunk on the card
 
@@ -764,19 +771,20 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
         mean_v = v6[:t + 1].mean(0).repeat_interleave(N_HEADS // N_KV, 0)
         spread = min(spread, (ref[6] - mean_v).abs().max().item())
     # K6 on each sequence's physical view against its row of K3's output
-    # (the reference's per-sequence parity relation), at the last step
+    # (the reference's per-sequence parity relation), at the last step: the
+    # two run one device body on the same split, so they agree bit for bit
     qd = torch.from_numpy(q).to(device)
     single_err = 0.0
     for i in range(slots):
         one = ca.cram_decode_attention(qd[i], s[i], st[i], mk, fv[i],
                                        lanes=lanes)
         err = (one - got[i]).abs().max().item()
-        if not torch.allclose(one, got[i], atol=ATOL, rtol=RTOL):
+        if not torch.equal(one, got[i]):
             fail(f"serve attend {packing}: K6 on sequence {i} is {err:.3e} "
-                 "from its row of K3")
+                 "from its row of K3, not equal")
         single_err = max(single_err, err)
-    print(f"serve attend {packing}: K6 on each of {slots} sequences within "
-          f"{single_err:.3e} of K3's row")
+    print(f"serve attend {packing}: K6 on each of {slots} sequences equal "
+          "to K3's row (torch.equal)")
     if spread < 10 * ATOL:
         fail(f"serve attend {packing}: the incompressible slot's output is "
              f"within {spread:.3e} of the mean of its V; the check would "
@@ -1161,36 +1169,33 @@ def timing_spec(torch, name, args, kw) -> dict:
             "library": None, "bound": _bound(n * 64 + 4 * 4 * n)}
 
 
-def timing_rows(torch, rec, phase: str, paths) -> dict:
-    """Device and eager-call times of every kernel at the most frequent
-    shape the main path gave it, beside its plain version, its bound and,
-    for K3 and K6, the library call.  The scan's plain version walks a
-    gigabyte in chunks and is timed eagerly (CUDA events around the call,
-    three calls after one warm-up), not in a CUDA graph."""
-    rows = {}
-    for name in KERNELS:
-        saved = rec.most_frequent(name, paths)
-        if saved is None:
-            continue
-        spec = timing_spec(torch, name, *saved)
-        r = rows[name] = {"shape": list(spec["shape"])}
-        big = name == "compress_scan"
-        r["ms"] = device_ms(torch, spec["kernel"], reps=10 if big else 20,
-                            inner=3 if big else 10)
-        r["call_ms"] = call_ms(torch, spec["kernel"], reps=5 if big else 20)
-        if big:
-            r["plain_ms"] = r["plain_call_ms"] = call_ms(
-                torch, spec["plain"], reps=3, warmup=1)
-        else:
-            r["plain_ms"] = device_ms(torch, spec["plain"])
-            r["plain_call_ms"] = call_ms(torch, spec["plain"])
-        if spec["library"] is None:
-            r["library_ms"] = r["library_call_ms"] = None
-        else:
-            r["library_ms"] = device_ms(torch, spec["library"])
-            r["library_call_ms"] = call_ms(torch, spec["library"])
-        r["bound_ms"], r["bound_by"] = spec["bound"]
+def measure(torch, name, spec) -> dict:
+    """Device and eager-call times of one timing spec, beside its plain
+    version, its bound and, for K3 and K6, the library call.  The scan's
+    plain version walks a gigabyte in chunks and is timed eagerly (CUDA
+    events around the call, three calls after one warm-up), not in a CUDA
+    graph."""
+    r = {"shape": list(spec["shape"])}
+    big = name == "compress_scan"
+    r["ms"] = device_ms(torch, spec["kernel"], reps=10 if big else 20,
+                        inner=3 if big else 10)
+    r["call_ms"] = call_ms(torch, spec["kernel"], reps=5 if big else 20)
+    if big:
+        r["plain_ms"] = r["plain_call_ms"] = call_ms(
+            torch, spec["plain"], reps=3, warmup=1)
+    else:
+        r["plain_ms"] = device_ms(torch, spec["plain"])
+        r["plain_call_ms"] = call_ms(torch, spec["plain"])
+    if spec["library"] is None:
+        r["library_ms"] = r["library_call_ms"] = None
+    else:
+        r["library_ms"] = device_ms(torch, spec["library"])
+        r["library_call_ms"] = call_ms(torch, spec["library"])
+    r["bound_ms"], r["bound_by"] = spec["bound"]
+    return r
 
+
+def print_rows(phase: str, rows: dict) -> None:
     def fmt(x):
         return "none" if x is None else f"{x:.4f} ms"
 
@@ -1201,6 +1206,77 @@ def timing_rows(torch, rec, phase: str, paths) -> dict:
               f"({r['bound_by']}); one eager call: kernel "
               f"{fmt(r['call_ms'])}, plain {fmt(r['plain_call_ms'])}, "
               f"library {fmt(r['library_call_ms'])}")
+
+
+def timing_rows(torch, rec, phase: str, paths) -> dict:
+    """`measure` of every kernel at the most frequent shape the main path
+    gave it."""
+    rows = {}
+    for name in KERNELS:
+        saved = rec.most_frequent(name, paths)
+        if saved is not None:
+            rows[name] = measure(torch, name,
+                                 timing_spec(torch, name, *saved))
+    print_rows(phase, rows)
+    return rows
+
+
+def long_context_inputs(torch, rng, lanes, device):
+    """B = LONG_BATCH sequences of LONG_TOKENS all-compressible synthetic
+    tokens at the phi4 KV geometry, every token valid, a perfect
+    predictor: the flat physical view (LONG_TOKENS / PAGE = 256 flat
+    slots) as K3 takes it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kv import synthetic_kv_stream
+    from repro_torch.kv.cache import kv_bits
+
+    k, v = synthetic_kv_stream(rng, LONG_BATCH, LONG_TOKENS, N_KV, HEAD_DIM)
+    pages = kv_bits(k, v, device).reshape(
+        LONG_BATCH, LONG_TOKENS // PAGE, PAGE, N_KV, 2 * HEAD_DIM)
+    build = ops.build_cram_cache if lanes == 2 else ops.build_cram_cache_quad
+    caches = [build(p) for p in pages]
+    keys = ("slots", "slots_overflow", "strips", "packed_mask")
+    cache = {key: torch.stack([c[key] for c in caches]) for key in keys}
+    cache["markers"] = caches[0]["markers"]
+    valid = torch.full((LONG_BATCH, LONG_TOKENS // PAGE), PAGE,
+                       dtype=torch.int32, device=device)
+    pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+    slots, strips, markers, fvalid = pv(cache, valid)
+    q = torch.from_numpy(rng.standard_normal(
+        (LONG_BATCH, N_HEADS, HEAD_DIM)).astype("float32")).to(device)
+    pred = cache["packed_mask"].to(torch.int32).contiguous()
+    packed = float(cache["packed_mask"].float().mean())
+    return (q, slots.contiguous(), strips.contiguous(), markers.contiguous(),
+            fvalid.to(torch.int32).contiguous(), pred), packed
+
+
+def long_context_rows(torch, device) -> dict:
+    """K3 at B = 8 over 256 flat slots (4,096 tokens a sequence) and K6 on
+    its first sequence, each checked once against its plain version (K6
+    against K3's row bit for bit) and then measured as the main path's
+    kernels are."""
+    import numpy as np
+
+    from repro_torch.kernels import cram_attention as ca
+
+    rng = np.random.default_rng(11)
+    rows = {}
+    for lanes, kind in ((2, "pair"), (4, "quad")):
+        args, packed = long_context_inputs(torch, rng, lanes, device)
+        kw = {"lanes": lanes}
+        err = check_attention_once(torch, args, kw, f"long-context {kind}")
+        out, _ = ca.cram_decode_attention_batched_cuda(*args, **kw)
+        one = (args[0][0], args[1][0], args[2][0], args[3], args[4][0])
+        got = ca.cram_decode_attention_cuda(*one, **kw)
+        if not torch.equal(got, out[0]):
+            fail(f"long-context {kind}: K6 differs from K3's row 0")
+        print(f"long-context {kind}: {packed:.4f} of the groups packed; K3 "
+              f"max|diff| {err:.3e}, bytes exact; K6 equal to K3's row 0")
+        for name, call in ((f"decode_attention_{kind}", args),
+                           (f"decode_single_{kind}", one)):
+            rows[name] = measure(torch, name,
+                                 timing_spec(torch, name, call, kw))
+    print_rows("long-context", rows)
     return rows
 
 
@@ -1365,7 +1441,8 @@ def main(argv=None) -> int:
                                      "serve_attend_quad")),
         "page-codec": timing_rows(torch, rec, "page-codec",
                                   ("page_codec_pair", "page_codec_quad")),
-        "scan": timing_rows(torch, rec, "scan", ("scan",))}
+        "scan": timing_rows(torch, rec, "scan", ("scan",)),
+        "long-context": long_context_rows(torch, device)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     main_rows = {**timing["serve-attend"], **timing["page-codec"],
                  **timing["scan"]}

@@ -18,6 +18,11 @@ sequence's `n` physical slots, any `n`, no predictor, no bytes); its CUDA
 entry shares K3's device body, and its plain version is
 `ref.cram_decode_attention_ref`, the reference's oracle, on the same
 inputs.  It is the per-sequence parity reference for K3.
+
+Both kernels cut a sequence's flat slots into splits of `split_width(n)`
+slots, one CTA per (sequence, KV head, split).  The width depends on `n`
+alone, so K6 on a sequence and K3's row for it (with `block_groups=None`)
+run the same splits and agree bit for bit, whatever the batch.
 """
 
 from __future__ import annotations
@@ -30,8 +35,11 @@ from .ref import (MARKER_LANES, NEG_INF, bf16_bits_to_f32,
                   cram_decode_attention_ref, decode_slots, strip_is_packed)
 from . import cuda_lib
 
-# Default slot-block width (page groups per CTA split), as the reference.
+# Default slot-block width (page groups per program) of the reference;
+# `resolve_block_groups` keeps its meaning for an explicit `block_groups`.
 DEFAULT_BLOCK_GROUPS = 4
+# Most splits the kernels cut one sequence (and KV head) into.
+MAX_SPLITS = 16
 
 # kernel launches; only the CUDA path counts
 LAUNCHES = {"decode_attention_pair": 0, "decode_attention_quad": 0,
@@ -45,6 +53,12 @@ def resolve_block_groups(n_groups: int, block_groups: int | None) -> int:
     while n_groups % bg:
         bg -= 1
     return bg
+
+
+def split_width(n: int) -> int:
+    """Flat slots per split: the fewest that cut `n` slots into at most
+    MAX_SPLITS runs; the last run may be shorter."""
+    return -(-n // MAX_SPLITS)
 
 
 def slot_geometry_bytes(page: int, hkv: int, d2: int) -> tuple[int, int]:
@@ -82,8 +96,9 @@ def cram_decode_attention_batched_plain(q, slots, strips, markers, valid,
                                         predictor, *, lanes: int = 2,
                                         block_groups: int | None = None,
                                         shared_cache: bool = False):
-    """Plain version.  `block_groups` only orders the kernel's float sums,
-    so the one-pass softmax here ignores it (kept for the same signature)."""
+    """Plain version.  `block_groups` (the kernel's split width in page
+    groups; None for `split_width`) only orders the kernel's float sums, so
+    the one-pass softmax here ignores it (kept for the same signature)."""
     del block_groups
     b, hq, d = q.shape
     slots = _batch(slots, b, shared_cache)
@@ -140,6 +155,14 @@ def _check_tensors(q, expect: dict) -> None:
              "q must be contiguous float32")
 
 
+def _check_aligned(q, slots, strips) -> None:
+    """The kernel reads q and stages slot rows with 16-byte loads, and
+    strip rows with 4-byte ones."""
+    _require(q.data_ptr() % 16 == 0, "q must be 16-byte aligned")
+    _require(slots.data_ptr() % 16 == 0, "slots must be 16-byte aligned")
+    _require(strips.data_ptr() % 4 == 0, "strips must be 4-byte aligned")
+
+
 def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
                                        predictor, *, lanes: int = 2,
                                        block_groups: int | None = None,
@@ -159,21 +182,24 @@ def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
         "valid": (valid, torch.int32, lead + (n, lanes)),
         "predictor": (predictor, torch.int32, lead + (n // lanes,)),
     })
-    kk = resolve_block_groups(n // lanes, block_groups) * lanes
-    nj = n // kk
+    _check_aligned(q, slots, strips)
+    kk = (split_width(n) if block_groups is None
+          else resolve_block_groups(n // lanes, block_groups) * lanes)
+    nj = -(-n // kk)
     dev = q.device
     part_m = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
     part_l = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
     part_acc = torch.empty((b, hq, nj, d), dtype=torch.float32, device=dev)
+    part_bytes = torch.empty((b, nj, 2), dtype=torch.int32, device=dev)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
-    byts = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+    byts = torch.empty((b, 2), dtype=torch.int32, device=dev)
     slot_bytes, strip_bytes = slot_geometry_bytes(page, hkv, d2)
     p = cuda_lib.ptr
     code = cuda_lib.load().cram_decode_attention(
         p(q), p(slots), p(strips), p(markers), p(valid), p(predictor),
         b, hq, d, n, page, hkv, lanes, kk, int(shared_cache),
         1.0 / math.sqrt(d), slot_bytes, strip_bytes,
-        p(part_m), p(part_l), p(part_acc), p(out), p(byts),
+        p(part_m), p(part_l), p(part_acc), p(part_bytes), p(out), p(byts),
         cuda_lib.stream_ptr(q))
     cuda_lib.check(code, "cram_decode_attention")
     LAUNCHES["decode_attention_pair" if lanes == 2
@@ -225,7 +251,8 @@ def cram_decode_attention_cuda(q, slots, strips, markers, valid, *,
         "markers": (markers, torch.int32, (n,)),
         "valid": (valid, torch.int32, (n, lanes)),
     })
-    kk = DEFAULT_BLOCK_GROUPS * lanes
+    _check_aligned(q, slots, strips)
+    kk = split_width(n)
     nj = -(-n // kk)
     dev = q.device
     part_m = torch.empty((hq, nj), dtype=torch.float32, device=dev)

@@ -38,10 +38,10 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _P],
     # q, slots, strips, markers, valid, pred, B, hq, D, n, page, hkv, lanes,
     # kk, shared, scale, slot_bytes, strip_bytes, part_m, part_l, part_acc,
-    # out, bytes, stream
+    # part_bytes, out, bytes, stream
     "cram_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
-                              _P, _P],
+                              _P, _P, _P],
     # q, slots, strips, markers, valid, hq, D, n, page, hkv, lanes, kk,
     # scale, part_m, part_l, part_acc, out, stream
     "cram_decode_attention_single": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -9,12 +9,14 @@ K1/K2 (window pack and the registry's group pack), K4/K5 (unpack) and K7
 (the compressibility scan) must be bit-exact.  K3 (batched decode on the
 compressed cache) and K6 (single-sequence decode) must agree within
 atol = rtol = 2e-3 (the kernels' online softmax sums in another order and
-uses __expf), K3 with its byte output exact.  The shapes are small and
-odd on purpose: they cover what the chip_smoke run at the phi4 geometry
-does not (head_dim 64, one query head per KV head, the largest group of 8,
-one slot block per sequence, a single group, a slot count that is not a
-multiple of the lanes, an image whose line count is not a multiple of the
-kernel's block).
+uses __expf), K3 with its byte output exact, and K6 on a sequence equals
+K3's row for it bit for bit when K3 takes its default split.  The shapes
+are small and odd on purpose: they cover what the chip_smoke run at the
+phi4 geometry does not (head_dim 64, one query head per KV head, the
+largest group of 8, one slot block per sequence, a single group, a ragged
+last split, one slot, 256 slots, a slot count that is not a multiple of
+the lanes, a marker on all KV heads but one, an image whose line count is
+not a multiple of the kernel's block).
 
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
@@ -31,6 +33,7 @@ from repro_torch.kernels import bdi_pack
 from repro_torch.kernels import compress_scan as cs
 from repro_torch.kernels import cram_attention as ca
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import strip_is_packed
 from repro_torch.kv import synthetic_kv_stream
 from repro_torch.kv.cache import kv_bits
 
@@ -248,6 +251,102 @@ def test_single_decode_kernel_matches_plain(cuda, lanes, hkv, hq, hd, cut):
         ref = ca.cram_decode_attention_plain(q[i], *args, lanes=lanes)
         assert torch.isfinite(out).all()
         torch.testing.assert_close(out, ref, **TOL)
+
+
+def _k3_and_k6(args, lanes, shared=False):
+    """K3 with block_groups=None against its plain version (bytes exact),
+    and K6 on each sequence against its plain version and, bit for bit,
+    against K3's row for that sequence."""
+    kw = dict(lanes=lanes, shared_cache=shared)
+    out, byts = ca.cram_decode_attention_batched_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    ref, ref_b = ca.cram_decode_attention_batched_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(byts, ref_b)
+    q, slots, strips, markers, valid, _ = args
+    for i in range(q.shape[0]):
+        one = [x if shared else x[i] for x in (slots, strips, valid)]
+        got = ca.cram_decode_attention_cuda(q[i].contiguous(), one[0], one[1],
+                                            markers, one[2], lanes=lanes)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ca.cram_decode_attention_plain(
+            q[i], one[0], one[1], markers, one[2], lanes=lanes), **TOL)
+        assert torch.equal(got, out[i]), f"K6 differs from K3's row {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("n_groups,page,hkv,hq,hd", [
+    (17, 16, 8, 24, 128),      # ragged last split (34 / 68 flat slots)
+    (1, 16, 8, 24, 128),       # one group: a single split per head
+    (19, 5, 3, 9, 64)])        # odd page and heads, ragged (38 / 76)
+def test_decode_kernels_ragged_splits_and_k6_equals_k3(cuda, lanes, shared,
+                                                       n_groups, page, hkv,
+                                                       hq, hd):
+    rng = np.random.default_rng([lanes, shared, n_groups, page, hkv])
+    args = _attention_args(rng, lanes, 3, n_groups, page, hkv, hq, hd, cuda,
+                           shared)
+    n = args[1].shape[-4]
+    if n_groups > 1:
+        assert n % ca.split_width(n) != 0          # the last split is ragged
+    _k3_and_k6(args, lanes, shared)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_decode_kernels_long_sequence(cuda, lanes):
+    """256 flat slots (16 full splits) at page 16, head_dim 128."""
+    rng = np.random.default_rng([lanes, 256])
+    args = _attention_args(rng, lanes, 2, 256 // lanes, 16, 2, 6, 128, cuda,
+                           False)
+    assert args[1].shape[1] == 256
+    _k3_and_k6(args, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_single_decode_kernel_one_slot(cuda, lanes, hd):
+    rng = np.random.default_rng([lanes, hd, 1])
+    q, slots, strips, markers, valid, _ = _attention_args(
+        rng, lanes, 2, 2, 16, 2, 8, hd, cuda, False)
+    for i in range(2):
+        args = [x[:1].contiguous() for x in (slots[i], strips[i], markers,
+                                             valid[i])]
+        out = ca.cram_decode_attention_cuda(q[i].contiguous(), *args,
+                                            lanes=lanes)
+        torch.cuda.synchronize()
+        ref = ca.cram_decode_attention_plain(q[i], *args, lanes=lanes)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_decode_kernels_marker_on_all_but_one_head_reads_raw(cuda, lanes):
+    """A raw slot whose strip tails carry its marker on every KV head but
+    one must still be read as raw, by K3 and K6 alike: in sequence 0 (no
+    valid token) and in sequence 2, whose every position is made valid."""
+    rng = np.random.default_rng([lanes, 7])
+    q, slots, strips, markers, valid, pred = _attention_args(
+        rng, lanes, 3, 4, 16, 4, 8, 128, cuda, False)
+    packed = strip_is_packed(strips, markers)
+    strips = strips.clone()
+    for i in (0, 2):
+        s = int(torch.nonzero(~packed[i])[0])
+        m = int(markers[s]) & 0xFFFFFFFF
+        lo, hi = (x - 0x10000 if x >= 0x8000 else x
+                  for x in (m & 0xFFFF, m >> 16))
+        strips[i, s, :3, -2] = lo                  # heads 0-2 of 4
+        strips[i, s, :3, -1] = hi
+        assert bool(strip_is_packed(strips[i, s, :3][None],
+                                    markers[s:s + 1]).all())
+    assert torch.equal(strip_is_packed(strips, markers), packed)
+    valid = valid.clone()
+    valid[2] = 16
+    _k3_and_k6((q, slots, strips.contiguous(), markers, valid, pred), lanes)
 
 
 @pytest.mark.cuda
