@@ -10,17 +10,22 @@ Phases, each of which makes the script exit non-zero when it fails:
      `src/repro_torch/csrc` (nvcc, one process per source, in parallel);
   2. kernels against their plain versions: at the phi4-mini-3.8B KV
      geometry (page 16, 8 KV heads, head_dim 128, 24 query heads) K1/K2
-     (window pack) bit-exact and K3 (decode on the compressed cache)
-     within atol = rtol = 2e-3 (summation order, __expf) with the bytes
-     exact; the page codecs' group pack (K1/K2) and unpack (K4/K5)
-     bit-exact at three shapes (one group, six groups and two by three
-     groups of an odd geometry), pack -> unpack the identity where a group
-     fits; K7 (the compressibility scan) bit-exact on all four outputs at
-     1, 301, 1024 and 2^20 lines, two of them at keys other than the
-     default, with every marker class planted and each planted line's class
-     held; K6 (single-sequence decode) within 2e-3 at four slot counts,
-     three of them not a multiple of the lanes, one sequence with no valid
-     token;
+     (window pack) bit-exact on a 32-group and a 64-group window, each
+     with a group whose only out-of-range delta sits in its last chunk,
+     and K3 (decode on the compressed cache) within atol = rtol = 2e-3
+     (summation order, __expf) with the bytes exact; the page codecs'
+     group pack (K1/K2) and unpack (K4/K5) bit-exact at three shapes (one
+     group, six groups and two by three groups of an odd geometry), pack
+     -> unpack the identity where a group fits; K7 (the compressibility
+     scan) bit-exact on all four outputs at 1, 301, 1024 and 2^20 lines,
+     two of them at keys other than the default, with every marker class
+     planted and each planted line's class held; K6 (single-sequence
+     decode) within 2e-3 at four slot counts, three of them not a multiple
+     of the lanes, one sequence with no valid token; then K3 and K6 at the
+     reference's other head geometries (page 8, Hkv 1, Hq 1, head_dim 16;
+     Hkv 1, Hq 4, head_dim 32; Hkv 32, Hq 32, head_dim 80; Hkv 8, Hq 96,
+     head_dim 128, a group of 12), K3 within 2e-3 with the bytes exact and
+     K6 within 2e-3 and equal to K3's row of every sequence;
   3. the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -36,6 +41,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      physical view: every packed slot through the registry's unpack (K4 or
      K5) bit-exact against the plain decode, and the unpacked pages
      through the registry's pack (K1 or K2) back to the same slot and base;
+     then a short serve tier at the reference's serving-test geometry
+     (page 8, one KV head, one query head, head_dim 16; 4 slots, 8 decode
+     steps, pair and quad), every attend through ServeLoop.attend on the
+     card held against the plain attention, and `shard=True` on the card's
+     one device equal to `shard=False`;
   5. the compressibility scan of the Fig. 4 memory image at
      n_lines_each = 2^21 (15,728,640 lines, 1,006,632,960 bytes, resident
      on the card) in one K7 launch through the `hybrid` codec's scan
@@ -55,15 +65,17 @@ Phases, each of which makes the script exit non-zero when it fails:
      4,096 all-compressible tokens, every token valid: 256 flat slots),
      each checked once (K3 within 2e-3 with bytes exact, K6 equal to K3's
      row) and timed the same way, so that their byte bound is well above
-     launch latency.
+     launch latency; K1/K2 at the prefill window (B = 8, W = 8), and
+     beside every K1/K2 row the device time of one copy_ of the window's
+     bytes; K3 and K6 at phase 2's other head geometries.
 
-Phases 3 to 5 drive seven paths (launcher pair and quad, serve attend pair
-and quad, page codec pair and quad, scan); the launch counters are set to 0
-just before each and read just after it, and every kernel a path runs must
-have launched in it.  The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.  It needs one CUDA card and a checkout of
-the repository around it.  `--report PATH` also writes the full report as
-JSON.
+Phases 3 to 5 drive eight paths (launcher pair and quad, serve attend pair
+and quad, the small serve attend, page codec pair and quad, scan); the
+launch counters are set to 0 just before each and read just after it, and
+every kernel a path runs must have launched in it.  The last two lines are
+the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
+CUDA card and a checkout of the repository around it.  `--report PATH`
+also writes the full report as JSON.
 """
 
 from __future__ import annotations
@@ -119,6 +131,8 @@ PATHS = {
                           "decode_single_pair"),
     "serve_attend_quad": ("pack_quad", "decode_attention_quad",
                           "decode_single_quad"),
+    "serve_attend_small": ("pack_pair", "pack_quad", "decode_attention_pair",
+                           "decode_attention_quad"),
     "page_codec_pair": ("unpack_pair", "pack_pair_group"),
     "page_codec_quad": ("unpack_quad", "pack_quad_group"),
     "scan": ("compress_scan",),
@@ -141,7 +155,7 @@ def kernel_resources(cuda_lib) -> list[str]:
     registers and spills, from the build's ptxas report."""
     import re
 
-    funcs = ("layout_window_kernel", "pack_pages_kernel",
+    funcs = ("window_fit_kernel", "window_write_kernel", "pack_pages_kernel",
              "unpack_pages_kernel", "cram_decode_kernel",
              "cram_decode_single_kernel", "cram_decode_combine",
              "compress_scan_kernel")
@@ -330,72 +344,107 @@ def nbytes(t) -> int:
 
 # ---------------------------------------------------------- phase 2: kernels
 
-def kv_window(torch, rng, b, w, lanes, kinds, device):
-    """(B, W, lanes, page, Hkv, D2) int16 window; kinds[b] is
+def kv_window(torch, rng, b, w, lanes, kinds, device, page=PAGE, hkv=N_KV,
+              hd=HEAD_DIM):
+    """(B, W, lanes, page, Hkv, 2 hd) int16 window; kinds[b] is
     "compressible", "incompressible" or "mixed" (alternating groups)."""
     from repro_torch.kv import synthetic_kv_stream
     from repro_torch.kv.cache import kv_bits
 
-    t = w * lanes * PAGE
+    t = w * lanes * page
     rows = []
     for kind in kinds:
-        kc, vc = synthetic_kv_stream(rng, 1, t, N_KV, HEAD_DIM)
-        ki, vi = synthetic_kv_stream(rng, 1, t, N_KV, HEAD_DIM,
-                                     compressible=False)
+        kc, vc = synthetic_kv_stream(rng, 1, t, hkv, hd)
+        ki, vi = synthetic_kv_stream(rng, 1, t, hkv, hd, compressible=False)
         if kind == "incompressible":
             kc, vc = ki, vi
         elif kind == "mixed":
-            span = lanes * PAGE
+            span = lanes * page
             for g in range(1, w, 2):
                 kc[:, g * span:(g + 1) * span] = ki[:, g * span:(g + 1) * span]
                 vc[:, g * span:(g + 1) * span] = vi[:, g * span:(g + 1) * span]
         rows.append(kv_bits(kc[0], vc[0], device))
-    win = torch.stack(rows).reshape(b, w, lanes, PAGE, N_KV, 2 * HEAD_DIM)
+    win = torch.stack(rows).reshape(b, w, lanes, page, hkv, 2 * hd)
     return win.contiguous()
 
 
+def misfit_last_vector(win, b, w) -> None:
+    """Push the last element of group (b, w)'s last page out of the delta
+    range of its base row: a misfit that only the group's last 16-byte
+    vector, and so only its last window-pack chunk, sees."""
+    base = int(win[b, w, 0, 0, -1, -1])
+    win[b, w, -1, -1, -1, -1] = base + 300 if base < 2**14 else base - 300
+
+
 def check_pack(torch, rng, device) -> dict:
-    """K1/K2 against the plain version; returns the largest |difference|
+    """K1/K2 against the plain version on a 32-group and a 64-group window
+    (the prefill shape, B = 8, W = 8), each with one compressible group
+    that misfits only in its last chunk; returns the largest |difference|
     seen on any output, by kernel name (0 when bit-exact)."""
     from repro_torch.kernels import bdi_pack
 
     errs = {}
-    b, w = 4, 8
-    kinds = ["compressible", "incompressible", "mixed", "compressible"]
-    enabled = torch.tensor([True, True, True, False], device=device)
-    for lanes in (2, 4):
-        win = kv_window(torch, rng, b, w, lanes, kinds, device)
-        win[3, 5, :, PAGE // 2:] = 0          # a partial page group
-        mk = torch.from_numpy(rng.integers(-2**15, 2**15, (w, 2)).astype(
-            "int16")).to(device)
-        got = bdi_pack.pack_window_cuda(win, mk, enabled)
-        torch.cuda.synchronize()
-        want = bdi_pack.pack_window_plain(win, mk, enabled)
-        err = 0
-        for name, g, r in zip(PACK_OUTPUTS, got, want, strict=True):
-            err = max(err, (g.int() - r.int()).abs().max().item())
-            if not torch.equal(g, r):
-                fail(f"K{1 if lanes == 2 else 2} {name} differs from the "
-                     "plain version")
-        errs["pack_pair" if lanes == 2 else "pack_quad"] = float(err)
-        print(f"kernel check: pack lanes={lanes} bit-exact on 5 outputs "
-              f"(fit per group {got[4].sum().item()}/{b * w})")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    nvec = PAGE * N_KV * 2 * HEAD_DIM // 8
+    for b, w in ((4, 8), (8, 8)):
+        kinds = (["compressible", "incompressible", "mixed", "compressible"]
+                 * 2)[:b]
+        enabled = torch.ones(b, dtype=torch.bool, device=device)
+        enabled[3] = False
+        chunk_vecs, chunks = bdi_pack.window_chunks(b * w, nvec, sms)
+        for lanes in (2, 4):
+            win = kv_window(torch, rng, b, w, lanes, kinds, device)
+            win[3, 5, :, PAGE // 2:] = 0          # a partial page group
+            misfit_last_vector(win, 0, 2)
+            mk = torch.from_numpy(rng.integers(-2**15, 2**15, (w, 2)).astype(
+                "int16")).to(device)
+            got = bdi_pack.pack_window_cuda(win, mk, enabled)
+            torch.cuda.synchronize()
+            want = bdi_pack.pack_window_plain(win, mk, enabled)
+            err = 0
+            for name, g, r in zip(PACK_OUTPUTS, got, want, strict=True):
+                err = max(err, (g.int() - r.int()).abs().max().item())
+                if not torch.equal(g, r):
+                    fail(f"K{1 if lanes == 2 else 2} B={b} W={w} {name} "
+                         "differs from the plain version")
+            fit = got[4]
+            if not (bool(fit[0, 1]) and not bool(fit[0, 2])):
+                fail(f"K{1 if lanes == 2 else 2} B={b} W={w}: the group with "
+                     "a misfit in its last chunk only was not told apart "
+                     "from its neighbour")
+            name = "pack_pair" if lanes == 2 else "pack_quad"
+            errs[name] = max(errs.get(name, 0.0), float(err))
+            print(f"kernel check: pack lanes={lanes} B={b} W={w} bit-exact on "
+                  f"5 outputs ({chunks} chunks of {chunk_vecs} vectors a "
+                  f"group, the last of {nvec - chunk_vecs * (chunks - 1)}; "
+                  f"fit per group {fit.sum().item()}/{b * w}, the last-chunk "
+                  "misfit seen)")
     return errs
 
 
-def attention_inputs(torch, rng, lanes, b, n_groups, device, shared=False):
+PHI4_GEOMETRY = (PAGE, N_KV, N_HEADS, HEAD_DIM)
+# (page, Hkv, Hq, head_dim) the reference computes beyond the phi4 shape:
+# its serving tests, its kernel sweep and smoke configs (head_dim 32),
+# zamba2_2_7b's head_dim 80 and mistral_large_123b's group of 12
+GEOMETRIES = ((8, 1, 1, 16), (16, 1, 4, 32), (16, 32, 32, 80),
+              (16, 8, 96, 128))
+
+
+def attention_inputs(torch, rng, lanes, b, n_groups, device, shared=False,
+                     geometry=PHI4_GEOMETRY):
     """Per-sequence (or shared) compressed caches from mixed streams, a
     ragged valid mask (zero-valid lanes, partial pages) and a predictor
     with mismatches, in the flat physical view."""
     from repro_torch.kernels import ops
 
+    page, hkv, hq, hd = geometry
     kinds = ["compressible", "mixed", "incompressible", "compressible"]
     caches = []
     for i in range(1 if shared else b):
         win = kv_window(torch, rng, 1, n_groups, lanes, [kinds[i % 4]],
-                        device)
+                        device, page, hkv, hd)
         build = ops.build_cram_cache if lanes == 2 else ops.build_cram_cache_quad
-        caches.append(build(win.reshape(-1, PAGE, N_KV, 2 * HEAD_DIM)))
+        caches.append(build(win.reshape(-1, page, hkv, 2 * hd)))
     keys = ("slots", "slots_overflow", "strips", "packed_mask")
     if shared:
         cache = {k: caches[0][k] for k in keys}
@@ -404,11 +453,11 @@ def attention_inputs(torch, rng, lanes, b, n_groups, device, shared=False):
     cache["markers"] = caches[0]["markers"]
     lead = () if shared else (b,)
     tokens = torch.from_numpy(rng.integers(
-        1, n_groups * lanes * PAGE, lead or (1,))).to(device)
+        1, n_groups * lanes * page, lead or (1,))).to(device)
     if not shared:
         tokens[1] = 0                               # a zero-valid lane
     pages = torch.arange(n_groups * lanes, device=device)
-    valid = torch.clamp(tokens.reshape(-1, 1) - pages * PAGE, 0, PAGE)
+    valid = torch.clamp(tokens.reshape(-1, 1) - pages * page, 0, page)
     valid = valid.reshape(*lead, -1).to(torch.int32)
     pred = cache["packed_mask"].clone()
     flip = torch.from_numpy(rng.random(tuple(pred.shape)) < 0.3).to(device)
@@ -416,7 +465,7 @@ def attention_inputs(torch, rng, lanes, b, n_groups, device, shared=False):
     pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
     slots, strips, markers, fvalid = pv(cache, valid)
     q = torch.from_numpy(rng.standard_normal(
-        (b, N_HEADS, HEAD_DIM)).astype("float32")).to(device)
+        (b, hq, hd)).astype("float32")).to(device)
     return (q, slots.contiguous(), strips.contiguous(), markers.contiguous(),
             fvalid.to(torch.int32).contiguous(),
             pred.to(torch.int32).contiguous())
@@ -457,6 +506,46 @@ def check_attention(torch, rng, device) -> dict:
                         else "decode_attention_quad")
                 errs[name] = max(errs.get(name, 0.0), err)
     return errs
+
+
+def check_geometries(torch, rng, device) -> tuple[dict, dict]:
+    """K3 and K6 at the reference's other head geometries (GEOMETRIES), B =
+    8 sequences of 8 page groups: K3 within ATOL of its plain version with
+    the bytes exact, and K6 on each sequence equal to K3's row under
+    torch.equal.  Returns the largest |difference| by kernel name, and the
+    inputs by geometry label for phase 7."""
+    from repro_torch.kernels import cram_attention as ca
+
+    errs, inputs = {}, {}
+    for geometry in GEOMETRIES:
+        page, hkv, hq, hd = geometry
+        for lanes in (2, 4):
+            kind = "pair" if lanes == 2 else "quad"
+            label = f"page={page} Hkv={hkv} Hq={hq} head_dim={hd} {kind}"
+            args = attention_inputs(torch, rng, lanes, 8, 8, device,
+                                    geometry=geometry)
+            kw = {"lanes": lanes}
+            err = check_attention_once(torch, args, kw, label)
+            out, _ = ca.cram_decode_attention_batched_cuda(*args, **kw)
+            q, slots, strips, markers, valid, _ = args
+            single = 0.0
+            for i in range(q.shape[0]):
+                one = (q[i].contiguous(), slots[i], strips[i], markers,
+                       valid[i])
+                got = ca.cram_decode_attention_cuda(*one, **kw)
+                if not torch.equal(got, out[i]):
+                    fail(f"K6 {label}: sequence {i} differs from K3's row")
+                single = max(single, _close(
+                    torch, f"K6 {label} sequence {i}", got,
+                    ca.cram_decode_attention_plain(*one, **kw)))
+            for name, e in ((f"decode_attention_{kind}", err),
+                            (f"decode_single_{kind}", single)):
+                errs[name] = max(errs.get(name, 0.0), e)
+            inputs[label] = (lanes, args)
+            print(f"kernel check: decode {label}: K3 max|diff| {err:.3e}, "
+                  f"bytes exact; K6 max|diff| {single:.3e} and equal to K3's "
+                  "row on each of 8 sequences")
+    return errs, inputs
 
 
 def delta_pages(torch, rng, lanes, lead, page, hkv, d2, device):
@@ -798,6 +887,80 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
             "single_vs_batched": single_err, "view": (s, st, mk)}
 
 
+SMALL_PAGE, SMALL_HKV, SMALL_HQ, SMALL_HD = 8, 1, 1, 16
+
+
+def serve_small_phase(torch, device, steps: int = 8) -> dict:
+    """ServeLoop at the reference's serving-test geometry (page 8, one KV
+    head, one query head, head_dim 16), pair then quad: 4 slots with
+    prompts of 5, 8, 16 and 25 tokens (slot 2 incompressible, the others
+    compressible), `steps` decode steps, each followed by an attend on the
+    card held against the plain attention on the same state.  At the last
+    step `shard=True` must equal `shard=False` on the card's one device
+    (with more cards visible it must raise: the sharded attend is not
+    ported).  Returns the max |diff| seen."""
+    import numpy as np
+
+    from repro_torch.kernels import cram_attention as ca
+    from repro_torch.kernels import ops
+    from repro_torch.kv import synthetic_kv_stream
+    from repro_torch.serving import ServeLoop
+
+    rng = np.random.default_rng(16)
+    prompts = (5, 8, 16, 25)
+    total = max(prompts) + steps
+    worst = 0.0
+    for packing in ("pair", "quad"):
+        k, v = synthetic_kv_stream(rng, 4, total, SMALL_HKV, SMALL_HD)
+        ki, vi = synthetic_kv_stream(rng, 4, total, SMALL_HKV, SMALL_HD,
+                                     compressible=False)
+        k[2], v[2] = ki[2], vi[2]
+        loop = ServeLoop(slots=4, max_pages=-(-total // SMALL_PAGE),
+                         page=SMALL_PAGE, n_kv=SMALL_HKV, head_dim=SMALL_HD,
+                         policy="static", packing=packing, device=device)
+        for i, p in enumerate(prompts):
+            loop.prefill(i, k[i, :p], v[i, :p])
+        lanes = loop.cache.group_lanes
+        pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+        for step in range(steps):
+            loop.step_all({i: (k[i, p + step:p + step + 1],
+                               v[i, p + step:p + step + 1])
+                           for i, p in enumerate(prompts)})
+            q = rng.standard_normal((4, SMALL_HQ, SMALL_HD)).astype("float32")
+            out = loop.attend({i: q[i] for i in range(4)})
+            c = loop.cache
+            n = c._active_bucket()
+            kc = c._kernel_cache(n)
+            s, st, mk, fv = pv(kc, c._valid(n))
+            ref, _ = ca.cram_decode_attention_batched_plain(
+                torch.from_numpy(q).to(device), s, st, mk, fv,
+                kc["packed_mask"], lanes=lanes)
+            got = torch.stack([out[i] for i in range(4)])
+            worst = max(worst, _close(
+                torch, f"serve attend small {packing} step {step}", got, ref))
+        qs = {i: q[i] for i in range(4)}
+        if torch.cuda.device_count() == 1:
+            sharded = loop.attend(qs, shard=True)
+            single = loop.attend(qs, shard=False)
+            if not all(torch.equal(sharded[i], single[i]) for i in range(4)):
+                fail(f"serve attend small {packing}: shard=True on one card "
+                     "differs from shard=False")
+            shard_note = "shard=True equal to shard=False on the one card"
+        else:
+            try:
+                loop.attend(qs, shard=True)
+            except NotImplementedError:
+                shard_note = "shard=True across cards raises (not ported)"
+            else:
+                fail("serve attend small: shard=True across "
+                     f"{torch.cuda.device_count()} cards did not raise")
+        print(f"serve attend small {packing}: page {SMALL_PAGE}, Hkv "
+              f"{SMALL_HKV}, Hq {SMALL_HQ}, head_dim {SMALL_HD}, {steps} "
+              f"steps, every attend within {ATOL} of the plain attention; "
+              f"{shard_note}")
+    return {"max_abs_err": worst}
+
+
 def page_codec_roundtrip(torch, view, packing: str) -> dict:
     """The registry's page-codec device pair on a serve cache: every slot
     whose strip marker matches goes through the unpack (K4 or K5), held
@@ -1120,10 +1283,13 @@ def timing_spec(torch, name, args, kw) -> dict:
     from repro_torch.kernels import cram_attention as ca
 
     if name in ("pack_pair", "pack_quad"):
-        return {"shape": args[0].shape,
+        win = args[0]
+        copy = torch.empty_like(win)
+        return {"shape": win.shape,
                 "kernel": lambda: bdi_pack.pack_window_cuda(*args),
                 "plain": lambda: bdi_pack.pack_window_plain(*args),
-                "library": None, "bound": pack_bound(args)}
+                "library": None, "bound": pack_bound(args),
+                "floor": lambda: copy.copy_(win)}
     if name.startswith("decode_attention"):
         return {"shape": args[1].shape,
                 "kernel": lambda: ca.cram_decode_attention_batched_cuda(
@@ -1192,6 +1358,8 @@ def measure(torch, name, spec) -> dict:
         r["library_ms"] = device_ms(torch, spec["library"])
         r["library_call_ms"] = call_ms(torch, spec["library"])
     r["bound_ms"], r["bound_by"] = spec["bound"]
+    if "floor" in spec:     # one copy_ of the bytes a window pack moves
+        r["copy_floor_ms"] = device_ms(torch, spec["floor"])
     return r
 
 
@@ -1200,10 +1368,12 @@ def print_rows(phase: str, rows: dict) -> None:
         return "none" if x is None else f"{x:.4f} ms"
 
     for name, r in rows.items():
+        floor = ("" if "copy_floor_ms" not in r
+                 else f", copy_ of the same bytes {fmt(r['copy_floor_ms'])}")
         print(f"timing [{phase}] {name} shape {r['shape']}: device time: "
               f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
               f"{fmt(r['library_ms'])}, bound {fmt(r['bound_ms'])} "
-              f"({r['bound_by']}); one eager call: kernel "
+              f"({r['bound_by']}){floor}; one eager call: kernel "
               f"{fmt(r['call_ms'])}, plain {fmt(r['plain_call_ms'])}, "
               f"library {fmt(r['library_call_ms'])}")
 
@@ -1280,6 +1450,45 @@ def long_context_rows(torch, device) -> dict:
     return rows
 
 
+def prefill_window_rows(torch, device) -> dict:
+    """K1 and K2 at the prefill window (B = 8 sequences, W = 8 groups,
+    64 groups at the phi4 KV geometry; compressible, incompressible and
+    mixed sequences), timed as the main path's kernels are."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    kinds = ["compressible", "incompressible", "mixed", "compressible"] * 2
+    enabled = torch.ones(8, dtype=torch.bool, device=device)
+    rows = {}
+    for lanes, name in ((2, "pack_pair"), (4, "pack_quad")):
+        win = kv_window(torch, rng, 8, 8, lanes, kinds, device)
+        mk = torch.from_numpy(rng.integers(-2**15, 2**15, (8, 2)).astype(
+            "int16")).to(device)
+        rows[name] = measure(torch, name,
+                             timing_spec(torch, name, (win, mk, enabled), {}))
+    print_rows("prefill-window", rows)
+    return rows
+
+
+def geometry_rows(torch, inputs: dict) -> dict:
+    """K3 on phase 2's inputs at each of the reference's other head
+    geometries (B = 8 sequences of 8 page groups: 16 pair / 32 quad flat
+    slots), and K6 on its first sequence, timed as the main path's kernels
+    are."""
+    rows = {}
+    for label, (lanes, args) in inputs.items():
+        kind = "pair" if lanes == 2 else "quad"
+        kw = {"lanes": lanes}
+        one = (args[0][0].contiguous(), args[1][0], args[2][0], args[3],
+               args[4][0])
+        for name, call in ((f"decode_attention_{kind}", args),
+                           (f"decode_single_{kind}", one)):
+            rows[f"{name} {label}"] = measure(
+                torch, name, timing_spec(torch, name, call, kw))
+    print_rows("geometry", rows)
+    return rows
+
+
 # ------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1330,9 +1539,11 @@ def main(argv=None) -> int:
             **check_page_codecs(torch, rng, device),
             **check_scan(torch, rng, device),
             **check_single_decode(torch, rng, device)}
+    geo_errs, geo_inputs = check_geometries(torch, rng, device)
+    errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: seven paths, each with the launch counters from 0
+    # phases 3 to 5: eight paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -1412,6 +1623,8 @@ def main(argv=None) -> int:
         phases[packing] = drive(
             f"serve_attend_{packing}",
             lambda p=packing: serve_attend_phase(torch, p, device))
+    small = drive("serve_attend_small",
+                  lambda: serve_small_phase(torch, device))
     codec = {}
     for packing, ph in phases.items():
         check_final_state(torch, ph["loop"], packing)
@@ -1442,7 +1655,9 @@ def main(argv=None) -> int:
         "page-codec": timing_rows(torch, rec, "page-codec",
                                   ("page_codec_pair", "page_codec_quad")),
         "scan": timing_rows(torch, rec, "scan", ("scan",)),
-        "long-context": long_context_rows(torch, device)}
+        "long-context": long_context_rows(torch, device),
+        "prefill-window": prefill_window_rows(torch, device),
+        "geometry": geometry_rows(torch, geo_inputs)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     main_rows = {**timing["serve-attend"], **timing["page-codec"],
                  **timing["scan"]}
@@ -1467,7 +1682,7 @@ def main(argv=None) -> int:
             {"card": card, "launcher": reports, "kernels": kernels,
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
-             "page_codec": codec,
+             "page_codec": codec, "serve_attend_small": small,
              "single_vs_batched": {p: ph["single_vs_batched"]
                                    for p, ph in phases.items()},
              "timing": timing}, indent=1))

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernels repro/kernels/bdi_pack.py:_pack_kernel
 // (pack_pair) and _pack_quad_kernel (pack_quad), together with the vmap over
 // (B, W) and the select/strip framing around them in
-// repro/kernels/ops.py:pack_window / pack_quad_window.  One launch computes
+// repro/kernels/ops.py:pack_window / pack_quad_window.  One call computes
 // the whole layout_window contract for a gathered window:
 //
 //   win (B, W, LANES, page, Hkv, D2) int16      -- LANES logical pages per group
@@ -19,19 +19,40 @@
 //
 // Bound on the H100: bytes.  Per group it reads LANES pages and writes
 // LANES pages plus a strip, with a handful of integer operations per
-// element, so the floor is (bytes read + bytes written) / 3.35 TB/s.
-// Design: one CTA per (b, w) group; 16-byte vector loads and stores with
-// neighbouring threads on neighbouring addresses; the fit is an AND-reduction
-// over the CTA (__syncthreads_and); the second pass re-reads the group, which
-// the first pass has just brought into L2, and writes every output once.
+// element, so the floor is (bytes read + bytes written) / 3.35 TB/s: 0.64 /
+// 1.26 us (pair / quad) for the 8 groups of a decode step at the phi4 KV
+// geometry.  At that size a call is bound by latency, and what sets it is
+// how many loads are in flight at once: one CTA per group (the first
+// design) put 8 CTAs on 132 SMs, each walking 128 / 256 KB twice.
+//
+// Design: every group is cut into `chunks` chunks of `chunk_vecs` whole
+// 16-byte vectors (the last may be shorter), with chunk_vecs chosen in
+// Python from the group count so that a decode step's window spreads over
+// several CTAs per SM and a prefill window stays in one wave.  The fit is
+// an AND over the whole group, so it crosses CTAs, and the call is two
+// launches on one grid of (group, chunk) CTAs:
+//   1. window_fit_kernel: each CTA checks every delta of its chunk against
+//      the base row (lane A, token 0) and writes one flag per (group,
+//      chunk), with no atomics and nothing zeroed first;
+//   2. window_write_kernel: each CTA ANDs its group's flags, re-reads its
+//      chunk (which pass 1 has just brought into L2) and writes every
+//      output of it once: the chunks that hold lane A's token-0 row also
+//      write it as the strip's base row, and chunk 0 writes the marker
+//      tails and lay / fit.  (Chunk 0 writing the whole strip cost a chain
+//      of dependent L2 loads per thread and most of the call.)
+// Loads and stores are 16-byte vectors, neighbouring threads on
+// neighbouring addresses.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int WINDOW_THREADS = 64;   // threads of a window-pack CTA
+
 union Vec8 {
   uint4 u;
+  uint32_t w[4];
   int16_t h[8];
 };
 
@@ -45,34 +66,33 @@ __device__ __forceinline__ void store8(int16_t* p, const Vec8& v) {
   *reinterpret_cast<uint4*>(p) = v.u;
 }
 
+// the vectors [v0, v1) of chunk blockIdx.x % chunks of group
+// blockIdx.x / chunks, each group nvec (< 2^31) vectors long
+struct Chunk {
+  long long grp;
+  int v0, v1;
+  __device__ Chunk(int nvec, int chunk_vecs, int chunks) {
+    grp = blockIdx.x / chunks;
+    v0 = (int)(blockIdx.x % chunks) * chunk_vecs;
+    v1 = min(v0 + chunk_vecs, nvec);
+  }
+};
+
 template <int LANES>
-__global__ void layout_window_kernel(const int16_t* __restrict__ win,
-                                     const int16_t* __restrict__ marker_lanes,
-                                     const uint8_t* __restrict__ enabled,
-                                     int W, int page, int hkv, int d2,
-                                     int16_t* __restrict__ slots,
-                                     int16_t* __restrict__ over,
-                                     int16_t* __restrict__ strips,
-                                     uint8_t* __restrict__ lay,
-                                     uint8_t* __restrict__ fit) {
+__global__ void __launch_bounds__(WINDOW_THREADS)
+window_fit_kernel(const int16_t* __restrict__ win, int rowvec, long long E,
+                  int chunk_vecs, int chunks, uint8_t* __restrict__ flags) {
   constexpr int LO = LANES == 2 ? -128 : -8;
   constexpr int HI = LANES == 2 ? 127 : 7;
-  const int w = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long grp = (long long)b * W + w;
-  const int row = hkv * d2;                       // elements of one token row
-  const long long E = (long long)page * row;      // elements of one page
-  const long long nvec = E / 8;
-  const int16_t* g = win + grp * LANES * E;
-
-  // pass 1: every delta of every lane against the base row (lane A, token 0)
+  const Chunk ck((int)(E / 8), chunk_vecs, chunks);
+  const int16_t* g = win + ck.grp * LANES * E;
   int ok = 1;
-  for (long long v = threadIdx.x; v < nvec; v += blockDim.x) {
-    const long long e = v * 8;
-    const Vec8 base = load8(g + e % row);
+#pragma unroll 4
+  for (int v = ck.v0 + threadIdx.x; v < ck.v1; v += WINDOW_THREADS) {
+    const Vec8 base = load8(g + (v % rowvec) * 8);
 #pragma unroll
     for (int j = 0; j < LANES; ++j) {
-      const Vec8 x = load8(g + j * E + e);
+      const Vec8 x = load8(g + j * E + v * 8LL);
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int d = (int)x.h[k] - (int)base.h[k];
@@ -81,19 +101,43 @@ __global__ void layout_window_kernel(const int16_t* __restrict__ win,
     }
   }
   const int fits = __syncthreads_and(ok);
-  const int en = enabled[b] != 0;
+  if (threadIdx.x == 0) flags[blockIdx.x] = (uint8_t)fits;
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(WINDOW_THREADS)
+window_write_kernel(const int16_t* __restrict__ win,
+                    const int16_t* __restrict__ marker_lanes,
+                    const uint8_t* __restrict__ enabled, int W, int hkv,
+                    int d2, long long E, int chunk_vecs, int chunks,
+                    const uint8_t* __restrict__ flags,
+                    int16_t* __restrict__ slots, int16_t* __restrict__ over,
+                    int16_t* __restrict__ strips, uint8_t* __restrict__ lay,
+                    uint8_t* __restrict__ fit) {
+  const Chunk ck((int)(E / 8), chunk_vecs, chunks);
+  const int rowvec = hkv * d2 / 8;              // vectors of one token row
+  const int srow = d2 + 2;
+  const int16_t* g = win + ck.grp * LANES * E;
+
+  int ok = 1;
+  for (int i = threadIdx.x; i < chunks; i += WINDOW_THREADS)
+    ok &= flags[ck.grp * chunks + i] != 0;
+  const int fits = __syncthreads_and(ok);
+  const int en = enabled[ck.grp / W] != 0;
   const int laid = fits & en;
 
-  // pass 2: slots / overflow
-  int16_t* out_slot = slots + grp * E;
-  int16_t* out_over = over + grp * (LANES - 1) * E;
-  for (long long v = threadIdx.x; v < nvec; v += blockDim.x) {
-    const long long e = v * 8;
+  int16_t* out_slot = slots + ck.grp * E;
+  int16_t* out_over = over + ck.grp * (LANES - 1) * E;
+  int16_t* out_strip = strips + ck.grp * hkv * srow;
+  for (int v = ck.v0 + threadIdx.x; v < ck.v1; v += WINDOW_THREADS) {
+    const long long e = v * 8LL;
+    const Vec8 a = load8(g + e);                 // lane A
     if (laid) {
-      const Vec8 base = load8(g + e % row);
+      const Vec8 base = v < rowvec ? a : load8(g + (v % rowvec) * 8);
       Vec8 x[LANES];
+      x[0] = a;
 #pragma unroll
-      for (int j = 0; j < LANES; ++j) x[j] = load8(g + j * E + e);
+      for (int j = 1; j < LANES; ++j) x[j] = load8(g + j * E + e);
       Vec8 packed;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -111,31 +155,33 @@ __global__ void layout_window_kernel(const int16_t* __restrict__ win,
 #pragma unroll
       for (int j = 1; j < LANES; ++j) store8(out_over + (j - 1) * E + e, zero);
     } else {
-      store8(out_slot + e, load8(g + e));
+      store8(out_slot + e, a);
 #pragma unroll
       for (int j = 1; j < LANES; ++j)
         store8(out_over + (j - 1) * E + e, load8(g + j * E + e));
     }
-  }
-
-  // strips: base row whenever enabled, marker tail only where laid
-  const int srow = d2 + 2;
-  int16_t* out_strip = strips + grp * hkv * srow;
-  for (int i = threadIdx.x; i < hkv * srow; i += blockDim.x) {
-    const int h = i / srow;
-    const int c = i % srow;
-    int16_t val = 0;
-    if (en) {
-      if (c < d2)
-        val = g[h * d2 + c];
-      else if (laid)
-        val = marker_lanes[w * 2 + (c - d2)];
+    if (v < rowvec) {   // lane A's token-0 row: the strip's base row when
+                        // enabled, as 4-byte words (a strip row is 2 d2 + 4
+                        // bytes, so 4-byte aligned)
+      const int h = v * 8 / d2;
+      uint32_t* dst =
+          reinterpret_cast<uint32_t*>(out_strip + h * srow + v * 8 - h * d2);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dst[k] = en ? a.w[k] : 0u;
     }
-    out_strip[i] = val;
   }
+  if (ck.v0 != 0) return;
+
+  // chunk 0: each head's marker tail (only where laid) and lay / fit
+  const uint32_t tail =
+      laid ? (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2] |
+                 (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2 + 1] << 16
+           : 0u;
+  for (int h = threadIdx.x; h < hkv; h += WINDOW_THREADS)
+    *reinterpret_cast<uint32_t*>(out_strip + h * srow + d2) = tail;
   if (threadIdx.x == 0) {
-    lay[grp] = (uint8_t)laid;
-    fit[grp] = (uint8_t)fits;
+    lay[ck.grp] = (uint8_t)laid;
+    fit[ck.grp] = (uint8_t)fits;
   }
 }
 
@@ -231,31 +277,49 @@ unsigned grid_for(long long nvec, int threads) {
   return (unsigned)(blocks < 65535LL * 32 ? blocks : 65535LL * 32);
 }
 
+// the two passes of the window pack on one grid of (group, chunk) CTAs
+template <int LANES>
+int launch_window(const void* win, const void* marker_lanes,
+                  const void* enabled, int W, int hkv, int d2, long long E,
+                  int chunk_vecs, int chunks, long long ctas, void* flags,
+                  void* slots, void* over, void* strips, void* lay, void* fit,
+                  cudaStream_t s) {
+  const int16_t* w = (const int16_t*)win;
+  window_fit_kernel<LANES><<<(unsigned)ctas, WINDOW_THREADS, 0, s>>>(
+      w, hkv * d2 / 8, E, chunk_vecs, chunks, (uint8_t*)flags);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  window_write_kernel<LANES><<<(unsigned)ctas, WINDOW_THREADS, 0, s>>>(
+      w, (const int16_t*)marker_lanes, (const uint8_t*)enabled, W, hkv, d2, E,
+      chunk_vecs, chunks, (const uint8_t*)flags, (int16_t*)slots,
+      (int16_t*)over, (int16_t*)strips, (uint8_t*)lay, (uint8_t*)fit);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int cram_layout_window(const void* win, const void* marker_lanes,
                                   const void* enabled, int B, int W, int lanes,
-                                  int page, int hkv, int d2, void* slots,
+                                  int page, int hkv, int d2, int chunk_vecs,
+                                  int chunks, void* flags, void* slots,
                                   void* over, void* strips, void* lay,
                                   void* fit, void* stream) {
-  const dim3 grid(W, B);
-  const int threads = 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int16_t* w = (const int16_t*)win;
-  const int16_t* m = (const int16_t*)marker_lanes;
-  const uint8_t* e = (const uint8_t*)enabled;
-  if (lanes == 2) {
-    layout_window_kernel<2><<<grid, threads, 0, s>>>(
-        w, m, e, W, page, hkv, d2, (int16_t*)slots, (int16_t*)over,
-        (int16_t*)strips, (uint8_t*)lay, (uint8_t*)fit);
-  } else if (lanes == 4) {
-    layout_window_kernel<4><<<grid, threads, 0, s>>>(
-        w, m, e, W, page, hkv, d2, (int16_t*)slots, (int16_t*)over,
-        (int16_t*)strips, (uint8_t*)lay, (uint8_t*)fit);
-  } else {
+  const long long E = (long long)page * hkv * d2;   // elements of one page
+  const long long nvec = E / 8;
+  const long long ctas = (long long)B * W * chunks;
+  if (B <= 0 || W <= 0 || page <= 0 || hkv <= 0 || d2 <= 0 || d2 % 8 != 0 ||
+      nvec > 0x7fffffffLL || chunk_vecs <= 0 ||
+      chunks != (nvec + chunk_vecs - 1) / chunk_vecs ||
+      ctas > 0x7fffffffLL || (lanes != 2 && lanes != 4))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return lanes == 2
+             ? launch_window<2>(win, marker_lanes, enabled, W, hkv, d2, E,
+                                chunk_vecs, chunks, ctas, flags, slots, over,
+                                strips, lay, fit, s)
+             : launch_window<4>(win, marker_lanes, enabled, W, hkv, d2, E,
+                                chunk_vecs, chunks, ctas, flags, slots, over,
+                                strips, lay, fit, s);
 }
 
 extern "C" int cram_pack_pages(const void* page_a, const void* page_b,

@@ -3,7 +3,8 @@ and the page codecs' device pair: group pack (K1 / K2) and unpack (K4 / K5).
 
 `pack_window` ports `repro.kernels.bdi_pack.pack_pair` / `pack_quad`
 together with the (B, W) vmap and framing of `repro.kernels.ops.
-pack_window` / `pack_quad_window`: one launch lays a whole gathered window;
+pack_window` / `pack_quad_window`: one call lays a whole gathered window
+(two launches over chunks of every group, `window_chunks`);
 `pack_window_plain` is its plain PyTorch version.
 
 `pack_pair` / `pack_quad` / `unpack_pair` / `unpack_quad` are the
@@ -21,6 +22,7 @@ launches the kernel or raises.  There is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -28,6 +30,11 @@ import torch
 from ..compression import pagepack
 from ..compression.framing import MARKER_LANES
 from . import cuda_lib
+
+# threads of a window-pack CTA (WINDOW_THREADS in csrc/bdi_pack.cu) and the
+# CTAs per SM `window_chunks` aims at
+WINDOW_THREADS = 64
+WINDOW_CTAS_PER_SM = 8
 
 # kernel launches, by kernel; only the CUDA path counts
 LAUNCHES = {"pack_pair": 0, "pack_quad": 0, "pack_pair_group": 0,
@@ -74,8 +81,27 @@ def _check(t, name, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def pack_window_cuda(win, marker_lanes, enabled):
-    """The CUDA kernel on the same contract as `pack_window_plain`."""
+def window_chunks(groups: int, nvec: int, sms: int) -> tuple[int, int]:
+    """(vectors per chunk, chunks per group) of the window pack: a window
+    of `groups` page groups of `nvec` 16-byte vectors each, on a card of
+    `sms` SMs, goes to WINDOW_CTAS_PER_SM CTAs per SM where it has enough
+    vectors for one per thread, and to fewer, larger chunks where it has
+    more; the last chunk of a group may be shorter."""
+    per_cta = -(-groups * nvec // (WINDOW_CTAS_PER_SM * sms))
+    chunk_vecs = min(nvec, max(WINDOW_THREADS, per_cta))
+    return chunk_vecs, -(-nvec // chunk_vecs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pack_window_cuda(win, marker_lanes, enabled, *,
+                     chunk_vecs: int | None = None):
+    """The CUDA kernel on the same contract as `pack_window_plain`.
+    `chunk_vecs` (16-byte vectors per CTA) overrides `window_chunks`'
+    choice; it changes which CTA does what, never the result."""
     bsz, w, lanes, page, hkv, d2 = win.shape
     if lanes not in (2, 4):
         raise ValueError(f"lanes must be 2 or 4, got {lanes}")
@@ -84,6 +110,8 @@ def pack_window_cuda(win, marker_lanes, enabled):
     _check(win, "win", torch.int16, win.shape)
     _check(marker_lanes, "marker_lanes", torch.int16, (w, MARKER_LANES))
     _check(enabled, "enabled", torch.bool, (bsz,))
+    if win.data_ptr() % 16:
+        raise ValueError("win must be 16-byte aligned (16-byte vector loads)")
     dev = win.device
     slots = torch.empty((bsz, w, page, hkv, d2), dtype=torch.int16, device=dev)
     over_shape = ((bsz, w, page, hkv, d2) if lanes == 2
@@ -93,13 +121,20 @@ def pack_window_cuda(win, marker_lanes, enabled):
                          device=dev)
     lay = torch.empty((bsz, w), dtype=torch.bool, device=dev)
     fit = torch.empty((bsz, w), dtype=torch.bool, device=dev)
-    if bsz * w == 0:
+    nvec = page * hkv * d2 // 8
+    if bsz * w * nvec == 0:
         return slots, over, strips, lay, fit
+    if chunk_vecs is None:
+        chunk_vecs, chunks = window_chunks(bsz * w, nvec, _sm_count(dev))
+    else:
+        chunk_vecs = min(nvec, chunk_vecs)
+        chunks = -(-nvec // chunk_vecs)
+    flags = torch.empty((bsz * w * chunks,), dtype=torch.uint8, device=dev)
     p = cuda_lib.ptr
     code = cuda_lib.load().cram_layout_window(
         p(win), p(marker_lanes), p(enabled), bsz, w, lanes, page, hkv, d2,
-        p(slots), p(over), p(strips), p(lay), p(fit),
-        cuda_lib.stream_ptr(win))
+        chunk_vecs, chunks, p(flags), p(slots), p(over), p(strips), p(lay),
+        p(fit), cuda_lib.stream_ptr(win))
     cuda_lib.check(code, "cram_layout_window")
     LAUNCHES["pack_pair" if lanes == 2 else "pack_quad"] += 1
     return slots, over, strips, lay, fit

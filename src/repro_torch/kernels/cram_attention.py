@@ -20,9 +20,12 @@ entry shares K3's device body, and its plain version is
 inputs.  It is the per-sequence parity reference for K3.
 
 Both kernels cut a sequence's flat slots into splits of `split_width(n)`
-slots, one CTA per (sequence, KV head, split).  The width depends on `n`
-alone, so K6 on a sequence and K3's row for it (with `block_groups=None`)
-run the same splits and agree bit for bit, whatever the batch.
+slots, one CTA per (sequence, KV head, split) and chunk of at most 8 of
+the KV head's query heads.  They take any whole GQA group and any
+head_dim that is a multiple of 8 from 8 to 128.  The split width
+depends on `n` alone, so K6 on a sequence and K3's row for it (with
+`block_groups=None`) run the same splits and agree bit for bit, whatever
+the batch.
 """
 
 from __future__ import annotations
@@ -133,12 +136,15 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _check_geometry(lanes, hq, d, hkv, d2):
+    """What the kernels take: any whole GQA group, and a head_dim that is a
+    multiple of 8 (16-byte row copies) from 8 to 128 (a CTA pads it to
+    whole warps of at most four columns a thread)."""
     _require(lanes in (2, 4), f"lanes must be 2 or 4, got {lanes}")
     _require(d2 == 2 * d, f"slots D2={d2} != 2 * head_dim {d}")
-    _require(hq % hkv == 0 and hq // hkv <= 8,
-             f"Hq={hq} / Hkv={hkv} must be a whole group of at most 8")
-    _require(d in (64, 128), f"head_dim {d}: the kernel is built for 64 "
-             "and 128")
+    _require(hkv > 0 and hq > 0 and hq % hkv == 0,
+             f"Hq={hq} is not a whole number of groups of Hkv={hkv}")
+    _require(d % 8 == 0 and 8 <= d <= 128, f"head_dim {d}: the kernels "
+             "take a multiple of 8 from 8 to 128")
 
 
 def _check_tensors(q, expect: dict) -> None:

@@ -32,10 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_uint32
 SIGNATURES = {
-    # win, marker_lanes, enabled, B, W, lanes, page, hkv, d2,
-    # slots, over, strips, lay, fit, stream
-    "cram_layout_window": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P],
+    # win, marker_lanes, enabled, B, W, lanes, page, hkv, d2, chunk_vecs,
+    # chunks, flags, slots, over, strips, lay, fit, stream
+    "cram_layout_window": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P],
     # q, slots, strips, markers, valid, pred, B, hq, D, n, page, hkv, lanes,
     # kk, shared, scale, slot_bytes, strip_bytes, part_m, part_l, part_acc,
     # part_bytes, out, bytes, stream

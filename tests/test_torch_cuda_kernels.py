@@ -12,11 +12,13 @@ atol = rtol = 2e-3 (the kernels' online softmax sums in another order and
 uses __expf), K3 with its byte output exact, and K6 on a sequence equals
 K3's row for it bit for bit when K3 takes its default split.  The shapes
 are small and odd on purpose: they cover what the chip_smoke run at the
-phi4 geometry does not (head_dim 64, one query head per KV head, the
-largest group of 8, one slot block per sequence, a single group, a ragged
-last split, one slot, 256 slots, a slot count that is not a multiple of
-the lanes, a marker on all KV heads but one, an image whose line count is
-not a multiple of the kernel's block).
+phi4 geometry does not (head_dim 16, 32, 64 and 80, one query head per KV
+head, groups of 8, 9 and 12, one slot block per sequence, a single group,
+a ragged last split, one slot, 256 slots, a slot count that is not a
+multiple of the lanes, a marker on all KV heads but one, window-pack
+chunks with a ragged last one and a misfit only the last chunk sees, a
+64-group window, an image whose line count is not a multiple of the
+kernel's block).
 
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
@@ -68,24 +70,69 @@ def _window(rng, b, w, lanes, page, hkv, hd, device):
     return torch.stack(rows).reshape(b, w, lanes, page, hkv, 2 * hd)
 
 
+def _misfit_last_vector(win, b, w):
+    """Push the last element of group (b, w)'s last page out of the
+    delta range of its base row: a misfit only the last 16-byte vector of
+    the group sees, so only the group's last chunk."""
+    base = int(win[b, w, 0, 0, -1, -1])
+    win[b, w, -1, -1, -1, -1] = base + 300 if base < 2**14 else base - 300
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [2, 4])
 @pytest.mark.parametrize("page,hkv,hd", [(4, 2, 8), (16, 8, 128),
                                          (5, 3, 64)])
-def test_pack_window_kernel_bit_exact(cuda, lanes, page, hkv, hd):
+@pytest.mark.parametrize("chunk_vecs", [None, 7])
+def test_pack_window_kernel_bit_exact(cuda, lanes, page, hkv, hd,
+                                      chunk_vecs):
+    """Default chunks, and chunks of 7 vectors (a ragged last chunk at
+    every shape here); group (0, 1) of the compressible sequence misfits
+    in its last chunk only."""
     rng = np.random.default_rng([lanes, page, hkv, hd])
     b, w = 4, 3
     win = _window(rng, b, w, lanes, page, hkv, hd, cuda).contiguous()
     win[3, 1, :, page // 2:] = 0                    # a partial page group
+    _misfit_last_vector(win, 0, 1)
+    nvec = page * hkv * 2 * hd // 8
+    if chunk_vecs is not None:
+        assert nvec % chunk_vecs != 0               # the last chunk is ragged
     mk = torch.from_numpy(rng.integers(-2**15, 2**15, (w, 2)).astype(
         np.int16)).to(cuda)
     enabled = torch.tensor([True, True, False, True], device=cuda)
+    got = bdi_pack.pack_window_cuda(win, mk, enabled, chunk_vecs=chunk_vecs)
+    torch.cuda.synchronize()
+    want = bdi_pack.pack_window_plain(win, mk, enabled)
+    for name, g, r in zip(("slots", "over", "strips", "lay", "fit"), got,
+                          want, strict=True):
+        assert torch.equal(g, r), name
+    assert bool(got[4][0, 0]) and not bool(got[4][0, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_pack_window_kernel_64_groups(cuda, lanes):
+    """The prefill window (B = 8, W = 8) at the phi4 KV geometry with the
+    default chunks; a misfit in the last chunk of one compressible group."""
+    rng = np.random.default_rng([lanes, 64])
+    b, w, page, hkv, hd = 8, 8, 16, 8, 128
+    win = _window(rng, b, w, lanes, page, hkv, hd, cuda).contiguous()
+    _misfit_last_vector(win, 0, 5)
+    nvec = page * hkv * 2 * hd // 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk_vecs, chunks = bdi_pack.window_chunks(b * w, nvec, sms)
+    assert chunks > 1 and chunk_vecs * (chunks - 1) < nvec
+    mk = torch.from_numpy(rng.integers(-2**15, 2**15, (w, 2)).astype(
+        np.int16)).to(cuda)
+    enabled = torch.ones(b, dtype=torch.bool, device=cuda)
+    enabled[3] = False
     got = bdi_pack.pack_window_cuda(win, mk, enabled)
     torch.cuda.synchronize()
     want = bdi_pack.pack_window_plain(win, mk, enabled)
     for name, g, r in zip(("slots", "over", "strips", "lay", "fit"), got,
                           want, strict=True):
         assert torch.equal(g, r), name
+    fit = got[4]
+    assert bool(fit[0, 4]) and not bool(fit[0, 5])
 
 
 def _attention_args(rng, lanes, b, n_groups, page, hkv, hq, hd, device,
@@ -118,11 +165,17 @@ def _attention_args(rng, lanes, b, n_groups, page, hkv, hq, hd, device,
             pred.to(torch.int32).contiguous())
 
 
+# (Hkv, Hq, head_dim) the reference computes beyond the phi4 shape: its
+# serving tests, its kernel sweep and smoke configs, zamba2_2_7b's head_dim
+# and mistral_large_123b's group of 12
+REFERENCE_GEOMETRIES = [(1, 1, 16), (1, 4, 32), (32, 32, 80), (8, 96, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [2, 4])
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("hkv,hq,hd", [(2, 2, 64), (1, 8, 128),
-                                       (3, 9, 64)])
+                                       (3, 9, 64)] + REFERENCE_GEOMETRIES)
 @pytest.mark.parametrize("block_groups", [1, None, 8])
 def test_decode_attention_kernel_matches_plain(cuda, lanes, shared, hkv, hq,
                                                hd, block_groups):
@@ -135,14 +188,27 @@ def test_decode_attention_kernel_matches_plain(cuda, lanes, shared, hkv, hq,
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, **TOL)
     assert torch.equal(byts, ref_b)
+    if block_groups is None:
+        _k3_and_k6(args, lanes, shared)
+
+
+def _zero_attention_args(b, n, page, hkv, hq, hd, lanes, device):
+    z = dict(dtype=torch.int16, device=device)
+    return [torch.zeros((b, hq, hd), dtype=torch.float32, device=device),
+            torch.zeros((b, n, page, hkv, 2 * hd), **z),
+            torch.zeros((b, n, hkv, 2 * hd + 2), **z),
+            torch.zeros((n,), dtype=torch.int32, device=device),
+            torch.zeros((b, n, lanes), dtype=torch.int32, device=device),
+            torch.zeros((b, n // lanes), dtype=torch.int32, device=device)]
 
 
 @pytest.mark.cuda
 def test_decode_attention_kernel_refuses_what_it_cannot_run(cuda):
     rng = np.random.default_rng(0)
-    args = list(_attention_args(rng, 2, 2, 2, 4, 1, 9, 64, cuda, False))
-    with pytest.raises(ValueError, match="at most 8"):
-        ca.cram_decode_attention_batched_cuda(*args, lanes=2)
+    for hd in (12, 136):
+        args = _zero_attention_args(2, 4, 4, 1, 4, hd, 2, cuda)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ca.cram_decode_attention_batched_cuda(*args, lanes=2)
     args = list(_attention_args(rng, 2, 2, 2, 4, 2, 4, 64, cuda, False))
     args[4] = args[4].to(torch.int64)
     with pytest.raises(ValueError, match="valid must be"):
@@ -233,11 +299,13 @@ def test_compress_scan_kernel_bit_exact(cuda, n, key):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [2, 4])
-@pytest.mark.parametrize("hkv,hq,hd", [(2, 2, 64), (1, 8, 128), (3, 9, 64)])
+@pytest.mark.parametrize("hkv,hq,hd", [(2, 2, 64), (1, 8, 128), (3, 9, 64)]
+                         + REFERENCE_GEOMETRIES)
 @pytest.mark.parametrize("cut", [0, 1, 3])
 def test_single_decode_kernel_matches_plain(cuda, lanes, hkv, hq, hd, cut):
     """K6 over one sequence's physical view, cut to n % lanes != 0; the
-    sequence of index 0 has no valid token."""
+    sequence of index 0 has no valid token.  (K6 equal to K3's row at
+    these geometries: `test_decode_attention_kernel_matches_plain`.)"""
     rng = np.random.default_rng([lanes, hkv, hq, hd, cut])
     q, slots, strips, markers, valid, _ = _attention_args(
         rng, lanes, 3, 5, 4, hkv, hq, hd, cuda, False)
@@ -355,9 +423,9 @@ def test_new_kernels_refuse_what_they_cannot_run(cuda):
     with pytest.raises(ValueError, match="aligned"):
         cs.compress_scan_cuda(img[1:].view(8, 64))
     rng = np.random.default_rng(0)
-    q, slots, strips, markers, valid, _ = _attention_args(
-        rng, 2, 1, 2, 4, 1, 9, 64, cuda, False)
-    with pytest.raises(ValueError, match="at most 8"):
+    q, slots, strips, markers, valid, _ = _zero_attention_args(
+        1, 2, 4, 1, 4, 12, 2, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
         ca.cram_decode_attention_cuda(q[0].contiguous(), slots[0], strips[0],
                                       markers, valid[0], lanes=2)
     packed = torch.zeros((2, 4, 2, 12), dtype=torch.int16, device=cuda)
