@@ -155,7 +155,7 @@ def kernel_resources(cuda_lib) -> list[str]:
     registers and spills, from the build's ptxas report."""
     import re
 
-    funcs = ("window_pack_kernel", "pack_pages_kernel",
+    funcs = ("window_fit_kernel", "window_write_kernel", "pack_pages_kernel",
              "unpack_pages_kernel", "cram_decode_kernel",
              "cram_decode_single_kernel", "cram_decode_combine",
              "compress_scan_kernel")

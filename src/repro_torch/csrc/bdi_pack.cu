@@ -29,22 +29,20 @@
 // 16-byte vectors (the last may be shorter), with chunk_vecs chosen in
 // Python from the group count so that a decode step's window spreads over
 // several CTAs per SM and a prefill window stays in one wave.  The fit is
-// an AND over the whole group, so it crosses CTAs, and the call is one
-// cooperative launch (window_pack_kernel) of at most the co-resident CTAs,
-// each walking (group, chunk) items:
-//   1. for each item, every delta of its chunk against the base row (lane
-//      A, token 0) -> one flag per (group, chunk), with no atomics and
-//      nothing zeroed first; then one grid-wide barrier;
-//   2. for each item, the AND of its group's flags, the chunk re-read
-//      (phase 1 has just brought it into L2) and every output of it
-//      written once: the chunks that hold lane A's token-0 row also write
-//      it as the strip's base row, and chunk 0 writes the marker tails and
-//      lay / fit.  (Chunk 0 writing the whole strip cost a chain of
-//      dependent L2 loads per thread and most of the call.)
+// an AND over the whole group, so it crosses CTAs, and the call is two
+// launches on one grid of (group, chunk) CTAs:
+//   1. window_fit_kernel: each CTA checks every delta of its chunk against
+//      the base row (lane A, token 0) and writes one flag per (group,
+//      chunk), with no atomics and nothing zeroed first;
+//   2. window_write_kernel: each CTA ANDs its group's flags, re-reads its
+//      chunk (which pass 1 has just brought into L2) and writes every
+//      output of it once: the chunks that hold lane A's token-0 row also
+//      write it as the strip's base row, and chunk 0 writes the marker
+//      tails and lay / fit.  (Chunk 0 writing the whole strip cost a chain
+//      of dependent L2 loads per thread and most of the call.)
 // Loads and stores are 16-byte vectors, neighbouring threads on
 // neighbouring addresses.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,28 +66,25 @@ __device__ __forceinline__ void store8(int16_t* p, const Vec8& v) {
   *reinterpret_cast<uint4*>(p) = v.u;
 }
 
-// the vectors [v0, v1) of chunk item % chunks of group item / chunks,
-// each group nvec (< 2^31) vectors long
+// the vectors [v0, v1) of chunk blockIdx.x % chunks of group
+// blockIdx.x / chunks, each group nvec (< 2^31) vectors long
 struct Chunk {
   long long grp;
   int v0, v1;
-  __device__ Chunk(long long item, int nvec, int chunk_vecs, int chunks) {
-    grp = item / chunks;
-    v0 = (int)(item % chunks) * chunk_vecs;
+  __device__ Chunk(int nvec, int chunk_vecs, int chunks) {
+    grp = blockIdx.x / chunks;
+    v0 = (int)(blockIdx.x % chunks) * chunk_vecs;
     v1 = min(v0 + chunk_vecs, nvec);
   }
 };
 
-// phase 1 for one (group, chunk) item: the fit of the chunk -> its flag
 template <int LANES>
-__device__ __forceinline__ void fit_chunk(long long item,
-                                          const int16_t* __restrict__ win,
-                                          int rowvec, long long E,
-                                          int chunk_vecs, int chunks,
-                                          uint8_t* __restrict__ flags) {
+__global__ void __launch_bounds__(WINDOW_THREADS)
+window_fit_kernel(const int16_t* __restrict__ win, int rowvec, long long E,
+                  int chunk_vecs, int chunks, uint8_t* __restrict__ flags) {
   constexpr int LO = LANES == 2 ? -128 : -8;
   constexpr int HI = LANES == 2 ? 127 : 7;
-  const Chunk ck(item, (int)(E / 8), chunk_vecs, chunks);
+  const Chunk ck((int)(E / 8), chunk_vecs, chunks);
   const int16_t* g = win + ck.grp * LANES * E;
   int ok = 1;
 #pragma unroll 4
@@ -106,28 +101,27 @@ __device__ __forceinline__ void fit_chunk(long long item,
     }
   }
   const int fits = __syncthreads_and(ok);
-  if (threadIdx.x == 0) flags[item] = (uint8_t)fits;
+  if (threadIdx.x == 0) flags[blockIdx.x] = (uint8_t)fits;
 }
 
-// phase 2 for one (group, chunk) item: AND the group's flags, write the
-// chunk's outputs
 template <int LANES>
-__device__ __forceinline__ void write_chunk(
-    long long item, const int16_t* __restrict__ win,
-    const int16_t* __restrict__ marker_lanes,
-    const uint8_t* __restrict__ enabled, int W, int hkv, int d2, long long E,
-    int chunk_vecs, int chunks, const uint8_t* flags,
-    int16_t* __restrict__ slots, int16_t* __restrict__ over,
-    int16_t* __restrict__ strips, uint8_t* __restrict__ lay,
-    uint8_t* __restrict__ fit) {
-  const Chunk ck(item, (int)(E / 8), chunk_vecs, chunks);
+__global__ void __launch_bounds__(WINDOW_THREADS)
+window_write_kernel(const int16_t* __restrict__ win,
+                    const int16_t* __restrict__ marker_lanes,
+                    const uint8_t* __restrict__ enabled, int W, int hkv,
+                    int d2, long long E, int chunk_vecs, int chunks,
+                    const uint8_t* __restrict__ flags,
+                    int16_t* __restrict__ slots, int16_t* __restrict__ over,
+                    int16_t* __restrict__ strips, uint8_t* __restrict__ lay,
+                    uint8_t* __restrict__ fit) {
+  const Chunk ck((int)(E / 8), chunk_vecs, chunks);
   const int rowvec = hkv * d2 / 8;              // vectors of one token row
   const int srow = d2 + 2;
   const int16_t* g = win + ck.grp * LANES * E;
 
   int ok = 1;
   for (int i = threadIdx.x; i < chunks; i += WINDOW_THREADS)
-    ok &= __ldcg(flags + ck.grp * chunks + i) != 0;
+    ok &= flags[ck.grp * chunks + i] != 0;
   const int fits = __syncthreads_and(ok);
   const int en = enabled[ck.grp / W] != 0;
   const int laid = fits & en;
@@ -176,39 +170,19 @@ __device__ __forceinline__ void write_chunk(
       for (int k = 0; k < 4; ++k) dst[k] = en ? a.w[k] : 0u;
     }
   }
-  if (ck.v0 == 0) {   // chunk 0: marker tails (only where laid), lay / fit
-    const uint32_t tail =
-        laid ? (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2] |
-                   (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2 + 1]
-                       << 16
-             : 0u;
-    for (int h = threadIdx.x; h < hkv; h += WINDOW_THREADS)
-      *reinterpret_cast<uint32_t*>(out_strip + h * srow + d2) = tail;
-    if (threadIdx.x == 0) {
-      lay[ck.grp] = (uint8_t)laid;
-      fit[ck.grp] = (uint8_t)fits;
-    }
-  }
-}
+  if (ck.v0 != 0) return;
 
-// one cooperative launch of co-resident CTAs walking the (group, chunk)
-// items: every fit, one grid-wide barrier, every write
-template <int LANES>
-__global__ void __launch_bounds__(WINDOW_THREADS)
-window_pack_kernel(const int16_t* __restrict__ win,
-                   const int16_t* __restrict__ marker_lanes,
-                   const uint8_t* __restrict__ enabled, int W, int hkv, int d2,
-                   long long E, int chunk_vecs, int chunks, long long items,
-                   uint8_t* flags, int16_t* __restrict__ slots,
-                   int16_t* __restrict__ over, int16_t* __restrict__ strips,
-                   uint8_t* __restrict__ lay, uint8_t* __restrict__ fit) {
-  for (long long it = blockIdx.x; it < items; it += gridDim.x)
-    fit_chunk<LANES>(it, win, hkv * d2 / 8, E, chunk_vecs, chunks, flags);
-  cooperative_groups::this_grid().sync();
-  for (long long it = blockIdx.x; it < items; it += gridDim.x)
-    write_chunk<LANES>(it, win, marker_lanes, enabled, W, hkv, d2, E,
-                       chunk_vecs, chunks, flags, slots, over, strips, lay,
-                       fit);
+  // chunk 0: each head's marker tail (only where laid) and lay / fit
+  const uint32_t tail =
+      laid ? (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2] |
+                 (uint32_t)(uint16_t)marker_lanes[(ck.grp % W) * 2 + 1] << 16
+           : 0u;
+  for (int h = threadIdx.x; h < hkv; h += WINDOW_THREADS)
+    *reinterpret_cast<uint32_t*>(out_strip + h * srow + d2) = tail;
+  if (threadIdx.x == 0) {
+    lay[ck.grp] = (uint8_t)laid;
+    fit[ck.grp] = (uint8_t)fits;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -303,35 +277,23 @@ unsigned grid_for(long long nvec, int threads) {
   return (unsigned)(blocks < 65535LL * 32 ? blocks : 65535LL * 32);
 }
 
-// the window pack as one cooperative launch: as many CTAs as the items
-// need, at most the co-resident ones
+// the two passes of the window pack on one grid of (group, chunk) CTAs
 template <int LANES>
 int launch_window(const void* win, const void* marker_lanes,
                   const void* enabled, int W, int hkv, int d2, long long E,
-                  int chunk_vecs, int chunks, long long items, void* flags,
+                  int chunk_vecs, int chunks, long long ctas, void* flags,
                   void* slots, void* over, void* strips, void* lay, void* fit,
                   cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, window_pack_kernel<LANES>, WINDOW_THREADS, 0);
-  const long long resident = (long long)sms * per_sm;
-  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  const unsigned grid = (unsigned)(items < resident ? items : resident);
   const int16_t* w = (const int16_t*)win;
-  const int16_t* m = (const int16_t*)marker_lanes;
-  const uint8_t* en = (const uint8_t*)enabled;
-  uint8_t* fl = (uint8_t*)flags;
-  int16_t* sl = (int16_t*)slots;
-  int16_t* ov = (int16_t*)over;
-  int16_t* st = (int16_t*)strips;
-  uint8_t* ly = (uint8_t*)lay;
-  uint8_t* ft = (uint8_t*)fit;
-  void* args[] = {&w, &m, &en, &W, &hkv, &d2, &E, &chunk_vecs, &chunks,
-                  &items, &fl, &sl, &ov, &st, &ly, &ft};
-  return (int)cudaLaunchCooperativeKernel((const void*)window_pack_kernel<LANES>,
-                                          grid, WINDOW_THREADS, args, 0, s);
+  window_fit_kernel<LANES><<<(unsigned)ctas, WINDOW_THREADS, 0, s>>>(
+      w, hkv * d2 / 8, E, chunk_vecs, chunks, (uint8_t*)flags);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  window_write_kernel<LANES><<<(unsigned)ctas, WINDOW_THREADS, 0, s>>>(
+      w, (const int16_t*)marker_lanes, (const uint8_t*)enabled, W, hkv, d2, E,
+      chunk_vecs, chunks, (const uint8_t*)flags, (int16_t*)slots,
+      (int16_t*)over, (int16_t*)strips, (uint8_t*)lay, (uint8_t*)fit);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -344,19 +306,19 @@ extern "C" int cram_layout_window(const void* win, const void* marker_lanes,
                                   void* fit, void* stream) {
   const long long E = (long long)page * hkv * d2;   // elements of one page
   const long long nvec = E / 8;
-  const long long items = (long long)B * W * chunks;
+  const long long ctas = (long long)B * W * chunks;
   if (B <= 0 || W <= 0 || page <= 0 || hkv <= 0 || d2 <= 0 || d2 % 8 != 0 ||
       nvec > 0x7fffffffLL || chunk_vecs <= 0 ||
       chunks != (nvec + chunk_vecs - 1) / chunk_vecs ||
-      (lanes != 2 && lanes != 4))
+      ctas > 0x7fffffffLL || (lanes != 2 && lanes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return lanes == 2
              ? launch_window<2>(win, marker_lanes, enabled, W, hkv, d2, E,
-                                chunk_vecs, chunks, items, flags, slots, over,
+                                chunk_vecs, chunks, ctas, flags, slots, over,
                                 strips, lay, fit, s)
              : launch_window<4>(win, marker_lanes, enabled, W, hkv, d2, E,
-                                chunk_vecs, chunks, items, flags, slots, over,
+                                chunk_vecs, chunks, ctas, flags, slots, over,
                                 strips, lay, fit, s);
 }
 
