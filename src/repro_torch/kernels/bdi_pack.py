@@ -32,9 +32,9 @@ from ..compression.framing import MARKER_LANES
 from . import cuda_lib
 
 # threads of a window-pack CTA (WINDOW_THREADS in csrc/bdi_pack.cu) and the
-# CTAs per SM `window_chunks` aims at
+# CTAs per SM `window_chunks` aims at (16 of 64 threads: one wave)
 WINDOW_THREADS = 64
-WINDOW_CTAS_PER_SM = 8
+WINDOW_CTAS_PER_SM = 16
 
 # kernel launches, by kernel; only the CUDA path counts
 LAUNCHES = {"pack_pair": 0, "pack_quad": 0, "pack_pair_group": 0,
@@ -82,11 +82,11 @@ def _check(t, name, dtype, shape):
 
 
 def window_chunks(groups: int, nvec: int, sms: int) -> tuple[int, int]:
-    """(vectors per chunk, chunks per group) of the window pack: a window
-    of `groups` page groups of `nvec` 16-byte vectors each, on a card of
-    `sms` SMs, goes to WINDOW_CTAS_PER_SM CTAs per SM where it has enough
-    vectors for one per thread, and to fewer, larger chunks where it has
-    more; the last chunk of a group may be shorter."""
+    """(vectors per chunk, chunks per group) of the window pack for
+    `groups` page groups of `nvec` 16-byte vectors on a card of `sms` SMs:
+    chunks of at least one vector per thread, sized so that the window
+    fills about WINDOW_CTAS_PER_SM CTAs per SM (one wave); the last chunk
+    of a group may be shorter."""
     per_cta = -(-groups * nvec // (WINDOW_CTAS_PER_SM * sms))
     chunk_vecs = min(nvec, max(WINDOW_THREADS, per_cta))
     return chunk_vecs, -(-nvec // chunk_vecs)
@@ -97,11 +97,8 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def pack_window_cuda(win, marker_lanes, enabled, *,
-                     chunk_vecs: int | None = None):
-    """The CUDA kernel on the same contract as `pack_window_plain`.
-    `chunk_vecs` (16-byte vectors per CTA) overrides `window_chunks`'
-    choice; it changes which CTA does what, never the result."""
+def pack_window_cuda(win, marker_lanes, enabled):
+    """The CUDA kernel on the same contract as `pack_window_plain`."""
     bsz, w, lanes, page, hkv, d2 = win.shape
     if lanes not in (2, 4):
         raise ValueError(f"lanes must be 2 or 4, got {lanes}")
@@ -124,11 +121,7 @@ def pack_window_cuda(win, marker_lanes, enabled, *,
     nvec = page * hkv * d2 // 8
     if bsz * w * nvec == 0:
         return slots, over, strips, lay, fit
-    if chunk_vecs is None:
-        chunk_vecs, chunks = window_chunks(bsz * w, nvec, _sm_count(dev))
-    else:
-        chunk_vecs = min(nvec, chunk_vecs)
-        chunks = -(-nvec // chunk_vecs)
+    chunk_vecs, chunks = window_chunks(bsz * w, nvec, _sm_count(dev))
     flags = torch.empty((bsz * w * chunks,), dtype=torch.uint8, device=dev)
     p = cuda_lib.ptr
     code = cuda_lib.load().cram_layout_window(

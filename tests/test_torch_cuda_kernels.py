@@ -16,9 +16,9 @@ phi4 geometry does not (head_dim 16, 32, 64 and 80, one query head per KV
 head, groups of 8, 9 and 12, one slot block per sequence, a single group,
 a ragged last split, one slot, 256 slots, a slot count that is not a
 multiple of the lanes, a marker on all KV heads but one, window-pack
-chunks with a ragged last one and a misfit only the last chunk sees, a
-64-group window, an image whose line count is not a multiple of the
-kernel's block).
+groups of one chunk and of several with a ragged last one, a misfit only
+the last chunk sees, a 64-group window, an image whose line count is not
+a multiple of the kernel's block).
 
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
@@ -80,26 +80,24 @@ def _misfit_last_vector(win, b, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [2, 4])
-@pytest.mark.parametrize("page,hkv,hd", [(4, 2, 8), (16, 8, 128),
-                                         (5, 3, 64)])
-@pytest.mark.parametrize("chunk_vecs", [None, 7])
-def test_pack_window_kernel_bit_exact(cuda, lanes, page, hkv, hd,
-                                      chunk_vecs):
-    """Default chunks, and chunks of 7 vectors (a ragged last chunk at
-    every shape here); group (0, 1) of the compressible sequence misfits
-    in its last chunk only."""
+@pytest.mark.parametrize("page,hkv,hd,chunks", [(4, 2, 8, 1), (16, 8, 128, 64),
+                                                (5, 3, 64, 4)])
+def test_pack_window_kernel_bit_exact(cuda, lanes, page, hkv, hd, chunks):
+    """One chunk a group, 64 whole chunks, and 4 chunks with a ragged last
+    one (48 of 64 vectors); group (0, 1) of the compressible sequence
+    misfits in its last chunk only."""
     rng = np.random.default_rng([lanes, page, hkv, hd])
     b, w = 4, 3
     win = _window(rng, b, w, lanes, page, hkv, hd, cuda).contiguous()
     win[3, 1, :, page // 2:] = 0                    # a partial page group
     _misfit_last_vector(win, 0, 1)
     nvec = page * hkv * 2 * hd // 8
-    if chunk_vecs is not None:
-        assert nvec % chunk_vecs != 0               # the last chunk is ragged
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bdi_pack.window_chunks(b * w, nvec, sms)[1] == chunks
     mk = torch.from_numpy(rng.integers(-2**15, 2**15, (w, 2)).astype(
         np.int16)).to(cuda)
     enabled = torch.tensor([True, True, False, True], device=cuda)
-    got = bdi_pack.pack_window_cuda(win, mk, enabled, chunk_vecs=chunk_vecs)
+    got = bdi_pack.pack_window_cuda(win, mk, enabled)
     torch.cuda.synchronize()
     want = bdi_pack.pack_window_plain(win, mk, enabled)
     for name, g, r in zip(("slots", "over", "strips", "lay", "fit"), got,
@@ -466,6 +464,26 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     want = cs.compress_scan_plain(img)
     assert all(torch.equal(got[k], want[k]) for k in want)
     assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES} == before
+
+
+@pytest.mark.parametrize("groups,nvec,sms", [
+    (8, 4096, 132),       # serve: 8 sequences, a window of one group
+    (4, 4096, 132),       # launcher: batch 4
+    (64, 4096, 132),      # prefill: 8 sequences x 8 groups
+    (1000, 4096, 132), (1, 16, 132), (3, 240, 8), (12, 7, 2)])
+def test_window_chunks_cover_each_group_once_in_one_wave(groups, nvec, sms):
+    """The window pack's chunk rule: whole vectors, every vector of a group
+    in exactly one chunk (the last may be shorter), at least one vector per
+    thread, at least one CTA per SM where the window has a vector per
+    thread to spread, and no more CTAs than the card holds at once (32 of
+    64 threads per SM) unless a group is one chunk."""
+    cv, chunks = bdi_pack.window_chunks(groups, nvec, sms)
+    assert 1 <= cv <= nvec and (chunks - 1) * cv < nvec <= chunks * cv
+    assert cv >= min(nvec, bdi_pack.WINDOW_THREADS)
+    ctas = groups * chunks
+    if groups * nvec >= bdi_pack.WINDOW_THREADS * sms:
+        assert ctas >= sms
+    assert ctas <= 2 * bdi_pack.WINDOW_CTAS_PER_SM * sms or chunks == 1
 
 
 def test_ptxas_log_parse():
