@@ -7,7 +7,9 @@ their plain versions.
 Phases, each of which makes the script exit non-zero when it fails:
 
   1. the card's name and power limit; build of the CUDA kernels from
-     `src/repro_torch/csrc` (nvcc, one process per source, in parallel);
+     `src/repro_torch/csrc` (nvcc, one process per source, in parallel),
+     with every kernel's registers and spills and K7's SASS instruction
+     count (cuobjdump);
   2. kernels against their plain versions: at the phi4-mini-3.8B KV
      geometry (page 16, 8 KV heads, head_dim 128, 24 query heads) K1/K2
      (window pack) bit-exact on a 32-group and a 64-group window, each
@@ -19,7 +21,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      -> unpack the identity where a group fits; K7 (the compressibility
      scan) bit-exact on all four outputs at 1, 301, 1024 and 2^20 lines,
      two of them at keys other than the default, with every marker class
-     planted and each planted line's class held; K6 (single-sequence
+     planted and each planted line's class held, and on 2^20 lines of the
+     boundary image (`boundary_image`: each line at one edge of the FPC
+     classes, the BDI modes, zero runs and the Marker-IL test, kinds
+     shuffled across every warp); K6 (single-sequence
      decode) within 2e-3 at four slot counts, three of them not a multiple
      of the lanes, one sequence with no valid token; then K3 and K6 at the
      reference's other head geometries (page 8, Hkv 1, Hq 1, head_dim 16;
@@ -67,7 +72,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      row) and timed the same way, so that their byte bound is well above
      launch latency; K1/K2 at the prefill window (B = 8, W = 8), and
      beside every K1/K2 row the device time of one copy_ of the window's
-     bytes; K3 and K6 at phase 2's other head geometries.
+     bytes; K3 and K6 at phase 2's other head geometries; beside K7's row
+     the device time of an int32 sum of each line's 16 words over the same
+     image (reads it once, writes 4 B a line), and K7 on each Fig. 4
+     source's slice of the image ("timing [scan-source]").
 
 Phases 3 to 5 drive eight paths (launcher pair and quad, serve attend pair
 and quad, the small serve attend, page codec pair and quad, scan); the
@@ -168,6 +176,26 @@ def kernel_resources(cuda_lib) -> list[str]:
         lines.append(f"{label}: {r['registers']} registers, spill stores "
                      f"{r['spill_stores']} B, loads {r['spill_loads']} B")
     return sorted(lines)
+
+
+def sass_count(cuda_lib, stem: str, kernel: str) -> str:
+    """`kernel`'s SASS instructions in the object `csrc/<stem>.cu` built
+    into the bound library, counted from `cuobjdump -sass`: all, and
+    without NOPs."""
+    import re
+    import shutil
+
+    lib = pathlib.Path(cuda_lib.load()._name)
+    obj = lib.parent / f"{stem}_{lib.stem.rsplit('_', 1)[1]}.o"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    dump = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = next(f for f in dump.split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+    nops = sum(op.split()[0] == "NOP" for op in ops)
+    return f"{kernel}: {len(ops)} SASS instructions, {len(ops) - nops} " \
+        "without NOP"
 
 
 # ------------------------------------------------- the Fig. 4 memory image
@@ -653,18 +681,110 @@ def scan_image(rng, n, key, plant: bool):
     return lines, want
 
 
+def boundary_image(rng, n, key):
+    """(n, 64) uint8 lines that each sit at one edge of K7's rules,
+    shuffled so that every warp of 32 lines mixes kinds: for each BDI mode
+    (B, d) lines that fit it and lines one element past it, with immediates
+    and deltas at -lim, -lim + 1, lim - 2, lim - 1 (lim = 2^(8d-1)), the
+    base first, in the middle or last, bases at the element width's ends
+    so that deltas wrap; FPC words at +-8, +-128, +-32768 and their
+    neighbours, pad16, half-se8 and repb words, zero runs of 7, 8, 9 and 16
+    words; rep8, all-zero and random lines; lines whose first word, first
+    15 words or all 16 are slot i's Marker-IL words at `key`, or their
+    complements."""
+    import numpy as np
+
+    from repro_torch.kernels.compress_scan import device_il_words
+
+    def mode_lines(m, b, d, fit):
+        # values as uint64, wrapping mod 2^64, cut to the element width
+        k, lim, half = 64 // b, 1 << (8 * d - 1), 1 << (8 * b - 1)
+        u64 = np.uint64
+        edges = np.array([-lim, -lim + 1, lim - 2, lim - 1, 0, 1, -1])
+
+        def near(size):  # an edge or a uniform draw from [-lim, lim)
+            v = rng.integers(-lim, lim, size)
+            pick = rng.random(size) < 0.5
+            v[pick] = rng.choice(edges, int(pick.sum()))
+            return v.astype(u64)
+
+        pos = rng.choice([0, k // 2, k - 1], m)
+        far = np.array([lim, -lim - 1, half - 1, -half, half - 2, lim + 1,
+                        -lim - 2], dtype=np.int64)
+        base = rng.choice(far, m)
+        wide = rng.random(m) < 0.3        # or a uniform non-immediate draw
+        draw = rng.integers(lim, half, m, dtype=np.int64)
+        base[wide] = np.where(rng.random(int(wide.sum())) < 0.5, 1, -1) \
+            * draw[wide]
+        base = base.astype(u64)
+        e = near((m, k))
+        after = np.arange(k)[None, :] > pos[:, None]
+        from_base = after & (rng.random((m, k)) < 0.7)
+        e = np.where(from_base, base[:, None] + near((m, k)), e)
+        rows = np.arange(m)
+        e[rows, pos] = base
+        if not fit:    # one later element (or the first) just out of reach
+            j = np.minimum(pos + 1 + rng.integers(0, k, m) % (k - pos),
+                           k - 1)
+            j = np.where(pos == k - 1, 0, j)
+            step = np.where(rng.random(m) < 0.5, lim, -lim - 1)
+            e[rows, j] = base + step.astype(u64)
+        return e.astype(f"<u{b}").view(np.uint8).reshape(m, 64)
+
+    def fpc_lines(m):
+        pool = np.array([0, 7, 8, -8, -9, 127, 128, -128, -129, 32767, 32768,
+                         -32768, -32769, 0x70000, 0x12340000, 0x7FFF0000,
+                         0x007FFF80, 0xFF80007F, 0x00800000, 0x0080FF7F,
+                         0xABABABAB, 0x80808080, 0x7F7F7F7F, 0x01010101,
+                         0x01010100, 1 << 31, -1], dtype=np.int64)
+        w = rng.choice(pool, (m, 16))
+        rand = rng.random((m, 16)) < 0.2
+        w[rand] = rng.integers(0, 1 << 32, int(rand.sum()))
+        run = rng.choice([0, 7, 8, 9, 16], m)
+        start = rng.integers(0, 17, m) % (17 - run)
+        cols = np.arange(16)[None, :]
+        w[(cols >= start[:, None]) & (cols < (start + run)[:, None])] = 0
+        return (w & 0xFFFFFFFF).astype("<u4").view(np.uint8).reshape(m, 64)
+
+    kinds = [lambda m, b=b, d=d, f=f: mode_lines(m, b, d, f)
+             for b, d in ((8, 1), (8, 2), (8, 4), (4, 1), (4, 2), (2, 1))
+             for f in (True, False)]
+    kinds += [fpc_lines, fpc_lines,
+              lambda m: np.zeros((m, 64), np.uint8),
+              lambda m: np.tile(rng.integers(0, 256, (m, 8)).astype(
+                  np.uint8), (1, 8)),
+              lambda m: rng.integers(0, 256, (m, 64)).astype(np.uint8)]
+    per = -(-n // len(kinds))
+    lines = np.concatenate([kind(per) for kind in kinds])
+    lines = lines[rng.permutation(lines.shape[0])[:n]].copy()
+    slots = rng.choice(n, min(n, max(1, n // 64)), replace=False)
+    il = device_il_words(slots, key)
+    words = lines.view("<u4")
+    for s, row, how in zip(slots, il, rng.integers(0, 6, slots.size),
+                           strict=True):
+        row = row if how % 2 == 0 else ~row
+        cut = (1, 15, 16)[how // 2]
+        words[s, :cut] = row[:cut]
+    return lines
+
+
 def check_scan(torch, rng, device) -> dict:
     """K7 against its plain version on the card, bit-exact on all four
-    outputs, at four image sizes and three keys; every marker class planted
-    and each planted line's class held."""
+    outputs, at four image sizes and three keys, every marker class planted
+    and each planted line's class held; then on 2^20 lines of the boundary
+    image."""
     import numpy as np
 
     from repro_torch.compression.marker import LineStatus
     from repro_torch.kernels import compress_scan as cs
 
     for n, key, plant in ((1, 0x5EED, False), (301, 0xDEADBEEF, True),
-                          (1024, 0x5EED, True), (2 ** 20, 0x1234ABCD, True)):
-        lines, want = scan_image(rng, n, key, plant)
+                          (1024, 0x5EED, True), (2 ** 20, 0x1234ABCD, True),
+                          (2 ** 20, 0xDEADBEEF, None)):
+        if plant is None:
+            lines, want = boundary_image(rng, n, key), {}
+        else:
+            lines, want = scan_image(rng, n, key, plant)
         img = torch.from_numpy(lines).to(device)
         got = cs.compress_scan_cuda(img, key=key)
         torch.cuda.synchronize()
@@ -685,9 +805,12 @@ def check_scan(torch, rng, device) -> dict:
         if n <= 4096 and not np.array_equal(
                 status, cs.classify_image_ref(lines, key)):
             fail(f"K7 N={n}: status differs from classify_image_ref")
-        print(f"kernel check: scan N={n} key={key:#x} bit-exact on 4 "
+        bdi = np.unique(got["bdi"].cpu().numpy()).tolist()
+        print(f"kernel check: scan N={n} key={key:#x}"
+              f"{' boundary image' if plant is None else ''} bit-exact on 4 "
               f"outputs, {len(want)} planted lines classed as expected, "
-              f"status counts {np.bincount(status, minlength=5).tolist()}")
+              f"status counts {np.bincount(status, minlength=5).tolist()}, "
+              f"BDI payloads {bdi}")
     return {"compress_scan": 0.0}
 
 
@@ -1044,8 +1167,8 @@ def scan_phase(torch, device) -> dict:
             if not np.array_equal(host[key][sl], want):
                 fail(f"scan: {name} {key} of the first 4096 lines differs "
                      "from the numpy reference")
-        per_source[name] = stats(host["sizes"][ofs:ofs + n],
-                                 host["status"][ofs:ofs + n])
+        per_source[name] = {"lines": n, **stats(host["sizes"][ofs:ofs + n],
+                                                host["status"][ofs:ofs + n])}
         ofs += n
     report = {"per_source": per_source,
               "overall": stats(host["sizes"], host["status"]),
@@ -1289,7 +1412,7 @@ def timing_spec(torch, name, args, kw) -> dict:
                 "kernel": lambda: bdi_pack.pack_window_cuda(*args),
                 "plain": lambda: bdi_pack.pack_window_plain(*args),
                 "library": None, "bound": pack_bound(args),
-                "floor": lambda: copy.copy_(win)}
+                "floor": ("copy_floor_ms", lambda: copy.copy_(win))}
     if name.startswith("decode_attention"):
         return {"shape": args[1].shape,
                 "kernel": lambda: ca.cram_decode_attention_batched_cuda(
@@ -1332,7 +1455,16 @@ def timing_spec(torch, name, args, kw) -> dict:
             "plain": lambda: [cs.compress_scan_plain(
                 lines[o:o + SCAN_CHUNK], first_slot=o, **kw)
                 for o in range(0, n, SCAN_CHUNK)],
-            "library": None, "bound": _bound(n * 64 + 4 * 4 * n)}
+            "library": None, "bound": _bound(n * 64 + 4 * 4 * n),
+            "floor": ("sum_floor_ms", word_sum(torch, lines))}
+
+
+def word_sum(torch, lines):
+    """A yardstick beside K7 that the port never calls: the int32 sum of
+    each line's 16 words, which reads the image once and writes 4 B a
+    line."""
+    words = lines.view(torch.int32)
+    return lambda: torch.sum(words, dim=1, dtype=torch.int32)
 
 
 def measure(torch, name, spec) -> dict:
@@ -1358,8 +1490,10 @@ def measure(torch, name, spec) -> dict:
         r["library_ms"] = device_ms(torch, spec["library"])
         r["library_call_ms"] = call_ms(torch, spec["library"])
     r["bound_ms"], r["bound_by"] = spec["bound"]
-    if "floor" in spec:     # one copy_ of the bytes a window pack moves
-        r["copy_floor_ms"] = device_ms(torch, spec["floor"])
+    if "floor" in spec:     # a copy_ of a window's bytes, K7's word sum
+        key, fn = spec["floor"]
+        r[key] = device_ms(torch, fn, reps=10 if big else 20,
+                           inner=3 if big else 10)
     return r
 
 
@@ -1368,14 +1502,18 @@ def print_rows(phase: str, rows: dict) -> None:
         return "none" if x is None else f"{x:.4f} ms"
 
     for name, r in rows.items():
-        floor = ("" if "copy_floor_ms" not in r
-                 else f", copy_ of the same bytes {fmt(r['copy_floor_ms'])}")
+        floor = "".join(f", {label} {fmt(r[key])}"
+                        for key, label in FLOORS.items() if key in r)
         print(f"timing [{phase}] {name} shape {r['shape']}: device time: "
               f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
               f"{fmt(r['library_ms'])}, bound {fmt(r['bound_ms'])} "
               f"({r['bound_by']}){floor}; one eager call: kernel "
               f"{fmt(r['call_ms'])}, plain {fmt(r['plain_call_ms'])}, "
               f"library {fmt(r['library_call_ms'])}")
+
+
+FLOORS = {"copy_floor_ms": "copy_ of the same bytes",
+          "sum_floor_ms": "int32 sum of each line's words"}
 
 
 def timing_rows(torch, rec, phase: str, paths) -> dict:
@@ -1388,6 +1526,31 @@ def timing_rows(torch, rec, phase: str, paths) -> dict:
             rows[name] = measure(torch, name,
                                  timing_spec(torch, name, *saved))
     print_rows(phase, rows)
+    return rows
+
+
+def scan_source_rows(torch, rec, per_source: dict) -> dict:
+    """K7 on each Fig. 4 source's slice of the scan path's image, beside
+    the slice's byte bound and its int32 word sum.  Timing only: a slice's
+    lines sit at other slot indices than in the image."""
+    from repro_torch.kernels import compress_scan as cs
+
+    lines = rec.most_frequent("compress_scan", ("scan",))[0][0]
+    rows, ofs = {}, 0
+    for name, st in per_source.items():
+        part = lines[ofs:ofs + st["lines"]]
+        ofs += st["lines"]
+        n = part.shape[0]
+        r = {"lines": n,
+             "ms": device_ms(torch, lambda p=part: cs.compress_scan_cuda(p),
+                             reps=10, inner=3),
+             "bound_ms": _bound(n * 64 + 4 * 4 * n)[0],
+             "sum_floor_ms": device_ms(torch, word_sum(torch, part), reps=10,
+                                       inner=3)}
+        rows[name] = r
+        print(f"timing [scan-source] {name} lines {n}: device time: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
+              f"int32 sum of each line's words {r['sum_floor_ms']:.4f} ms")
     return rows
 
 
@@ -1531,6 +1694,7 @@ def main(argv=None) -> int:
     print(f"build: {cuda_lib.build_seconds():.2f} s")
     for line in kernel_resources(cuda_lib):
         print(f"build: {line}")
+    print(f"build: {sass_count(cuda_lib, 'compress_scan', 'compress_scan_kernel')}")
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1655,6 +1819,8 @@ def main(argv=None) -> int:
         "page-codec": timing_rows(torch, rec, "page-codec",
                                   ("page_codec_pair", "page_codec_quad")),
         "scan": timing_rows(torch, rec, "scan", ("scan",)),
+        "scan-source": scan_source_rows(torch, rec,
+                                        scan_report["per_source"]),
         "long-context": long_context_rows(torch, device),
         "prefill-window": prefill_window_rows(torch, device),
         "geometry": geometry_rows(torch, geo_inputs)}

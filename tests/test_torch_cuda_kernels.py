@@ -25,6 +25,9 @@ the plain version and counts no launch, and the CUDA entry refuses a CPU
 tensor before it builds anything.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -276,12 +279,26 @@ def _scan_image(rng, n, key):
     return lines
 
 
+def _boundary_image(rng, n, key):
+    """`chip_smoke.boundary_image`: lines at the edges of K7's rules, kinds
+    shuffled across every warp."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.boundary_image(rng, n, key)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("image", ["families", "boundary"])
 @pytest.mark.parametrize("n", [1, 255, 257, 4097])
 @pytest.mark.parametrize("key", [0x5EED, 0xDEADBEEF])
-def test_compress_scan_kernel_bit_exact(cuda, n, key):
+def test_compress_scan_kernel_bit_exact(cuda, n, key, image):
     rng = np.random.default_rng([n, key])
-    lines = _scan_image(rng, n, key)
+    if image == "families":
+        lines = _scan_image(rng, n, key)
+    else:
+        lines = _boundary_image(rng, n, key)
     img = torch.from_numpy(lines).to(cuda)
     got = cs.compress_scan(img, key=key)
     torch.cuda.synchronize()
@@ -291,7 +308,7 @@ def test_compress_scan_kernel_bit_exact(cuda, n, key):
         assert torch.equal(got[name], want[name]), name
     assert np.array_equal(got["status"].cpu().numpy(),
                           cs.classify_image_ref(lines, key))
-    if n >= 6:
+    if n >= 6 and image == "families":
         assert set(got["status"].tolist()) == {int(s) for s in LineStatus}
 
 
