@@ -18,19 +18,42 @@
 //          m2/m4 = (2i+1) * M + key on the tail word, the 16-word
 //          Marker-IL (16i + j + 1) * IL + key, and their complements.
 //
-// The marker family wraps mod 2^32 (the reference relies on int32
-// wraparound on the TPU), so it is computed in uint32_t here; the 8-byte
-// BDI modes use native int64 where the TPU emulated them with (hi, lo)
-// int32 pairs and a borrow: both are exact 64-bit wraparound.
-//
 // Bound on the H100: the floor counted is bytes, 64 read and 16 written
-// per line over 3.35 TB/s (the peak-rate table the port measures against
-// has no integer row).  This first kernel spends several hundred integer
-// instructions per line, most of them in the six BDI mode tests, so it
-// may run at the ALUs' pace above that floor.  Design: one thread per
-// line, the line held in 16 registers from four 16-byte loads, everything
-// computed in registers, four coalesced int32 stores.  The slot index of
-// a line is its global index, so the kernel needs no padding of N.
+// per line over 3.35 TB/s (0.376 ms for the 15.7 M-line Fig. 4 image).
+// The work is integer compares, adds and logic on the ALU pipe (64 lanes
+// a clock per SM, IMADs go to the FMA pipe), so an instruction per line
+// more or less is what decides the time; the first kernel of this file
+// spent about 1,400 a line (111 registers, 4.1x the byte floor), most of
+// them in six full BDI mode tests run in 64-bit arithmetic.  This design
+// spends them where the data needs them:
+//
+//   * 32-bit arithmetic wherever the element fits: 2- and 4-byte modes in
+//     uint32_t, where "v fits d bytes" is one add and one unsigned compare
+//     and the delta's wrap into the element width is the 32-bit add's own
+//     (B = 4) or a mask of the sum's second byte (B = 2); 8-byte modes as
+//     (hi, lo) word pairs with the reference's test hi == lo >> 31.
+//   * cheap lines first: an all-zero line (from FPC's zero mask) is BDI 0,
+//     a rep8 line BDI 8, before any mode test.
+//   * the six modes searched by base width, smallest payload first, with
+//     the lemma (B, d') fits => (B, d) fits for d' < d: a failing (8, 4)
+//     skips (8, 2) and (8, 1), a failing (4, 2) skips (4, 1).  An
+//     incompressible line runs three mode tests, not six.
+//   * every mode test walks its elements in order, takes the first
+//     non-immediate one as the base and returns at the first element that
+//     fits neither way: on incompressible data that is the second
+//     non-immediate element, so a failing test costs a few elements.
+//   * FPC classes each word from t = x ^ (x << 1), whose bit j says that
+//     bits j and j-1 of x differ: se4 / se8 / se16 are t < 2^4 / 2^8 /
+//     2^16 and half-se8 is (t & 0xFF00FF00) == 0; repb is one byte
+//     permute; zero words sit in a 16-bit mask whose run starts and
+//     9-in-a-row ends give the zero-run chunks in one popc.
+//   * classify compares one word against the Marker-IL family and walks
+//     the other fifteen only when it matches.
+//
+// One thread per line, the line in 16 registers from four 16-byte loads,
+// four coalesced int32 stores.  The slot index of a line is its global
+// index, so the kernel needs no padding of N.  Each bit trick has a numpy
+// model in tests/test_torch_scan_rules.py, named beside it below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,109 +68,162 @@ constexpr int HEADER_BYTES = 1;
 // compression.marker.LineStatus
 constexpr int UNCOMP = 0, COMP2 = 1, COMP4 = 2, INVALID = 3, MAYBE_INVERTED = 4;
 
-__device__ __forceinline__ bool fits(long long v, int d) {
-  const long long lim = 1LL << (8 * d - 1);
-  return v >= -lim && v < lim;
+// ------------------------------------------------------------------- FPC
+
+// Payload bits of one word (zero words give 4; the caller takes them out).
+// t = x ^ (x << 1): x fits k signed bits iff t < 2^k
+// (test_significant_bit_class_matches_the_range_chain).
+__device__ __forceinline__ int fpc_word_bits(uint32_t x) {
+  const uint32_t t = x ^ (x << 1);
+  int b = 32;
+  if (t < 0x10000u || (t & 0xFF00FF00u) == 0u || (x & 0xFFFFu) == 0u)
+    b = 16;                                       // se16, half-se8, pad16
+  if (t < 0x100u || __byte_perm(x, 0, 0) == x) b = 8;   // se8, repb
+  if (t < 0x10u) b = 4;                                 // se4
+  return b;
 }
 
-__device__ __forceinline__ int fpc_bytes(const int32_t (&w)[16]) {
-  int total = 0, chunks = 0, run = 0;
+// Zero-run chunks of a 16-bit zero mask: a run of L <= 16 words costs
+// ceil(L/8) chunks, one at its start and one more at its ninth word
+// (test_zero_run_chunks_from_the_mask, all 2^16 masks).
+__device__ __forceinline__ int zero_run_chunks(uint32_t z) {
+  const uint32_t starts = z & ~(z << 1);
+  uint32_t a = z & (z << 1);  // bit i: words i-1, i zero
+  a &= a << 2;                // i-3 .. i
+  a &= a << 4;                // i-7 .. i
+  const uint32_t ninth = a & (z << 8) & ~(z << 9);
+  return __popc(starts | ninth);
+}
+
+// --------------------------------------------------------------------- BDI
+// (B, D): elements of B bytes, deltas of D.  Each test returns false at the
+// first element that is neither immediate (fits D bytes) nor within D
+// bytes of the base, the first non-immediate element
+// (test_mode_search_matches_the_reference).
+
+template <int D>
+__device__ __forceinline__ bool fits_u32(uint32_t v) {
+  if (D == 4) return true;
+  constexpr uint32_t L = 1u << (8 * D - 1);
+  return v + L < 2u * L;
+}
+
+// B = 8: the element (hi, lo) fits D bytes iff hi == lo >> 31 and lo fits
+template <int D>
+__device__ __forceinline__ bool fits_pair(uint32_t hi, uint32_t lo) {
+  return hi == (uint32_t)((int32_t)lo >> 31) && fits_u32<D>(lo);
+}
+
+template <int D>
+__device__ __forceinline__ bool mode_fits_b8(const uint32_t (&w)[16]) {
+  bool have = false;
+  uint64_t base = 0;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int32_t x = w[i];
-    if (x == 0) {
-      chunks += (run % 8) == 0;  // a new 8-word zero-run chunk
-      ++run;
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t lo = w[2 * k], hi = w[2 * k + 1];
+    if (fits_pair<D>(hi, lo)) continue;
+    const uint64_t e = ((uint64_t)hi << 32) | lo;
+    if (!have) {
+      base = e;
+      have = true;
       continue;
     }
-    run = 0;
-    const uint32_t u = (uint32_t)x;
-    const int lo = (int)(int16_t)(uint16_t)(u & 0xFFFFu);
-    const int hi = (int)(int16_t)(uint16_t)(u >> 16);
-    const uint32_t b0 = u & 0xFFu;
-    const bool repb = b0 == ((u >> 8) & 0xFFu) && b0 == ((u >> 16) & 0xFFu) &&
-                      b0 == (u >> 24);
-    int bits = 32;
-    if (x >= -8 && x < 8)
-      bits = 4;
-    else if ((x >= -128 && x < 128) || repb)
-      bits = 8;
-    else if ((x >= -32768 && x < 32768) || (u & 0xFFFFu) == 0 ||
-             (lo >= -128 && lo < 128 && hi >= -128 && hi < 128))
-      bits = 16;
-    total += 3 + bits;
+    const uint64_t d = e - base;  // 64-bit wrap
+    if (!fits_pair<D>((uint32_t)(d >> 32), (uint32_t)d)) return false;
   }
-  return (total + chunks * 6 + 7) / 8;
+  return true;
 }
 
-// element i of the line viewed as little-endian signed B-byte integers
-template <int B>
-__device__ __forceinline__ long long elem(const int32_t (&w)[16], int i) {
-  if (B == 8)
-    return (long long)(((unsigned long long)(uint32_t)w[2 * i + 1] << 32) |
-                       (unsigned long long)(uint32_t)w[2 * i]);
-  if (B == 4) return (long long)w[i];
-  return (long long)(int16_t)(uint16_t)((uint32_t)w[i >> 1] >> (16 * (i & 1)));
-}
-
-template <int B>
-__device__ __forceinline__ bool bdi_mode_fits(const int32_t (&w)[16], int d) {
-  constexpr int K = LINE_BYTES / B;
-  long long base = 0;
-  bool found = false;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const long long e = elem<B>(w, i);
-    if (!found && !fits(e, d)) {
-      base = e;
-      found = true;
-    }
-  }
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const long long e = elem<B>(w, i);
-    // the delta wraps into the element width (two's complement)
-    long long delta = (long long)((unsigned long long)e - (unsigned long long)base);
-    if (B == 2) delta = (long long)(int16_t)(uint16_t)(unsigned long long)delta;
-    if (B == 4) delta = (long long)(int32_t)(uint32_t)(unsigned long long)delta;
-    ok &= fits(e, d) || fits(delta, d);
-  }
-  return ok;
-}
-
-__device__ __forceinline__ int bdi_bytes(const int32_t (&w)[16]) {
-  int best = LINE_BYTES;
-  // (base, delta, payload) from the largest payload to the smallest
-  if (bdi_mode_fits<8>(w, 4) && 41 < best) best = 41;
-  if (bdi_mode_fits<4>(w, 2) && 38 < best) best = 38;
-  if (bdi_mode_fits<2>(w, 1) && 38 < best) best = 38;
-  if (bdi_mode_fits<8>(w, 2) && 25 < best) best = 25;
-  if (bdi_mode_fits<4>(w, 1) && 22 < best) best = 22;
-  if (bdi_mode_fits<8>(w, 1) && 17 < best) best = 17;
-  bool zeros = true, rep8 = true;
+template <int D>
+__device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16]) {
+  bool have = false;
+  uint32_t base = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    zeros &= w[i] == 0;
-    rep8 &= w[i] == w[i & 1];
+    if (fits_u32<D>(w[i])) continue;
+    if (!have) {
+      base = w[i];
+      have = true;
+      continue;
+    }
+    if (!fits_u32<D>(w[i] - base)) return false;  // 32-bit wrap
   }
-  if (rep8 && !zeros) best = 8;
-  if (zeros) best = 0;
+  return true;
+}
+
+// B = 2, D = 1 on whole words: the low halfword h fits a signed byte iff
+// byte 1 of x + 0x80 is 0, the high one iff byte 3 of x + 0x800000 is 0
+// (no carry crosses into the high half); a delta h - b wraps mod 2^16 the
+// same way, with bl = 0x80 - b and bh = 0x800000 - (b << 16) folded once
+// when the base is found (test_halfword_tests_on_whole_words).
+__device__ __forceinline__ bool mode_fits_b2(const uint32_t (&w)[16]) {
+  bool have = false;
+  uint32_t bl = 0, bh = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint32_t x = w[i];
+    if ((x + 0x80u) & 0xFF00u) {
+      if (!have) {
+        bl = 0x80u - x;
+        bh = 0x800000u - (x << 16);
+        have = true;
+      } else if ((x + bl) & 0xFF00u) {
+        return false;
+      }
+    }
+    if ((x + 0x800000u) & 0xFF000000u) {
+      if (!have) {
+        bl = 0x80u - (x >> 16);
+        bh = 0x800000u - (x & 0xFFFF0000u);
+        have = true;
+      } else if ((x + bh) & 0xFF000000u) {
+        return false;
+      }
+    }
+  }
+  return true;
+}
+
+// Smallest payload first within each base width, skipping what the lemma
+// rules out: 17 (8,1) < 22 (4,1) < 25 (8,2) < 38 (4,2) = 38 (2,1) < 41 (8,4)
+// (test_mode_search_matches_the_reference, test_lemma_*).
+__device__ __forceinline__ int bdi_bytes(const uint32_t (&w)[16], uint32_t z) {
+  if (z == 0xFFFFu) return 0;
+  bool rep8 = true;
+#pragma unroll
+  for (int i = 2; i < 16; ++i) rep8 &= w[i] == w[i & 1];
+  if (rep8) return 8;
+  int best = LINE_BYTES;
+  if (mode_fits_b8<4>(w)) {
+    if (mode_fits_b8<1>(w)) return 17;
+    best = mode_fits_b8<2>(w) ? 25 : 41;
+  }
+  if (best == 25) return mode_fits_b4<1>(w) ? 22 : 25;
+  if (mode_fits_b4<2>(w)) return mode_fits_b4<1>(w) ? 22 : 38;
+  if (mode_fits_b2(w)) return 38;
   return best;
 }
 
-__device__ __forceinline__ int classify(const int32_t (&w)[16], uint32_t idx,
+// ---------------------------------------------------------------- classify
+
+// il_j = il_0 + j * IL and w == ~il iff w + il == 0xFFFFFFFF, so one word
+// decides whether the other fifteen are compared at all.
+__device__ __forceinline__ int classify(const uint32_t (&w)[16], uint32_t idx,
                                         uint32_t key) {
   const uint32_t two = 2u * idx + 1u;
   const uint32_t m2 = two * M2_MULT + key;
   const uint32_t m4 = two * M4_MULT + key;
-  const uint32_t tail = (uint32_t)w[15];
-  bool is_il = true, inv_il = true;
+  const uint32_t tail = w[15];
+  const uint32_t il0 = (idx * 16u + 1u) * IL_MULT + key;
+  bool is_il = false, inv_il = false;
+  if (w[0] == il0 || w[0] + il0 == 0xFFFFFFFFu) {
+    is_il = inv_il = true;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const uint32_t il = (idx * 16u + (uint32_t)j + 1u) * IL_MULT + key;
-    is_il &= (uint32_t)w[j] == il;
-    inv_il &= (uint32_t)w[j] == ~il;
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t il = il0 + (uint32_t)j * IL_MULT;
+      is_il &= w[j] == il;
+      inv_il &= w[j] + il == 0xFFFFFFFFu;
+    }
   }
   int s = UNCOMP;
   if (tail == ~m2 || tail == ~m4 || inv_il) s = MAYBE_INVERTED;
@@ -162,17 +238,26 @@ compress_scan_kernel(const uint4* __restrict__ lines, long long n, uint32_t key,
                      int32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int32_t w[16];
+  uint32_t w[16];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const uint4 v = lines[i * 4 + q];
-    w[4 * q] = (int32_t)v.x;
-    w[4 * q + 1] = (int32_t)v.y;
-    w[4 * q + 2] = (int32_t)v.z;
-    w[4 * q + 3] = (int32_t)v.w;
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
   }
-  const int f = fpc_bytes(w);
-  const int b = bdi_bytes(w);
+  int bits = 3 * 16;
+  uint32_t z = 0;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    bits += fpc_word_bits(w[j]);
+    z |= (uint32_t)(w[j] == 0u) << j;
+  }
+  // a zero word is 3 + 4 bits in the sum above and 0 outside its run
+  bits += 6 * zero_run_chunks(z) - 7 * __popc(z);
+  const int f = (bits + 7) >> 3;
+  const int b = bdi_bytes(w, z);
   out[i] = min(min(f, b), LINE_BYTES) + HEADER_BYTES;
   out[n + i] = f;
   out[2 * n + i] = b;
