@@ -114,74 +114,69 @@ __device__ __forceinline__ bool fits_pair(uint32_t hi, uint32_t lo) {
   return hi == (uint32_t)((int32_t)lo >> 31) && fits_u32<D>(lo);
 }
 
+// A thread stops after the element where this returns true if it has
+// failed by then: early on, where random data fails, then every four.
+__device__ __forceinline__ constexpr bool stop_after(int i) {
+  return i == 1 || i % 4 == 3;
+}
+
+// Each walk is branch-free inside a group of elements, so that lanes of a
+// warp holding different data do not split at every element.
 template <int D>
 __device__ __forceinline__ bool mode_fits_b8(const uint32_t (&w)[16]) {
-  bool have = false;
+  bool have = false, ok = true;
   uint64_t base = 0;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const uint32_t lo = w[2 * k], hi = w[2 * k + 1];
-    if (fits_pair<D>(hi, lo)) continue;
     const uint64_t e = ((uint64_t)hi << 32) | lo;
-    if (!have) {
-      base = e;
-      have = true;
-      continue;
-    }
+    const bool far = !fits_pair<D>(hi, lo);
+    base = far && !have ? e : base;
+    have |= far;
     const uint64_t d = e - base;  // 64-bit wrap
-    if (!fits_pair<D>((uint32_t)(d >> 32), (uint32_t)d)) return false;
+    ok &= !far || fits_pair<D>((uint32_t)(d >> 32), (uint32_t)d);
+    if (stop_after(k) && !ok) return false;
   }
-  return true;
+  return ok;
 }
 
 template <int D>
 __device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16]) {
-  bool have = false;
+  bool have = false, ok = true;
   uint32_t base = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    if (fits_u32<D>(w[i])) continue;
-    if (!have) {
-      base = w[i];
-      have = true;
-      continue;
-    }
-    if (!fits_u32<D>(w[i] - base)) return false;  // 32-bit wrap
+    const bool far = !fits_u32<D>(w[i]);
+    base = far && !have ? w[i] : base;
+    have |= far;
+    ok &= !far || fits_u32<D>(w[i] - base);  // 32-bit wrap
+    if (stop_after(i) && !ok) return false;
   }
-  return true;
+  return ok;
 }
 
-// B = 2, D = 1 on whole words: the low halfword h fits a signed byte iff
-// byte 1 of x + 0x80 is 0, the high one iff byte 3 of x + 0x800000 is 0
-// (no carry crosses into the high half); a delta h - b wraps mod 2^16 the
-// same way, with bl = 0x80 - b and bh = 0x800000 - (b << 16) folded once
-// when the base is found (test_halfword_tests_on_whole_words).
+// B = 2, D = 1 on whole words, with the base b kept as b << 16: a
+// halfword h (as h << 16) fits a signed byte iff byte 3 of
+// (h << 16) + 0x800000 is 0, and its delta h - b wraps mod 2^16 in
+// (h << 16) - (b << 16) (test_halfword_tests_on_whole_words).
 __device__ __forceinline__ bool mode_fits_b2(const uint32_t (&w)[16]) {
-  bool have = false;
-  uint32_t bl = 0, bh = 0;
+  constexpr uint32_t HALF = 0x800000u, TOP = 0xFF000000u;
+  bool have = false, ok = true;
+  uint32_t base = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const uint32_t x = w[i];
-    if ((x + 0x80u) & 0xFF00u) {
-      if (!have) {
-        bl = 0x80u - x;
-        bh = 0x800000u - (x << 16);
-        have = true;
-      } else if ((x + bl) & 0xFF00u) {
-        return false;
-      }
-    }
-    if ((x + 0x800000u) & 0xFF000000u) {
-      if (!have) {
-        bl = 0x80u - (x >> 16);
-        bh = 0x800000u - (x & 0xFFFF0000u);
-        have = true;
-      } else if ((x + bh) & 0xFF000000u) {
-        return false;
-      }
-    }
+    const uint32_t lo = w[i] << 16, hi = w[i] & 0xFFFF0000u;
+    const bool far_lo = (lo + HALF) & TOP;
+    base = far_lo && !have ? lo : base;
+    have |= far_lo;
+    ok &= !far_lo || !((lo - base + HALF) & TOP);
+    const bool far_hi = (hi + HALF) & TOP;
+    base = far_hi && !have ? hi : base;
+    have |= far_hi;
+    ok &= !far_hi || !((hi - base + HALF) & TOP);
+    if (stop_after(i) && !ok) return false;
   }
-  return true;
+  return ok;
 }
 
 // Smallest payload first within each base width, skipping what the lemma
