@@ -96,10 +96,19 @@ __device__ __forceinline__ int zero_run_chunks(uint32_t z) {
 }
 
 // --------------------------------------------------------------------- BDI
-// (B, D): elements of B bytes, deltas of D.  Each test returns false at the
-// first element that is neither immediate (fits D bytes) nor within D
-// bytes of the base, the first non-immediate element
-// (test_mode_search_matches_the_reference).
+// (B, D): elements of B bytes, deltas of D.  A mode fits when every element
+// is immediate (fits D bytes) or within D bytes of the base, the first
+// non-immediate element, the delta wrapped into the element width.
+//
+// Each test first takes elements 0 and 1: where both are non-immediate and
+// 1 is not within D bytes of 0 the mode fails, and incompressible data ends
+// there.  Otherwise it builds the mask of non-immediate elements and passes
+// with at most one of them (the common case of sparse data).  Else it reads
+// the base (the lowest set bit) and the next non-immediate element by index
+// from the line's copy in shared memory and fails if that one is out of
+// reach (the common case of sparse data that does not fit); only then are
+// the remaining elements compared, branch-free, in registers.  Every step is
+// exact, so the result is the reference's (test_mode_tests_match_the_reference).
 
 template <int D>
 __device__ __forceinline__ bool fits_u32(uint32_t v) {
@@ -114,88 +123,128 @@ __device__ __forceinline__ bool fits_pair(uint32_t hi, uint32_t lo) {
   return hi == (uint32_t)((int32_t)lo >> 31) && fits_u32<D>(lo);
 }
 
-// A thread stops after the element where this returns true if it has
-// failed by then: early on, where random data fails, then every four.
-__device__ __forceinline__ constexpr bool stop_after(int i) {
-  return i == 1 || i % 4 == 3;
+template <int D>
+__device__ __forceinline__ bool delta_fits_pair(uint64_t e, uint64_t base) {
+  const uint64_t d = e - base;  // 64-bit wrap
+  return fits_pair<D>((uint32_t)(d >> 32), (uint32_t)d);
 }
 
-// Each walk is branch-free inside a group of elements, so that lanes of a
-// warp holding different data do not split at every element.
 template <int D>
-__device__ __forceinline__ bool mode_fits_b8(const uint32_t (&w)[16]) {
-  bool have = false, ok = true;
-  uint64_t base = 0;
+__device__ __forceinline__ bool mode_fits_b8(const uint32_t (&w)[16],
+                                             const uint64_t* row) {
+  const uint64_t e0 = ((uint64_t)w[1] << 32) | w[0];
+  const uint64_t e1 = ((uint64_t)w[3] << 32) | w[2];
+  if (!fits_pair<D>(w[1], w[0]) && !fits_pair<D>(w[3], w[2]) &&
+      !delta_fits_pair<D>(e1, e0))
+    return false;
+  uint32_t far = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint32_t lo = w[2 * k], hi = w[2 * k + 1];
-    const uint64_t e = ((uint64_t)hi << 32) | lo;
-    const bool far = !fits_pair<D>(hi, lo);
-    base = far && !have ? e : base;
-    have |= far;
-    const uint64_t d = e - base;  // 64-bit wrap
-    ok &= !far || fits_pair<D>((uint32_t)(d >> 32), (uint32_t)d);
-    if (stop_after(k) && !ok) return false;
-  }
+  for (int k = 0; k < 8; ++k)
+    far |= (uint32_t)!fits_pair<D>(w[2 * k + 1], w[2 * k]) << k;
+  if ((far & (far - 1)) == 0) return true;
+  const uint64_t base = row[__ffs(far) - 1];
+  far &= far - 1;
+  if (!delta_fits_pair<D>(row[__ffs(far) - 1], base)) return false;
+  far &= far - 1;
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    ok &= !((far >> k) & 1) ||
+          delta_fits_pair<D>(((uint64_t)w[2 * k + 1] << 32) | w[2 * k], base);
   return ok;
 }
 
 template <int D>
-__device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16]) {
-  bool have = false, ok = true;
-  uint32_t base = 0;
+__device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16],
+                                             const uint32_t* row) {
+  if (!fits_u32<D>(w[0]) && !fits_u32<D>(w[1]) && !fits_u32<D>(w[1] - w[0]))
+    return false;
+  uint32_t far = 0;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const bool far = !fits_u32<D>(w[i]);
-    base = far && !have ? w[i] : base;
-    have |= far;
-    ok &= !far || fits_u32<D>(w[i] - base);  // 32-bit wrap
-    if (stop_after(i) && !ok) return false;
-  }
+  for (int i = 0; i < 16; ++i) far |= (uint32_t)!fits_u32<D>(w[i]) << i;
+  if ((far & (far - 1)) == 0) return true;
+  const uint32_t base = row[__ffs(far) - 1];
+  far &= far - 1;
+  if (!fits_u32<D>(row[__ffs(far) - 1] - base)) return false;  // 32-bit wrap
+  far &= far - 1;
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ok &= !((far >> i) & 1) || fits_u32<D>(w[i] - base);
   return ok;
 }
 
-// B = 2, D = 1 on whole words, with the base b kept as b << 16: a
-// halfword h (as h << 16) fits a signed byte iff byte 3 of
-// (h << 16) + 0x800000 is 0, and its delta h - b wraps mod 2^16 in
-// (h << 16) - (b << 16) (test_halfword_tests_on_whole_words).
-__device__ __forceinline__ bool mode_fits_b2(const uint32_t (&w)[16]) {
-  constexpr uint32_t HALF = 0x800000u, TOP = 0xFF000000u;
-  bool have = false, ok = true;
-  uint32_t base = 0;
+// B = 2, D = 1 on whole words: the low halfword of x fits a signed byte
+// iff byte 1 of x + 0x80 is 0, the high one iff byte 3 of x + 0x800000 is
+// 0 (no carry crosses into the high half), and a delta h - b, taken on
+// zero-extended halfwords, wraps mod 2^16 in the same byte-1 test
+// (test_halfword_tests_on_whole_words).
+__device__ __forceinline__ bool far_lo(uint32_t x) { return (x + 0x80u) & 0xFF00u; }
+__device__ __forceinline__ bool far_hi(uint32_t x) {
+  return (x + 0x800000u) & 0xFF000000u;
+}
+
+// The mask of non-immediate halfwords, in integer arithmetic (built from
+// per-halfword predicates, the card's compiler packed the bits of this
+// mask into the wrong places): bit i for the low half of word i, bit 16 + i
+// for its high half.  t holds byte 1 of x + 0x80 and byte 3 of
+// x + 0x800000; bit 15 / 31 of ((t & 0x7F007F00) + 0x7F007F00) | t is set
+// iff that byte is not 0 (test_halfword_far_mask).
+__device__ __forceinline__ uint32_t far_b2(const uint32_t (&w)[16]) {
+  uint32_t far = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const uint32_t lo = w[i] << 16, hi = w[i] & 0xFFFF0000u;
-    const bool far_lo = (lo + HALF) & TOP;
-    base = far_lo && !have ? lo : base;
-    have |= far_lo;
-    ok &= !far_lo || !((lo - base + HALF) & TOP);
-    const bool far_hi = (hi + HALF) & TOP;
-    base = far_hi && !have ? hi : base;
-    have |= far_hi;
-    ok &= !far_hi || !((hi - base + HALF) & TOP);
-    if (stop_after(i) && !ok) return false;
+    const uint32_t t = __byte_perm(w[i] + 0x80u, w[i] + 0x800000u, 0x7610);
+    far |= ((((t & 0x7F007F00u) + 0x7F007F00u) | t) & 0x80008000u) >> (15 - i);
   }
+  return far;
+}
+
+__device__ __forceinline__ bool mode_fits_b2(const uint32_t (&w)[16],
+                                             const uint16_t* row) {
+  if (far_lo(w[0]) && far_hi(w[0]) && far_lo((w[0] >> 16) - w[0])) return false;
+  uint32_t far = far_b2(w);
+  if ((far & (far - 1)) == 0) return true;
+  // the base is the first non-immediate halfword: in the first word that
+  // has one, its low half if that is non-immediate, else its high half
+  const int k = __ffs((far | far >> 16) & 0xFFFFu) - 1;
+  const int low = (far >> k) & 1;
+  const uint32_t base = row[2 * k + 1 - low];
+  far &= ~(1u << (k + 16 * (1 - low)));
+  const int p = __ffs(far) - 1;  // halfword 2 (p & 15) + (p >> 4)
+  if (far_lo((uint32_t)row[2 * (p & 15) + (p >> 4)] - base)) return false;
+  far &= far - 1;
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    ok &= !((far >> i) & 1) || !far_lo(w[i] - base);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    ok &= !((far >> (16 + i)) & 1) || !far_lo((w[i] >> 16) - base);
   return ok;
 }
 
 // Smallest payload first within each base width, skipping what the lemma
-// rules out: 17 (8,1) < 22 (4,1) < 25 (8,2) < 38 (4,2) = 38 (2,1) < 41 (8,4)
-// (test_mode_search_matches_the_reference, test_lemma_*).
-__device__ __forceinline__ int bdi_bytes(const uint32_t (&w)[16], uint32_t z) {
+// (B, d') fits => (B, d) fits for d' < d rules out: 17 (8,1) < 22 (4,1) <
+// 25 (8,2) < 38 (4,2) = 38 (2,1) < 41 (8,4)
+// (test_mode_search_matches_the_reference, test_lemma_smaller_delta_fit_implies_larger).
+__device__ __forceinline__ int bdi_bytes(const uint32_t (&w)[16], uint32_t z,
+                                         const uint4* row) {
+  const uint64_t* r8 = reinterpret_cast<const uint64_t*>(row);
+  const uint32_t* r4 = reinterpret_cast<const uint32_t*>(row);
+  const uint16_t* r2 = reinterpret_cast<const uint16_t*>(row);
   if (z == 0xFFFFu) return 0;
   bool rep8 = true;
 #pragma unroll
   for (int i = 2; i < 16; ++i) rep8 &= w[i] == w[i & 1];
   if (rep8) return 8;
   int best = LINE_BYTES;
-  if (mode_fits_b8<4>(w)) {
-    if (mode_fits_b8<1>(w)) return 17;
-    best = mode_fits_b8<2>(w) ? 25 : 41;
+  if (mode_fits_b8<4>(w, r8)) {
+    if (mode_fits_b8<1>(w, r8)) return 17;
+    best = mode_fits_b8<2>(w, r8) ? 25 : 41;
   }
-  if (best == 25) return mode_fits_b4<1>(w) ? 22 : 25;
-  if (mode_fits_b4<2>(w)) return mode_fits_b4<1>(w) ? 22 : 38;
-  if (mode_fits_b2(w)) return 38;
+  if (best == 25) return mode_fits_b4<1>(w, r4) ? 22 : 25;
+  if (mode_fits_b4<2>(w, r4)) return mode_fits_b4<1>(w, r4) ? 22 : 38;
+  if (mode_fits_b2(w, r2)) return 38;
   return best;
 }
 
@@ -231,12 +280,18 @@ __device__ __forceinline__ int classify(const uint32_t (&w)[16], uint32_t idx,
 __global__ void __launch_bounds__(256)
 compress_scan_kernel(const uint4* __restrict__ lines, long long n, uint32_t key,
                      int32_t* __restrict__ out) {
+  // each thread's line, in rows of 80 bytes: four 16-byte stores of 8
+  // threads at a time land on 32 distinct banks; a thread reads back only
+  // its own row
+  __shared__ uint4 stage[256 * 5];
+  uint4* row = stage + threadIdx.x * 5;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t w[16];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const uint4 v = lines[i * 4 + q];
+    row[q] = v;
     w[4 * q] = v.x;
     w[4 * q + 1] = v.y;
     w[4 * q + 2] = v.z;
@@ -252,7 +307,7 @@ compress_scan_kernel(const uint4* __restrict__ lines, long long n, uint32_t key,
   // a zero word is 3 + 4 bits in the sum above and 0 outside its run
   bits += 6 * zero_run_chunks(z) - 7 * __popc(z);
   const int f = (bits + 7) >> 3;
-  const int b = bdi_bytes(w, z);
+  const int b = bdi_bytes(w, z, row);
   out[i] = min(min(f, b), LINE_BYTES) + HEADER_BYTES;
   out[n + i] = f;
   out[2 * n + i] = b;
