@@ -1694,7 +1694,8 @@ def main(argv=None) -> int:
     print(f"build: {cuda_lib.build_seconds():.2f} s")
     for line in kernel_resources(cuda_lib):
         print(f"build: {line}")
-    print(f"build: {sass_count(cuda_lib, 'compress_scan', 'compress_scan_kernel')}")
+    print(f"build: "
+          f"{sass_count(cuda_lib, 'compress_scan', 'compress_scan_kernel')}")
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)

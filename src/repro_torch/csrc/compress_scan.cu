@@ -21,16 +21,16 @@
 // Bound on the H100: the floor counted is bytes, 64 read and 16 written
 // per line over 3.35 TB/s (0.376 ms for the 15.7 M-line Fig. 4 image).
 // The work is integer compares, adds and logic on the ALU pipe (64 lanes
-// a clock per SM, IMADs go to the FMA pipe), so an instruction per line
-// more or less is what decides the time; the first kernel of this file
-// spent about 1,400 a line (111 registers, 4.1x the byte floor), most of
-// them in six full BDI mode tests run in 64-bit arithmetic.  This design
-// spends them where the data needs them:
+// a clock per SM; IMADs go to the FMA pipe), so the instructions a line
+// costs decide whether a source runs at the memory's pace or the ALU's.
+// The first kernel of this file spent some 1,400 a line in six full BDI
+// mode tests in 64-bit arithmetic (111 registers, 4.1x the byte floor).
+// This design spends them where the data needs them:
 //
 //   * 32-bit arithmetic wherever the element fits: 2- and 4-byte modes in
 //     uint32_t, where "v fits d bytes" is one add and one unsigned compare
 //     and the delta's wrap into the element width is the 32-bit add's own
-//     (B = 4) or a mask of the sum's second byte (B = 2); 8-byte modes as
+//     (B = 4) or a test of the sum's second byte (B = 2); 8-byte modes as
 //     (hi, lo) word pairs with the reference's test hi == lo >> 31.
 //   * cheap lines first: an all-zero line (from FPC's zero mask) is BDI 0,
 //     a rep8 line BDI 8, before any mode test.
@@ -38,10 +38,12 @@
 //     the lemma (B, d') fits => (B, d) fits for d' < d: a failing (8, 4)
 //     skips (8, 2) and (8, 1), a failing (4, 2) skips (4, 1).  An
 //     incompressible line runs three mode tests, not six.
-//   * every mode test walks its elements in order, takes the first
-//     non-immediate one as the base and returns at the first element that
-//     fits neither way: on incompressible data that is the second
-//     non-immediate element, so a failing test costs a few elements.
+//   * each mode test decides from elements 0 and 1 where it can (random
+//     data), from the mask of non-immediate elements where at most one is
+//     (sparse data), and from the base and the next non-immediate element,
+//     read by index from the line's copy in shared memory, where that one
+//     is out of reach; only lines that fit with many non-immediate
+//     elements compare all of them.
 //   * FPC classes each word from t = x ^ (x << 1), whose bit j says that
 //     bits j and j-1 of x differ: se4 / se8 / se16 are t < 2^4 / 2^8 /
 //     2^16 and half-se8 is (t & 0xFF00FF00) == 0; repb is one byte
@@ -50,10 +52,19 @@
 //   * classify compares one word against the Marker-IL family and walks
 //     the other fifteen only when it matches.
 //
-// One thread per line, the line in 16 registers from four 16-byte loads,
-// four coalesced int32 stores.  The slot index of a line is its global
-// index, so the kernel needs no padding of N.  Each bit trick has a numpy
-// model in tests/test_torch_scan_rules.py, named beside it below.
+// On an H100 SXM at 700 W (chip_smoke.py) this takes about 0.50 ms on the
+// Fig. 4 image, 1.3x the byte floor, 45 registers and no spills: random,
+// text, fp32-weight and token lines run at 1.2-1.3x their byte floor, at
+// the memory's pace; bf16-weight, Adam-moment, pointer and sparse lines,
+// which reach more mode tests, run at the ALU's pace, 1.5-2.1x theirs.
+// FPC's fifteen or so instructions a word are then the largest fixed cost
+// a line pays.
+//
+// One thread per line, the line in 16 registers from four 16-byte loads
+// and in a shared-memory row that only its thread reads, four coalesced
+// int32 stores.  The slot index of a line is its global index, so the
+// kernel needs no padding of N.  Each bit trick has a numpy model in
+// tests/test_torch_scan_rules.py, named beside it below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,7 +119,8 @@ __device__ __forceinline__ int zero_run_chunks(uint32_t z) {
 // from the line's copy in shared memory and fails if that one is out of
 // reach (the common case of sparse data that does not fit); only then are
 // the remaining elements compared, branch-free, in registers.  Every step is
-// exact, so the result is the reference's (test_mode_tests_match_the_reference).
+// exact, so the result is the reference's
+// (test_mode_tests_match_the_reference).
 
 template <int D>
 __device__ __forceinline__ bool fits_u32(uint32_t v) {
@@ -169,7 +181,8 @@ __device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16],
   far &= far - 1;
   bool ok = true;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) ok &= !((far >> i) & 1) || fits_u32<D>(w[i] - base);
+  for (int i = 0; i < 16; ++i)
+    ok &= !((far >> i) & 1) || fits_u32<D>(w[i] - base);
   return ok;
 }
 
@@ -178,7 +191,9 @@ __device__ __forceinline__ bool mode_fits_b4(const uint32_t (&w)[16],
 // 0 (no carry crosses into the high half), and a delta h - b, taken on
 // zero-extended halfwords, wraps mod 2^16 in the same byte-1 test
 // (test_halfword_tests_on_whole_words).
-__device__ __forceinline__ bool far_lo(uint32_t x) { return (x + 0x80u) & 0xFF00u; }
+__device__ __forceinline__ bool far_lo(uint32_t x) {
+  return (x + 0x80u) & 0xFF00u;
+}
 __device__ __forceinline__ bool far_hi(uint32_t x) {
   return (x + 0x800000u) & 0xFF000000u;
 }
@@ -226,7 +241,8 @@ __device__ __forceinline__ bool mode_fits_b2(const uint32_t (&w)[16],
 // Smallest payload first within each base width, skipping what the lemma
 // (B, d') fits => (B, d) fits for d' < d rules out: 17 (8,1) < 22 (4,1) <
 // 25 (8,2) < 38 (4,2) = 38 (2,1) < 41 (8,4)
-// (test_mode_search_matches_the_reference, test_lemma_smaller_delta_fit_implies_larger).
+// (test_mode_search_matches_the_reference,
+// test_lemma_smaller_delta_fit_implies_larger).
 __device__ __forceinline__ int bdi_bytes(const uint32_t (&w)[16], uint32_t z,
                                          const uint4* row) {
   const uint64_t* r8 = reinterpret_cast<const uint64_t*>(row);
