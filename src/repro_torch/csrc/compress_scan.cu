@@ -296,29 +296,18 @@ __device__ __forceinline__ int classify(const uint32_t (&w)[16], uint32_t idx,
 __global__ void __launch_bounds__(256)
 compress_scan_kernel(const uint4* __restrict__ lines, long long n, uint32_t key,
                      int32_t* __restrict__ out) {
-  // The block's 256 lines, staged in rows of 80 bytes with coalesced
-  // 16-byte loads (a warp's four loads cover its 32 lines' 2 KB in order);
-  // each thread then reads its own row: four 16-byte reads of 8 threads
-  // at a time land on 32 distinct banks.
+  // each thread's line, in rows of 80 bytes: four 16-byte stores of 8
+  // threads at a time land on 32 distinct banks; a thread reads back only
+  // its own row
   __shared__ uint4 stage[256 * 5];
-  const int lane = threadIdx.x & 31;
-  const long long first =
-      (long long)blockIdx.x * blockDim.x + (threadIdx.x - lane);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int v = q * 32 + lane;  // the warp's vector v: line v / 4, part v % 4
-    if (first + (v >> 2) < n)
-      stage[(threadIdx.x - lane + (v >> 2)) * 5 + (v & 3)] =
-          lines[first * 4 + v];
-  }
-  __syncwarp();
-  const uint4* row = stage + threadIdx.x * 5;
-  const long long i = first + lane;
+  uint4* row = stage + threadIdx.x * 5;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t w[16];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const uint4 v = row[q];
+    const uint4 v = lines[i * 4 + q];
+    row[q] = v;
     w[4 * q] = v.x;
     w[4 * q + 1] = v.y;
     w[4 * q + 2] = v.z;
