@@ -75,7 +75,15 @@ Phases, each of which makes the script exit non-zero when it fails:
      bytes; K3 and K6 at phase 2's other head geometries; beside K7's row
      the device time of an int32 sum of each line's 16 words over the same
      image (reads it once, writes 4 B a line), and K7 on each Fig. 4
-     source's slice of the image ("timing [scan-source]").
+     source's slice of the image ("timing [scan-source]"); the group pack
+     (K1/K2 on whole page groups) at a bulk shape, the KV of 8 sequences x
+     4,096 tokens of one layer at the phi4 KV geometry (2,048 pages, 128
+     MiB: 1,024 pair / 512 quad groups, made on the card from a seeded
+     torch.Generator, every eighth group misfit only at its last element),
+     bit-exact against `pagepack` before it is timed ("timing
+     [bulk-group]").  Every timing row carries `kernels_per_call`: the
+     device operations one call of the wrapper puts on the card after a
+     warm-up, counted by torch.profiler.
 
 Phases 3 to 5 drive eight paths (launcher pair and quad, serve attend pair
 and quad, the small serve attend, page codec pair and quad, scan); the
@@ -89,6 +97,7 @@ also writes the full report as JSON.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -106,6 +115,7 @@ PAGE, N_KV, HEAD_DIM, N_HEADS = 16, 8, 128, 24
 ATOL = RTOL = 2e-3
 
 LONG_BATCH, LONG_TOKENS = 8, 4096   # phase 7's long-context attention shape
+BULK_SEQS, BULK_TOKENS = 8, 4096    # phase 7's bulk group pack: one layer's KV
 SCAN_LINES_EACH = 2 ** 21       # Fig. 4 corpus: 15,728,640 lines, ~1.0 GB
 SCAN_CHUNK = 2 ** 20            # lines per plain-version chunk on the card
 
@@ -364,6 +374,23 @@ def device_ms(torch, fn, reps: int = 20, inner: int = 10) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _event_ms(torch, graph.replay, reps) / inner
+
+
+def kernels_per_call(torch, fn) -> int | None:
+    """The device operations (kernels, and any fill or copy) that one call
+    of fn puts on the card after a warm-up call, counted by torch.profiler;
+    None when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
 
 
 def nbytes(t) -> int:
@@ -1434,7 +1461,7 @@ def timing_spec(torch, name, args, kw) -> dict:
         plain = pagepack.pack_pair if len(pages) == 2 else pagepack.pack_quad
         groups = pages[0].numel() // math.prod(pages[0].shape[-3:])
         moved = (sum(nbytes(x) for x in pages) + nbytes(pages[0])
-                 + nbytes(pages[0][..., 0, :, :]) + 4 * groups)
+                 + nbytes(pages[0][..., 0, :, :]) + groups)   # ok: a byte
         return {"shape": pages[0].shape,
                 "kernel": lambda: bdi_pack.pack_pages_cuda(pages),
                 "plain": lambda: plain(*pages), "library": None,
@@ -1475,6 +1502,7 @@ def measure(torch, name, spec) -> dict:
     graph."""
     r = {"shape": list(spec["shape"])}
     big = name == "compress_scan"
+    r["kernels_per_call"] = kernels_per_call(torch, spec["kernel"])
     r["ms"] = device_ms(torch, spec["kernel"], reps=10 if big else 20,
                         inner=3 if big else 10)
     r["call_ms"] = call_ms(torch, spec["kernel"], reps=5 if big else 20)
@@ -1507,7 +1535,8 @@ def print_rows(phase: str, rows: dict) -> None:
         print(f"timing [{phase}] {name} shape {r['shape']}: device time: "
               f"kernel {fmt(r['ms'])}, plain {fmt(r['plain_ms'])}, library "
               f"{fmt(r['library_ms'])}, bound {fmt(r['bound_ms'])} "
-              f"({r['bound_by']}){floor}; one eager call: kernel "
+              f"({r['bound_by']}){floor}; kernels per call "
+              f"{r['kernels_per_call']}; one eager call: kernel "
               f"{fmt(r['call_ms'])}, plain {fmt(r['plain_call_ms'])}, "
               f"library {fmt(r['library_call_ms'])}")
 
@@ -1541,16 +1570,17 @@ def scan_source_rows(torch, rec, per_source: dict) -> dict:
         part = lines[ofs:ofs + st["lines"]]
         ofs += st["lines"]
         n = part.shape[0]
-        r = {"lines": n,
-             "ms": device_ms(torch, lambda p=part: cs.compress_scan_cuda(p),
-                             reps=10, inner=3),
+        call = functools.partial(cs.compress_scan_cuda, part)
+        r = {"lines": n, "kernels_per_call": kernels_per_call(torch, call),
+             "ms": device_ms(torch, call, reps=10, inner=3),
              "bound_ms": _bound(n * 64 + 4 * 4 * n)[0],
              "sum_floor_ms": device_ms(torch, word_sum(torch, part), reps=10,
                                        inner=3)}
         rows[name] = r
         print(f"timing [scan-source] {name} lines {n}: device time: kernel "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), "
-              f"int32 sum of each line's words {r['sum_floor_ms']:.4f} ms")
+              f"int32 sum of each line's words {r['sum_floor_ms']:.4f} ms; "
+              f"kernels per call {r['kernels_per_call']}")
     return rows
 
 
@@ -1649,6 +1679,59 @@ def geometry_rows(torch, inputs: dict) -> dict:
             rows[f"{name} {label}"] = measure(
                 torch, name, timing_spec(torch, name, call, kw))
     print_rows("geometry", rows)
+    return rows
+
+
+def bulk_group_pages(torch, lanes, device) -> list:
+    """The KV of BULK_SEQS sequences x BULK_TOKENS tokens of one layer at
+    the phi4 KV geometry (2,048 pages of 64 KiB, 128 MiB) as `lanes` (G,
+    page, Hkv, D2) int16 tensors, made on the card from a seeded
+    torch.Generator: every delta within the codec's range of its group's
+    base row (lane A's token-0 row), except that every eighth group has the
+    last element of its last lane pushed 300 past that row."""
+    d2 = 2 * HEAD_DIM
+    groups = BULK_SEQS * BULK_TOKENS // PAGE // lanes
+    gen = torch.Generator(device=device)
+    gen.manual_seed(18)
+    lim = 128 if lanes == 2 else 8
+
+    def draw(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=device,
+                             dtype=torch.int16)
+
+    row = draw(-3000, 3000, (groups, 1, N_KV, d2))
+    pages = [row + draw(-lim, lim, (groups, PAGE, N_KV, d2))
+             for _ in range(lanes)]
+    pages[0][:, 0] = row[:, 0]
+    pages[-1][::8, -1, -1, -1] = row[::8, 0, -1, -1] + 300
+    return pages
+
+
+def bulk_group_rows(torch, device) -> dict:
+    """The group pack at the bulk shape: pair and quad held bit-exact
+    against `pagepack` (packed, base and ok, the misfit groups told
+    apart), then measured as the main path's kernels are."""
+    from repro_torch.kernels import bdi_pack
+
+    rows = {}
+    for lanes, name in ((2, "pack_pair_group"), (4, "pack_quad_group")):
+        pages = bulk_group_pages(torch, lanes, device)
+        outs = bdi_pack.pack_pages_cuda(pages)
+        torch.cuda.synchronize()
+        _check_group_pack(torch, f"bulk-group {name}", (pages,), {}, outs)
+        ok = outs[2]
+        if not torch.equal(ok, torch.arange(ok.numel(), device=device) % 8
+                           != 0):
+            fail(f"bulk-group {name}: ok is not false exactly on every "
+                 "eighth group")
+        print(f"bulk-group {name}: {ok.numel()} groups of {lanes} pages "
+              f"({sum(nbytes(x) for x in pages)} bytes) bit-exact against "
+              f"pagepack, {int(ok.sum())} fit, the last-element misfit of "
+              "every eighth group seen")
+        rows[name] = measure(torch, name,
+                             timing_spec(torch, name, (pages,), {}))
+        del pages, outs, ok
+    print_rows("bulk-group", rows)
     return rows
 
 
@@ -1824,7 +1907,8 @@ def main(argv=None) -> int:
                                         scan_report["per_source"]),
         "long-context": long_context_rows(torch, device),
         "prefill-window": prefill_window_rows(torch, device),
-        "geometry": geometry_rows(torch, geo_inputs)}
+        "geometry": geometry_rows(torch, geo_inputs),
+        "bulk-group": bulk_group_rows(torch, device)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     main_rows = {**timing["serve-attend"], **timing["page-codec"],
                  **timing["scan"]}
@@ -1842,7 +1926,8 @@ def main(argv=None) -> int:
             "max_abs_err": max(errs[name], main_path[name]["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "kernels_per_call": r["kernels_per_call"]})
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(

@@ -133,7 +133,7 @@ class Ledger:
 
 # --------------------------------------------------------- device accumulator
 
-def device_totals(device="cpu") -> torch.Tensor:
+def device_totals(device="cuda") -> torch.Tensor:
     """A fresh (N_EVENTS, 3) int32 zero accumulator of [raw_bytes,
     compressed_bytes, count] on `device`."""
     return torch.zeros((N_EVENTS, 3), dtype=torch.int32, device=device)

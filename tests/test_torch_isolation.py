@@ -61,13 +61,14 @@ def test_no_source_imports_jax_or_reference():
 
 def test_entry_points_default_to_cuda():
     from repro_torch import configs
+    from repro_torch.bandwidth import device_totals
     from repro_torch.kv.cache import CRAMKVCache
     from repro_torch.launch import serve
     from repro_torch.models import build, init_lm, smoke_config
     from repro_torch.serving import ServeLoop, SlotKVCache
 
     for fn in (ServeLoop.__init__, SlotKVCache.__init__,
-               CRAMKVCache.__init__, build, init_lm):
+               CRAMKVCache.__init__, build, init_lm, device_totals):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert serve.build_parser().parse_args([]).device == "cuda"
     if torch.cuda.is_available():
