@@ -376,10 +376,18 @@ def device_ms(torch, fn, reps: int = 20, inner: int = 10) -> float:
     return _event_ms(torch, graph.replay, reps) / inner
 
 
+# CUDA runtime and driver calls that put work on the card's stream
+ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+                 "cudaMemcpy", "cuMemcpy")
+
+
 def kernels_per_call(torch, fn) -> int | None:
-    """The device operations (kernels, and any fill or copy) that one call
-    of fn puts on the card after a warm-up call, counted by torch.profiler;
-    None when the profiler saw no device activity."""
+    """The device operations (kernel launches, and any memset or copy)
+    that one call of fn puts on the card after a warm-up call: the CUDA
+    API calls that enqueue them, as torch.profiler's CUDA activity records
+    them (its device-side records miss the kernels launched from the
+    port's own library, so those are not what is counted); None when the
+    profiler recorded no such call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -389,7 +397,7 @@ def kernels_per_call(torch, fn) -> int | None:
         fn()
         torch.cuda.synchronize()
     n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+            if e.key.startswith(ENQUEUE_CALLS))
     return n or None
 
 
