@@ -12,7 +12,8 @@ registry's device backends of the int8-delta and int4-delta codecs
 (`compression/codecs.py`), with the reference's return conventions:
 pack -> (packed, base, ok), the truncated deltas written whatever ok says;
 unpack -> the tuple of pages.  Any leading axes are a group axis walked in
-one launch (the reference batches the single-group kernel with a vmap).
+one launch (the reference batches the single-group kernel with a vmap);
+the pack runs each group as a thread-block cluster (`group_cluster`).
 Their plain versions are `compression.pagepack`'s.
 
 The CUDA kernels are in `csrc/bdi_pack.cu`.  Every entry dispatches on the
@@ -35,6 +36,14 @@ from . import cuda_lib
 # CTAs per SM `window_chunks` aims at (16 of 64 threads: one wave)
 WINDOW_THREADS = 64
 WINDOW_CTAS_PER_SM = 16
+# threads of a group-pack CTA (PACK_THREADS), the largest cluster
+# (MAX_CLUSTER, the portable size) and the CTAs per SM `group_cluster`
+# aims at: one, since clusters cost more to place than the spread wins
+# beyond that (on the H100, 46 pair groups ran slower in clusters of 8
+# than of 4, and 1,024 groups slowest in clusters of 8)
+PACK_THREADS = 256
+MAX_CLUSTER = 8
+PACK_CTAS_PER_SM = 1
 
 # kernel launches, by kernel; only the CUDA path counts
 LAUNCHES = {"pack_pair": 0, "pack_quad": 0, "pack_pair_group": 0,
@@ -90,6 +99,20 @@ def window_chunks(groups: int, nvec: int, sms: int) -> tuple[int, int]:
     per_cta = -(-groups * nvec // (WINDOW_CTAS_PER_SM * sms))
     chunk_vecs = min(nvec, max(WINDOW_THREADS, per_cta))
     return chunk_vecs, -(-nvec // chunk_vecs)
+
+
+def group_cluster(groups: int, nvec: int, sms: int) -> tuple[int, int]:
+    """(cluster size C, vectors per CTA) of the group pack for `groups`
+    page groups of `nvec` 16-byte vectors on a card of `sms` SMs: C doubles
+    from 1 up to MAX_CLUSTER while the call has fewer than
+    PACK_CTAS_PER_SM CTAs per SM and each CTA keeps at least one vector
+    per thread; rank r of a group's cluster packs its vectors [r * chunk,
+    (r + 1) * chunk), the last rank's cut at nvec."""
+    cluster = 1
+    while (cluster < MAX_CLUSTER and groups * cluster < PACK_CTAS_PER_SM * sms
+           and -(-nvec // (2 * cluster)) >= PACK_THREADS):
+        cluster *= 2
+    return cluster, -(-nvec // cluster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,27 +179,37 @@ def _groups(shape, name):
 
 def pack_pages_cuda(pages):
     """`lanes` (..., page, Hkv, D2) int16 CUDA pages -> (packed, base
-    (..., Hkv, D2), ok (...) bool), deltas written whatever ok says."""
+    (..., Hkv, D2), ok (...) bool), deltas written whatever ok says; one
+    launch, which writes every group's ok once."""
     lanes = len(pages)
     if lanes not in (2, 4):
         raise ValueError(f"a group is 2 or 4 pages, got {lanes}")
     lead, g, page, hkv, d2 = _groups(tuple(pages[0].shape), "pages")
     for i, pg in enumerate(pages):
         _check(pg, f"page {i}", torch.int16, pages[0].shape)
+        if pg.data_ptr() % 16:
+            raise ValueError(f"page {i} must be 16-byte aligned (16-byte "
+                             "vector loads)")
     dev = pages[0].device
     packed = torch.empty(pages[0].shape, dtype=torch.int16, device=dev)
     base = torch.empty((*lead, hkv, d2), dtype=torch.int16, device=dev)
-    ok = torch.ones(lead, dtype=torch.int32, device=dev)
-    if g * page * hkv * d2 == 0:
-        return packed, base, ok.bool()
+    nvec = page * hkv * d2 // 8
+    if g * nvec == 0:     # nothing to read: every group fits, vacuously
+        return packed, base, torch.full(lead, True, dtype=torch.bool,
+                                        device=dev)
+    cluster, chunk_vecs = group_cluster(g, nvec, _sm_count(dev))
+    if g * cluster >= 2**31 or nvec > 2**30:
+        raise ValueError(f"{g} groups of {nvec} vectors is beyond one launch")
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
     p = cuda_lib.ptr
     quad = pages if lanes == 4 else (*pages, None, None)
     code = cuda_lib.load().cram_pack_pages(
         *(None if x is None else p(x) for x in quad), g, lanes, page, hkv, d2,
-        p(packed), p(base), p(ok), cuda_lib.stream_ptr(packed))
+        cluster, chunk_vecs, p(packed), p(base), p(ok),
+        cuda_lib.stream_ptr(packed))
     cuda_lib.check(code, "cram_pack_pages")
     LAUNCHES["pack_pair_group" if lanes == 2 else "pack_quad_group"] += 1
-    return packed, base, ok.bool()
+    return packed, base, ok
 
 
 def unpack_pages_cuda(packed, base, lanes: int):

@@ -46,9 +46,10 @@ SIGNATURES = {
     # scale, part_m, part_l, part_acc, out, stream
     "cram_decode_attention_single": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, _F, _P, _P, _P, _P, _P],
-    # page_a, page_b, page_c, page_d, G, lanes, page, hkv, d2,
-    # packed, base, ok, stream
-    "cram_pack_pages": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # page_a, page_b, page_c, page_d, G, lanes, page, hkv, d2, cluster,
+    # chunk_vecs, packed, base, ok, stream
+    "cram_pack_pages": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P],
     # packed, base, G, lanes, page, hkv, d2, out, stream
     "cram_unpack_pages": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # lines, n, key, out, stream

@@ -17,8 +17,10 @@ head, groups of 8, 9 and 12, one slot block per sequence, a single group,
 a ragged last split, one slot, 256 slots, a slot count that is not a
 multiple of the lanes, a marker on all KV heads but one, window-pack
 groups of one chunk and of several with a ragged last one, a misfit only
-the last chunk sees, a 64-group window, an image whose line count is not
-a multiple of the kernel's block).
+the last chunk sees, a 64-group window, a group-pack misfit only the last
+CTA of a group's cluster sees, 1,024 groups at the phi4 geometry and
+65,539 groups of one vector, an image whose line count is not a multiple
+of the kernel's block).
 
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
@@ -216,20 +218,52 @@ def test_decode_attention_kernel_refuses_what_it_cannot_run(cuda):
         ca.cram_decode_attention_batched_cuda(*args, lanes=2)
 
 
+def _delta_pages(lanes, g, page, hkv, d2, device):
+    """`lanes` (g, page, Hkv, D2) int16 pages made on `device` from a
+    seeded generator: even groups within the codec's delta range of their
+    base row (lane A's token-0 row), odd groups far from it; group 2 (where
+    there is one) fits but for the last element of its last lane."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(g * 8 + lanes)
+
+    def draw(lim, shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device=device,
+                             dtype=torch.int16)
+
+    row = draw(3000, (g, 1, hkv, d2))
+    far = (torch.arange(g, device=device) % 2 == 1).reshape(-1, 1, 1, 1)
+    lim = 128 if lanes == 2 else 8
+    pages = [row + torch.where(far, draw(2**14, (g, page, hkv, d2)),
+                               draw(lim, (g, page, hkv, d2)))
+             for _ in range(lanes)]
+    pages[0][:, 0] = row[:, 0]
+    if g > 2:
+        pages[-1][2, -1, -1, -1] = row[2, 0, -1, -1] + 300
+    return pages
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [2, 4])
-@pytest.mark.parametrize("lead,page,hkv,hd", [((), 4, 2, 8), ((1,), 5, 3, 8),
-                                              ((3, 2), 16, 8, 128)])
+@pytest.mark.parametrize("lead,page,hkv,hd,kv", [
+    ((), 4, 2, 8, True), ((1,), 5, 3, 8, True), ((3, 2), 16, 8, 128, True),
+    # a misfit only in the last CTA of group 2's cluster of 8
+    ((3,), 16, 8, 128, False),
+    ((1024,), 16, 8, 128, False),         # the bulk shape's pair groups
+    ((65539,), 1, 1, 4, False)])          # more groups than a grid's y
 def test_group_pack_and_unpack_kernels_bit_exact(cuda, lanes, lead, page,
-                                                 hkv, hd):
+                                                 hkv, hd, kv):
     """K1/K2 group pack (deltas written whatever ok says) and K4/K5 unpack
     against `pagepack`, on fitting and non-fitting groups; pack -> unpack
-    is the identity where the group fits."""
+    is the identity where the group fits.  Pages from KV streams, or from
+    `_delta_pages` with a group that misfits only at its last element."""
     rng = np.random.default_rng([lanes, page, hkv, hd, len(lead)])
     g = int(np.prod(lead)) if lead else 1
-    win = _window(rng, max(g, 2), 1, lanes, page, hkv, hd, cuda)[:g, 0]
-    pages = [win[:, j].reshape(*lead, page, hkv, 2 * hd).contiguous()
-             for j in range(lanes)]
+    if kv:
+        win = _window(rng, max(g, 2), 1, lanes, page, hkv, hd, cuda)[:g, 0]
+        pages = [win[:, j].reshape(*lead, page, hkv, 2 * hd).contiguous()
+                 for j in range(lanes)]
+    else:
+        pages = _delta_pages(lanes, g, page, hkv, 2 * hd, cuda)
     pack = bdi_pack.pack_pair if lanes == 2 else bdi_pack.pack_quad
     unpack = bdi_pack.unpack_pair if lanes == 2 else bdi_pack.unpack_quad
     packed, base, ok = pack(*pages)
@@ -248,6 +282,8 @@ def test_group_pack_and_unpack_kernels_bit_exact(cuda, lanes, lead, page,
         assert torch.equal(a.reshape(g, -1)[fit], p.reshape(g, -1)[fit])
     if g > 1:
         assert bool(fit.any()) and not bool(fit.all())
+    if not kv:
+        assert bool(fit[0]) and not bool(fit[1]) and not bool(fit[2])
 
 
 def _scan_image(rng, n, key):
