@@ -42,7 +42,7 @@ WINDOW_CTAS_PER_SM = 16
 # beyond that (on the H100, 46 pair groups ran slower in clusters of 8
 # than of 4, and 1,024 groups slowest in clusters of 8)
 PACK_THREADS = 256
-MAX_CLUSTER = 1
+MAX_CLUSTER = 8
 PACK_CTAS_PER_SM = 1
 
 # kernel launches, by kernel; only the CUDA path counts
