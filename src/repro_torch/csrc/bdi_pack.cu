@@ -229,44 +229,104 @@ window_write_kernel(const int16_t* __restrict__ win,
 // packs against one base vector, read once; otherwise the base vector is
 // read per vector at v % rowvec.
 
+constexpr int PACK_THREADS = 256;   // threads of a group-pack CTA
+constexpr int MAX_CLUSTER = 8;      // the portable cluster size
+
 template <int LANES>
-__global__ void pack_pages_kernel(const int16_t* __restrict__ p0,
-                                  const int16_t* __restrict__ p1,
-                                  const int16_t* __restrict__ p2,
-                                  const int16_t* __restrict__ p3,
-                                  long long evec, int rowvec,
-                                  int16_t* __restrict__ packed,
-                                  int16_t* __restrict__ base,
-                                  uint8_t* __restrict__ flags) {
+__device__ __forceinline__ Vec8 pack_vec(const Vec8 (&x)[LANES],
+                                         const Vec8& b, int& good) {
   constexpr int LO = LANES == 2 ? -128 : -8;
   constexpr int HI = LANES == 2 ? 127 : 7;
-  const int16_t* pages[4] = {p0, p1, p2, p3};
-  const long long g = blockIdx.y;
-  int good = 1;
-  for (long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x; v < evec;
-       v += (long long)gridDim.x * blockDim.x) {
-    const long long e = (g * evec + v) * 8;
-    const Vec8 b = load8(p0 + (g * evec + v % rowvec) * 8);
-    uint32_t word[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  Vec8 out;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    uint32_t word = 0;
 #pragma unroll
     for (int j = 0; j < LANES; ++j) {
-      const Vec8 x = load8(pages[j] + e);
+      const int d = (int)x[j].h[k] - (int)b.h[k];
+      good &= (d >= LO) & (d <= HI);
+      word |= LANES == 2 ? ((uint32_t)d & 0xFFu) << (8 * j)
+                         : ((uint32_t)d & 0xFu) << (4 * j);
+    }
+    out.h[k] = (int16_t)(uint16_t)word;
+  }
+  return out;
+}
+
+// the vectors [v0, v1) of one group: src[j] is lane j's page, dst the
+// packed page, base_out the group's base row.  ROW: v % rowvec is the
+// thread's own threadIdx.x % rowvec throughout, so the base is read once.
+template <int LANES, bool ROW>
+__device__ __forceinline__ int pack_chunk(const int16_t* const (&src)[LANES],
+                                          int v0, int v1, int rowvec,
+                                          int16_t* __restrict__ dst,
+                                          int16_t* __restrict__ base_out) {
+  constexpr int U = 16 / LANES;
+  int good = 1;
+  Vec8 own;
+  if (ROW) own = load8(src[0] + (threadIdx.x % rowvec) * 8);
+  for (int v = v0 + threadIdx.x; v < v1; v += U * PACK_THREADS) {
+    Vec8 x[U][LANES];
+    Vec8 b[U];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int d = (int)x.h[k] - (int)b.h[k];
-        good &= (d >= LO) & (d <= HI);
-        word[k] |= LANES == 2 ? ((uint32_t)d & 0xFFu) << (8 * j)
-                              : ((uint32_t)d & 0xFu) << (4 * j);
+    for (int u = 0; u < U; ++u) {
+      const int w = v + u * PACK_THREADS;
+      if (w < v1) {
+#pragma unroll
+        for (int j = 0; j < LANES; ++j) x[u][j] = load8(src[j] + w * 8LL);
+        if (!ROW) b[u] = load8(src[0] + (w % rowvec) * 8);
       }
     }
-    Vec8 out;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) out.h[k] = (int16_t)(uint16_t)word[k];
-    store8(packed + e, out);
-    if (v < rowvec) store8(base + (g * rowvec + v) * 8, b);
+    for (int u = 0; u < U; ++u) {
+      const int w = v + u * PACK_THREADS;
+      if (w < v1) {
+        const Vec8& bu = ROW ? own : b[u];
+        store8(dst + w * 8LL, pack_vec<LANES>(x[u], bu, good));
+        if (!ROW && w < rowvec) store8(base_out + w * 8, bu);
+      }
+    }
   }
+  // stored last, so that no thread waits on its base before its loads
+  if (ROW && v0 == 0 && (int)threadIdx.x < rowvec)
+    store8(base_out + threadIdx.x * 8, own);
+  return good;
+}
+
+template <int LANES>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_pages_kernel(const int16_t* __restrict__ p0,
+                  const int16_t* __restrict__ p1,
+                  const int16_t* __restrict__ p2,
+                  const int16_t* __restrict__ p3, int evec, int rowvec,
+                  int cluster_size, int chunk_vecs,
+                  int16_t* __restrict__ packed, int16_t* __restrict__ base,
+                  uint8_t* __restrict__ ok) {
+  __shared__ int fit[MAX_CLUSTER];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long g = blockIdx.x / cluster_size;
+  const long long e0 = g * evec * 8LL;               // the group's element 0
+  const int16_t* const all[4] = {p0, p1, p2, p3};
+  const int16_t* src[LANES];
+#pragma unroll
+  for (int j = 0; j < LANES; ++j) src[j] = all[j] + e0;
+  const int v0 = rank * chunk_vecs;
+  const int v1 = min(v0 + chunk_vecs, evec);
+  int16_t* dst = packed + e0;
+  int16_t* base_out = base + g * rowvec * 8LL;
+  const int good =
+      PACK_THREADS % rowvec == 0 && v0 % rowvec == 0
+          ? pack_chunk<LANES, true>(src, v0, v1, rowvec, dst, base_out)
+          : pack_chunk<LANES, false>(src, v0, v1, rowvec, dst, base_out);
   const int fits = __syncthreads_and(good);
-  if (threadIdx.x == 0) flags[g * gridDim.x + blockIdx.x] = (uint8_t)fits;
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&fit[rank], 0) = fits;
+  cluster.sync();   // every CTA's flag is in rank 0's fit[]; none exits before
+  if (rank == 0 && threadIdx.x == 0) {
+    int all_fit = 1;
+    for (int r = 0; r < cluster_size; ++r) all_fit &= fit[r];
+    ok[g] = (uint8_t)all_fit;
+  }
 }
 
 template <int LANES>
@@ -350,28 +410,45 @@ extern "C" int cram_pack_pages(const void* page_a, const void* page_b,
                                int lanes, int page, int hkv, int d2,
                                int cluster, int chunk_vecs, void* packed,
                                void* base, void* ok, void* stream) {
-  const int threads = 256;
-  const int rowvec = hkv * d2 / 8;
-  const long long evec = (long long)page * rowvec;
-  if (G <= 0 || G > 65535 || page <= 0 || hkv <= 0 || d2 <= 0 ||
-      d2 % 8 != 0 || cluster != 1 || chunk_vecs != (int)grid_for(evec, threads))
+  const long long rowvec = (long long)hkv * d2 / 8;
+  const long long evec = page * rowvec;
+  // every vector of a group in exactly one chunk, no chunk empty, and
+  // vector indices well inside int
+  if (G <= 0 || page <= 0 || hkv <= 0 || d2 <= 0 || d2 % 8 != 0 ||
+      evec > (1LL << 30) || (lanes != 2 && lanes != 4) ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      chunk_vecs <= 0 || (long long)chunk_vecs * cluster < evec ||
+      (long long)chunk_vecs * (cluster - 1) >= evec ||
+      (long long)G * cluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_for(evec, threads), G);
-  cudaStream_t s = (cudaStream_t)stream;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)G * cluster), 1, 1);
+  cfg.blockDim = dim3(PACK_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const int16_t* a = (const int16_t*)page_a;
   const int16_t* b = (const int16_t*)page_b;
-  if (lanes == 2) {
-    pack_pages_kernel<2><<<grid, threads, 0, s>>>(
-        a, b, nullptr, nullptr, evec, rowvec, (int16_t*)packed,
-        (int16_t*)base, (uint8_t*)ok);
-  } else if (lanes == 4) {
-    pack_pages_kernel<4><<<grid, threads, 0, s>>>(
-        a, b, (const int16_t*)page_c, (const int16_t*)page_d, evec, rowvec,
-        (int16_t*)packed, (int16_t*)base, (uint8_t*)ok);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int16_t* c = (const int16_t*)page_c;
+  const int16_t* d = (const int16_t*)page_d;
+  const cudaError_t err =
+      lanes == 2
+          ? cudaLaunchKernelEx(&cfg, pack_pages_kernel<2>, a, b, c, d,
+                               (int)evec, (int)rowvec, cluster, chunk_vecs,
+                               (int16_t*)packed, (int16_t*)base,
+                               (uint8_t*)ok)
+          : cudaLaunchKernelEx(&cfg, pack_pages_kernel<4>, a, b, c, d,
+                               (int)evec, (int)rowvec, cluster, chunk_vecs,
+                               (int16_t*)packed, (int16_t*)base,
+                               (uint8_t*)ok);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 extern "C" int cram_unpack_pages(const void* packed, const void* base, int G,

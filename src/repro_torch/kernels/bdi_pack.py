@@ -197,17 +197,19 @@ def pack_pages_cuda(pages):
     if g * nvec == 0:     # nothing to read: every group fits, vacuously
         return packed, base, torch.full(lead, True, dtype=torch.bool,
                                         device=dev)
-    chunks = min(-(-nvec // 256), 65535 * 32)
-    flags = torch.empty((*lead, chunks), dtype=torch.bool, device=dev)
+    cluster, chunk_vecs = group_cluster(g, nvec, _sm_count(dev))
+    if g * cluster >= 2**31 or nvec > 2**30:
+        raise ValueError(f"{g} groups of {nvec} vectors is beyond one launch")
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
     p = cuda_lib.ptr
     quad = pages if lanes == 4 else (*pages, None, None)
     code = cuda_lib.load().cram_pack_pages(
         *(None if x is None else p(x) for x in quad), g, lanes, page, hkv, d2,
-        1, chunks, p(packed), p(base), p(flags),
+        cluster, chunk_vecs, p(packed), p(base), p(ok),
         cuda_lib.stream_ptr(packed))
     cuda_lib.check(code, "cram_pack_pages")
     LAUNCHES["pack_pair_group" if lanes == 2 else "pack_quad_group"] += 1
-    return packed, base, flags.all(-1)
+    return packed, base, ok
 
 
 def unpack_pages_cuda(packed, base, lanes: int):
