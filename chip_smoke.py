@@ -83,7 +83,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      bit-exact against `pagepack` before it is timed ("timing
      [bulk-group]").  Every timing row carries `kernels_per_call`: the
      device operations one call of the wrapper puts on the card after a
-     warm-up, counted by torch.profiler.
+     warm-up, counted from torch.profiler's record of the CUDA calls that
+     enqueue them; the group pack must be exactly one.
 
 Phases 3 to 5 drive eight paths (launcher pair and quad, serve attend pair
 and quad, the small serve attend, page codec pair and quad, scan); the
@@ -1918,6 +1919,12 @@ def main(argv=None) -> int:
         "geometry": geometry_rows(torch, geo_inputs),
         "bulk-group": bulk_group_rows(torch, device)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    for phase in ("page-codec", "bulk-group"):
+        for name in ("pack_pair_group", "pack_quad_group"):
+            n = timing[phase][name]["kernels_per_call"]
+            if n != 1:
+                fail(f"{phase} {name}: {n} device operations a call, "
+                     "expected one launch")
     main_rows = {**timing["serve-attend"], **timing["page-codec"],
                  **timing["scan"]}
 
