@@ -218,13 +218,11 @@ window_write_kernel(const int16_t* __restrict__ win,
 // it into rank 0's shared memory (distributed shared memory); after the
 // cluster barrier rank 0 writes ok once, so nothing is filled before the
 // launch and nothing is converted after it.  Groups sit on grid x (G * C
-// CTAs), so G is not bounded by grid y.  The parent design (16 CTAs a
-// group on a (16, G) grid, ok cleared by any CTA that saw a misfit) took
-// three launches: a fill of ok, the pack, a conversion to bool.
+// CTAs), so G is not bounded by grid y.
 // A thread loads every lane of 16 / LANES vectors (sixteen 16-byte loads:
 // 8 vectors for a pair, 4 for a quad) before it packs any, neighbouring
-// threads on neighbouring vectors; with 8 / LANES the bulk shape (1,024
-// groups of 128 KB) ran 2-3% slower, level with the three-launch parent.  Where the CTA's chunk starts on a
+// threads on neighbouring vectors (with 8 / LANES, one CTA a group ran
+// 2-3% slower on 1,024 groups of 128 KB).  Where the CTA's chunk starts on a
 // token row and the thread stride is a whole number of rows, each thread
 // packs against one base vector, read once; otherwise the base vector is
 // read per vector at v % rowvec.
