@@ -377,7 +377,8 @@ def device_ms(torch, fn, reps: int = 20, inner: int = 10) -> float:
     return _event_ms(torch, graph.replay, reps) / inner
 
 
-# CUDA runtime and driver calls that put work on the card's stream
+# CUDA API calls (runtime `cuda*` and low-level `cu*`) that put work on the
+# card's stream
 ENQUEUE_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
                  "cudaMemcpy", "cuMemcpy")
 
