@@ -36,14 +36,10 @@ from . import cuda_lib
 # CTAs per SM `window_chunks` aims at (16 of 64 threads: one wave)
 WINDOW_THREADS = 64
 WINDOW_CTAS_PER_SM = 16
-# threads of a group-pack CTA (PACK_THREADS), the largest cluster
-# (MAX_CLUSTER, the portable size) and the CTAs per SM `group_cluster`
-# aims at: one, since clusters cost more to place than the spread wins
-# beyond that (on the H100, 46 pair groups ran slower in clusters of 8
-# than of 4, and 1,024 groups slowest in clusters of 8)
+# threads of a group-pack CTA (PACK_THREADS) and the largest cluster
+# (MAX_CLUSTER, the portable size), both as in csrc/bdi_pack.cu
 PACK_THREADS = 256
 MAX_CLUSTER = 8
-PACK_CTAS_PER_SM = 1
 
 # kernel launches, by kernel; only the CUDA path counts
 LAUNCHES = {"pack_pair": 0, "pack_quad": 0, "pack_pair_group": 0,
@@ -104,12 +100,14 @@ def window_chunks(groups: int, nvec: int, sms: int) -> tuple[int, int]:
 def group_cluster(groups: int, nvec: int, sms: int) -> tuple[int, int]:
     """(cluster size C, vectors per CTA) of the group pack for `groups`
     page groups of `nvec` 16-byte vectors on a card of `sms` SMs: C doubles
-    from 1 up to MAX_CLUSTER while the call has fewer than
-    PACK_CTAS_PER_SM CTAs per SM and each CTA keeps at least one vector
-    per thread; rank r of a group's cluster packs its vectors [r * chunk,
-    (r + 1) * chunk), the last rank's cut at nvec."""
+    from 1 up to MAX_CLUSTER while the call has fewer CTAs than SMs and
+    each CTA keeps at least one vector per thread (more than one CTA per
+    SM costs more to place than the spread wins: on the H100, 46 pair
+    groups ran slower in clusters of 8 than of 4, and 1,024 groups slowest
+    in clusters of 8); rank r of a group's cluster packs its vectors
+    [r * chunk, (r + 1) * chunk), the last rank's cut at nvec."""
     cluster = 1
-    while (cluster < MAX_CLUSTER and groups * cluster < PACK_CTAS_PER_SM * sms
+    while (cluster < MAX_CLUSTER and groups * cluster < sms
            and -(-nvec // (2 * cluster)) >= PACK_THREADS):
         cluster *= 2
     return cluster, -(-nvec // cluster)

@@ -13,6 +13,9 @@ runs `pagepack`) is held per group against `repro.kernels.bdi_pack.
 pack_pair` / `pack_quad` in interpret mode.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,8 +45,8 @@ def test_group_cluster_covers_each_vector_once(groups, nvec, sms):
     """C in 1, 2, 4, 8; every vector of a group in exactly one rank's
     chunk, no rank idle; a chunk of at least one vector per thread; the
     launch's own checks hold; and C stops growing only at MAX_CLUSTER, at
-    a chunk of fewer than two vectors per thread, or once the call fills
-    PACK_CTAS_PER_SM CTAs per SM."""
+    a chunk of fewer than two vectors per thread, or once the call has a
+    CTA for every SM."""
     cluster, chunk = bdi_pack.group_cluster(groups, nvec, sms)
     assert cluster in (1, 2, 4, 8)
     assert chunk >= min(nvec, T)
@@ -55,7 +58,18 @@ def test_group_cluster_covers_each_vector_once(groups, nvec, sms):
     assert (covered == 1).all()
     assert chunk * (cluster - 1) < nvec <= chunk * cluster
     if cluster < bdi_pack.MAX_CLUSTER and -(-nvec // (2 * cluster)) >= T:
-        assert groups * cluster >= bdi_pack.PACK_CTAS_PER_SM * sms
+        assert groups * cluster >= sms
+
+
+@pytest.mark.parametrize("name", ["PACK_THREADS", "MAX_CLUSTER",
+                                  "WINDOW_THREADS"])
+def test_launch_constants_match_the_cuda_source(name):
+    """The wrapper's copies of the kernels' launch constants are the
+    values `csrc/bdi_pack.cu` compiles with."""
+    src = (pathlib.Path(bdi_pack.__file__).resolve().parent.parent / "csrc"
+           / "bdi_pack.cu").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", src)
+    assert found == [str(getattr(bdi_pack, name))]
 
 
 def test_group_cluster_at_the_shapes_the_port_runs():
