@@ -215,10 +215,11 @@ window_write_kernel(const int16_t* __restrict__ win,
 // bdi_pack.group_cluster in Python: C grows while the call has fewer
 // CTAs than SMs, so a large call runs one CTA a group).  Each CTA packs
 // its chunk of the group, ANDs its fit with __syncthreads_and, and writes
-// it into rank 0's shared memory (distributed shared memory); after the
-// cluster barrier rank 0 writes ok once, so nothing is filled before the
-// launch and nothing is converted after it.  Groups sit on grid x (G * C
-// CTAs), so G is not bounded by grid y.
+// it into rank 0's shared memory (distributed shared memory) once a first
+// cluster barrier, arrived on at entry, shows every CTA of the cluster
+// started; after a second barrier rank 0 writes ok once, so nothing is
+// filled before the launch and nothing is converted after it.  Groups sit
+// on grid x (G * C CTAs), so G is not bounded by grid y.
 // A thread loads every lane of 16 / LANES vectors (sixteen 16-byte loads:
 // 8 vectors for a pair, 4 for a quad) before it packs any, neighbouring
 // threads on neighbouring vectors (with 8 / LANES, one CTA a group ran
@@ -302,6 +303,10 @@ pack_pages_kernel(const int16_t* __restrict__ p0,
                   uint8_t* __restrict__ ok) {
   __shared__ int fit[MAX_CLUSTER];
   cg::cluster_group cluster = cg::this_cluster();
+  // arrive on the cluster barrier at once and wait on it only before the
+  // remote store: distributed shared memory may be touched only once every
+  // CTA of the cluster has started, and the pack does not wait for that
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   const int rank = (int)cluster.block_rank();
   const long long g = blockIdx.x / cluster_size;
   const long long e0 = g * evec * 8LL;               // the group's element 0
@@ -318,6 +323,7 @@ pack_pages_kernel(const int16_t* __restrict__ p0,
           ? pack_chunk<LANES, true>(src, v0, v1, rowvec, dst, base_out)
           : pack_chunk<LANES, false>(src, v0, v1, rowvec, dst, base_out);
   const int fits = __syncthreads_and(good);
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
   if (threadIdx.x == 0) *cluster.map_shared_rank(&fit[rank], 0) = fits;
   cluster.sync();   // every CTA's flag is in rank 0's fit[]; none exits before
   if (rank == 0 && threadIdx.x == 0) {
