@@ -223,8 +223,10 @@ window_write_kernel(const int16_t* __restrict__ win,
 // A thread loads every lane of 16 / LANES vectors (sixteen 16-byte loads:
 // 8 vectors for a pair, 4 for a quad) before it packs any, neighbouring
 // threads on neighbouring vectors (with 8 / LANES, one CTA a group ran
-// 2-3% slower on 1,024 groups of 128 KB); the base vector, lane A's
-// token-0 row at v % rowvec, is loaded with them.
+// 2-3% slower on 1,024 groups of 128 KB).  Where the CTA's chunk starts on a
+// token row and the thread stride is a whole number of rows, each thread
+// packs against one base vector, read once; otherwise the base vector is
+// read per vector at v % rowvec.
 
 constexpr int PACK_THREADS = 256;   // threads of a group-pack CTA
 constexpr int MAX_CLUSTER = 8;      // the portable cluster size
@@ -251,14 +253,17 @@ __device__ __forceinline__ Vec8 pack_vec(const Vec8 (&x)[LANES],
 }
 
 // the vectors [v0, v1) of one group: src[j] is lane j's page, dst the
-// packed page, base_out the group's base row
-template <int LANES>
+// packed page, base_out the group's base row.  ROW: v % rowvec is the
+// thread's own threadIdx.x % rowvec throughout, so the base is read once.
+template <int LANES, bool ROW>
 __device__ __forceinline__ int pack_chunk(const int16_t* const (&src)[LANES],
                                           int v0, int v1, int rowvec,
                                           int16_t* __restrict__ dst,
                                           int16_t* __restrict__ base_out) {
   constexpr int U = 16 / LANES;
   int good = 1;
+  Vec8 own;
+  if (ROW) own = load8(src[0] + (threadIdx.x % rowvec) * 8);
   for (int v = v0 + threadIdx.x; v < v1; v += U * PACK_THREADS) {
     Vec8 x[U][LANES];
     Vec8 b[U];
@@ -268,18 +273,22 @@ __device__ __forceinline__ int pack_chunk(const int16_t* const (&src)[LANES],
       if (w < v1) {
 #pragma unroll
         for (int j = 0; j < LANES; ++j) x[u][j] = load8(src[j] + w * 8LL);
-        b[u] = load8(src[0] + (w % rowvec) * 8);
+        if (!ROW) b[u] = load8(src[0] + (w % rowvec) * 8);
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int w = v + u * PACK_THREADS;
       if (w < v1) {
-        store8(dst + w * 8LL, pack_vec<LANES>(x[u], b[u], good));
-        if (w < rowvec) store8(base_out + w * 8, b[u]);
+        const Vec8& bu = ROW ? own : b[u];
+        store8(dst + w * 8LL, pack_vec<LANES>(x[u], bu, good));
+        if (!ROW && w < rowvec) store8(base_out + w * 8, bu);
       }
     }
   }
+  // stored last, so that no thread waits on its base before its loads
+  if (ROW && v0 == 0 && (int)threadIdx.x < rowvec)
+    store8(base_out + threadIdx.x * 8, own);
   return good;
 }
 
@@ -309,8 +318,11 @@ pack_pages_kernel(const int16_t* __restrict__ p0,
   const int v1 = min(v0 + chunk_vecs, evec);
   int16_t* dst = packed + e0;
   int16_t* base_out = base + g * rowvec * 8LL;
-  const int fits =
-      __syncthreads_and(pack_chunk<LANES>(src, v0, v1, rowvec, dst, base_out));
+  const int good =
+      PACK_THREADS % rowvec == 0 && v0 % rowvec == 0
+          ? pack_chunk<LANES, true>(src, v0, v1, rowvec, dst, base_out)
+          : pack_chunk<LANES, false>(src, v0, v1, rowvec, dst, base_out);
+  const int fits = __syncthreads_and(good);
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
   if (threadIdx.x == 0) *cluster.map_shared_rank(&fit[rank], 0) = fits;
   cluster.sync();   // every CTA's flag is in rank 0's fit[]; none exits before

@@ -105,7 +105,8 @@ def _pages(rng, lanes, g, page, hkv, d2):
 def _kernel_model(pages, lanes, sms=132):
     """The CUDA kernel's work in numpy, CTA by CTA and thread by thread:
     each rank's chunk in steps of 16 / lanes vectors per thread, the base
-    vector at v % rowvec, the rank's fit ANDed by rank 0.  Returns (packed,
+    vector at v % rowvec (checked to be the thread's own where the kernel
+    reads it once), the rank's fit ANDed by rank 0.  Returns (packed,
     base, ok)."""
     g, page, hkv, d2 = pages[0].shape
     rowvec, nvec = hkv * d2 // 8, page * hkv * d2 // 8
@@ -120,11 +121,14 @@ def _kernel_model(pages, lanes, sms=132):
     rnd = 16 // lanes                 # the kernel's U: vectors a round
     for rank in range(cluster):
         v0, v1 = rank * chunk, min((rank + 1) * chunk, nvec)
+        row = T % rowvec == 0 and v0 % rowvec == 0
         fits = np.ones(g, bool)
         for v in range(v0, v1, rnd * T):
             for u in range(rnd):
                 w = v + tid + u * T
                 w = w[w < v1]
+                if row:
+                    assert (w % rowvec == tid[:w.size] % rowvec).all()
                 b = vec[0][:, w % rowvec]
                 word = np.zeros_like(b)
                 for j in range(lanes):
@@ -144,8 +148,8 @@ def _kernel_model(pages, lanes, sms=132):
 @pytest.mark.parametrize("lanes", [2, 4])
 @pytest.mark.parametrize("g,page,hkv,d2", [
     (3, 16, 8, 256),      # clusters of 8 at the phi4 KV geometry
-    (6, 5, 3, 16),        # one CTA a group, less than a vector a thread
-    (3, 16, 16, 256),     # a token row of 512 vectors, more than a stride
+    (6, 5, 3, 16),        # one CTA a group, the general base index
+    (3, 16, 16, 256),     # a token row of 512 vectors: the general index
     (4, 9, 8, 96)])       # chunks that start mid-row
 def test_kernel_model_matches_the_reference(lanes, g, page, hkv, d2):
     """The numpy model of the kernel's chunks and its cross-CTA AND gives
