@@ -34,7 +34,13 @@ Phases, each of which makes the script exit non-zero when it fails:
   3. the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
-     the device time of one decode step from torch.profiler;
+     the device time of one decode step from torch.profiler; then the
+     README's spill command (`--batch 4 --slots 2 --admit-rate 4
+     --kv-policy auto --spill-pages 64`, async spill), printing the
+     AutoTuner's per-tier choices and observation windows, and the same
+     command with `--kv-policy dynamic --kv-packing pair --spill-packing
+     quad`; both must evict and wake, with the ledger's kv-evict /
+     kv-restore spill rows counting the crossings;
   4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
      1 incompressible, 1 alternating), 48 decode steps each followed by an
      attend, every attend held against the plain attention on the same
@@ -50,7 +56,14 @@ Phases, each of which makes the script exit non-zero when it fails:
      (page 8, one KV head, one query head, head_dim 16; 4 slots, 8 decode
      steps, pair and quad), every attend through ServeLoop.attend on the
      card held against the plain attention, and `shard=True` on the card's
-     one device equal to `shard=False`;
+     one device equal to `shard=False`; then the serve tier with the spill
+     tier churning (hot pair with spill quad, then hot quad with spill
+     pair): the serve-attend stream's 8 sequences in 4 slots, 48 steps
+     through step_all, so every step evicts and wakes 4, every attend held
+     against the plain attention, every sequence woken at the end
+     bit-exact against a never-spilled twin loop with 8 slots on the CPU,
+     spill rows equal to the crossings, and the host wall of one evict,
+     one restore and the worker's encode and decode;
   5. the compressibility scan of the Fig. 4 memory image at
      n_lines_each = 2^21 (15,728,640 lines, 1,006,632,960 bytes, resident
      on the card) in one K7 launch through the `hybrid` codec's scan
@@ -86,10 +99,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      warm-up, counted from torch.profiler's record of the CUDA calls that
      enqueue them; the group pack must be exactly one.
 
-Phases 3 to 5 drive eight paths (launcher pair and quad, serve attend pair
-and quad, the small serve attend, page codec pair and quad, scan); the
-launch counters are set to 0 just before each and read just after it, and
-every kernel a path runs must have launched in it.  The last two lines are
+Phases 3 to 5 drive twelve paths (launcher pair and quad, the spill
+launcher with auto and with pair, serve attend pair and quad, the small
+serve attend, serve churn pair and quad, page codec pair and quad, scan);
+the launch counters are set to 0 just before each and read just after it,
+and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
 CUDA card and a checkout of the repository around it.  `--report PATH`
 also writes the full report as JSON.
@@ -146,12 +160,19 @@ SCAN_OUTPUTS = ("sizes", "fpc", "bdi", "status")
 PATHS = {
     "launcher_pair": ("pack_pair",),
     "launcher_quad": ("pack_quad",),
+    # the README's spill command: --kv-policy auto gates both tiers off on
+    # random-weight KV, so no kernel is required; the same command with
+    # --kv-policy dynamic --kv-packing pair must pack
+    "launcher_spill": (),
+    "launcher_spill_pair": ("pack_pair",),
     "serve_attend_pair": ("pack_pair", "decode_attention_pair",
                           "decode_single_pair"),
     "serve_attend_quad": ("pack_quad", "decode_attention_quad",
                           "decode_single_quad"),
     "serve_attend_small": ("pack_pair", "pack_quad", "decode_attention_pair",
                            "decode_attention_quad"),
+    "serve_churn_pair": ("pack_pair", "decode_attention_pair"),
+    "serve_churn_quad": ("pack_quad", "decode_attention_quad"),
     "page_codec_pair": ("unpack_pair", "pack_pair_group"),
     "page_codec_quad": ("unpack_quad", "pack_quad_group"),
     "scan": ("compress_scan",),
@@ -264,7 +285,8 @@ class Recorder:
     """Keeps a copy of the inputs and outputs of every launch a CUDA
     wrapper makes while a path is driven, with the path and the ServeLoop
     call it came from ("prefill", "step_all", "attend" or "other"), and
-    counts the ServeLoop calls of each path."""
+    counts the ServeLoop calls of each path on the card (a twin loop on
+    the CPU, which launches nothing, is not counted)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -298,13 +320,13 @@ class Recorder:
         return wrapped
 
     def wrap_part(self, part: str, fn):
-        def wrapped(*args, **kw):
-            if self.path is not None:
+        def wrapped(loop, *args, **kw):
+            if self.path is not None and loop.cache.device.type == "cuda":
                 key = (self.path, part)
                 self.loop_calls[key] = self.loop_calls.get(key, 0) + 1
             outer, self.part = self.part, part
             try:
-                return fn(*args, **kw)
+                return fn(loop, *args, **kw)
             finally:
                 self.part = outer
         return wrapped
@@ -917,14 +939,23 @@ def decode_device_ms(torch, model, batch: int, steps: int = 4):
     return dev_us * 1e-3 / steps if dev_us else None
 
 
-def run_launcher(torch, packing: str) -> dict:
-    """The serve launcher at the full phi4-mini-3.8B shape; returns its
-    report with the wall seconds of model build, model prefill + decode
-    and serve tier under "walls"."""
+LAUNCHER_ARGV = ["--arch", "phi4_mini_3_8b", "--no-smoke", "--batch", "4",
+                 "--prompt-len", "32", "--gen", "32"]
+# the README's serve command (`--slots` below `--batch`: the spill tier)
+SPILL_ARGV = ["--slots", "2", "--admit-rate", "4", "--spill-pages", "64"]
+
+
+def run_launcher(torch, label: str, extra: list, *,
+                 profile: bool = True) -> dict:
+    """The serve launcher at the full phi4-mini-3.8B shape with `extra`
+    flags; returns its report with the wall seconds of model build, model
+    prefill + decode and serve tier under "walls" (and, with `profile`,
+    the device time of one decode step).  With `--slots` below the batch
+    the serve tier must have evicted and woken, and the ledger's
+    kv-evict / kv-restore spill rows must count the crossings."""
     from repro_torch.launch import serve
 
-    argv = ["--arch", "phi4_mini_3_8b", "--no-smoke", "--batch", "4",
-            "--prompt-len", "32", "--gen", "32", "--kv-packing", packing]
+    argv = LAUNCHER_ARGV + extra
     walls: dict = {}
     outs: dict = {}
     parts = {"build": serve.build, "_timed_decode": serve._timed_decode,
@@ -939,7 +970,10 @@ def run_launcher(torch, packing: str) -> dict:
         for name, fn in parts.items():
             setattr(serve, name, fn)
     step_ms = 1e3 * report["batch"] / report["tokens_per_s"]
-    dev_ms = decode_device_ms(torch, outs.pop("build"), report["batch"])
+    model = outs.pop("build")
+    dev_ms = decode_device_ms(torch, model, report["batch"]) if profile \
+        else None
+    del model
     report["walls"] = {"model_build_s": walls["build"],
                        "model_prefill_decode_s": walls["_timed_decode"],
                        "serve_tier_s": walls["_serve_tier"],
@@ -949,17 +983,45 @@ def run_launcher(torch, packing: str) -> dict:
                            None if dev_ms is None else dev_ms / step_ms)}
     st = report["serve_tier"]
     if not (st["admitted"] == st["retired"] == 4):
-        fail(f"launcher {packing}: admitted {st['admitted']} retired "
+        fail(f"launcher {label}: admitted {st['admitted']} retired "
              f"{st['retired']}")
     for key in ("prefill_tokens_per_s", "tokens_per_s"):
         if not math.isfinite(report[key]) or report[key] <= 0:
-            fail(f"launcher {packing}: {key} = {report[key]}")
+            fail(f"launcher {label}: {key} = {report[key]}")
     rows = [row for tc in report["traffic"].values() for ev in tc.values()
             for row in ev.values()]
     if not rows or any(v < 0 for row in rows for v in row.values()):
-        fail(f"launcher {packing}: missing or negative ledger rows (int32 "
+        fail(f"launcher {label}: missing or negative ledger rows (int32 "
              f"accumulator overflow): {report['traffic']}")
+    if "--slots" in extra:
+        kv = report["traffic"].get("kv", {})
+        spilled = {d: kv.get(f"kv-{d}", {}).get("spill", {}).get("count", 0)
+                   for d in ("evict", "restore")}
+        if st["evicted"] <= 0 or st["woken"] <= 0:
+            fail(f"launcher {label}: evicted {st['evicted']} woken "
+                 f"{st['woken']}, expected both > 0")
+        if (spilled["evict"] != st["evicted"] + st["spilled_direct"]
+                or spilled["restore"] != st["woken"]):
+            fail(f"launcher {label}: spill rows {spilled} against evicted "
+                 f"{st['evicted']} + spilled_direct {st['spilled_direct']}, "
+                 f"woken {st['woken']}")
     return report
+
+
+def attend_stream(rng, n: int, total: int):
+    """k/v (n, total, N_KV, HEAD_DIM) float32 at the phi4 KV geometry:
+    sequences 0-5 compressible, 6 incompressible, 7 alternating 64-token
+    runs of both."""
+    from repro_torch.kv import synthetic_kv_stream
+
+    k, v = synthetic_kv_stream(rng, n, total, N_KV, HEAD_DIM)
+    ki, vi = synthetic_kv_stream(rng, n, total, N_KV, HEAD_DIM,
+                                 compressible=False)
+    k[6], v[6] = ki[6], vi[6]
+    for t0 in range(64, total, 128):
+        k[7, t0:t0 + 64], v[7, t0:t0 + 64] = (ki[7, t0:t0 + 64],
+                                              vi[7, t0:t0 + 64])
+    return k, v
 
 
 def serve_attend_phase(torch, packing: str, device, *, slots=8,
@@ -976,18 +1038,11 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
 
     from repro_torch.kernels import cram_attention as ca
     from repro_torch.kernels import ops
-    from repro_torch.kv import synthetic_kv_stream
     from repro_torch.serving import ServeLoop
 
     rng = np.random.default_rng(rng_seed)
     total = prompt + steps
-    k, v = synthetic_kv_stream(rng, slots, total, N_KV, HEAD_DIM)
-    ki, vi = synthetic_kv_stream(rng, slots, total, N_KV, HEAD_DIM,
-                                 compressible=False)
-    k[6], v[6] = ki[6], vi[6]
-    for t0 in range(64, total, 128):
-        k[7, t0:t0 + 64], v[7, t0:t0 + 64] = (ki[7, t0:t0 + 64],
-                                              vi[7, t0:t0 + 64])
+    k, v = attend_stream(rng, slots, total)
     v6 = torch.from_numpy(v[6]).to(device).to(torch.bfloat16).float()
     loop = ServeLoop(slots=slots, max_pages=-(-total // PAGE), page=PAGE,
                      n_kv=N_KV, head_dim=HEAD_DIM, policy="static",
@@ -1045,6 +1100,148 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
              "(int32 overflow)")
     return {"loop": loop, "max_abs_err": worst, "spread": spread,
             "single_vs_batched": single_err, "view": (s, st, mk)}
+
+
+CHURN_SEQS, CHURN_SLOTS = 8, 4
+
+
+def _spill_timers(torch, walls: dict):
+    """Wrap the spill tier's evict (capture + hand-off), restore (wake into
+    a free slot: join, decode or take the prefetch, copy to the card,
+    repack), and the worker's encode and decode, adding each call's host
+    wall to walls[name]; returns the originals.  The main-thread two end
+    with a device synchronise."""
+    from repro_torch.serving import SpillStore
+
+    names = {"evict": "evict", "restore": "restore", "encode": "_encode",
+             "decode": "_decode_pages"}
+    originals = {}
+    for label, attr in names.items():
+        fn = getattr(SpillStore, attr)
+        originals[attr] = fn
+        sync = label in ("evict", "restore")
+
+        def wrapped(*a, _fn=fn, _label=label, _sync=sync, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            if _sync:
+                torch.cuda.synchronize()
+            walls.setdefault(_label, []).append(time.perf_counter() - t0)
+            return out
+        setattr(SpillStore, attr, wrapped)
+    return originals
+
+
+def serve_churn_phase(torch, hot: str, spill: str, device, card: str, *,
+                      prompt=200, steps=48, rng_seed=7) -> dict:
+    """The serve tier alone at the phi4 KV geometry with the spill tier
+    churning: the serve-attend stream's 8 sequences in 4 slots, hot
+    packing `hot`, spill packing `spill`, async spill; 48 decode steps
+    through step_all, each naming all 8, so every step evicts and wakes 4;
+    after each step the resident sequences attend, held against the plain
+    attention on the same state.  At the end every sequence is woken and
+    its physical state must equal, bit for bit, that of a twin ServeLoop
+    with 8 slots on the CPU that never spilled and was fed the same
+    stream (the twin runs the kernels' plain versions).  The spill rows
+    must count evicts + wakes + spill-direct admits and the spill tier
+    must save bytes.  Prints the host wall of one evict, one restore and
+    the worker's encode and decode (median and max)."""
+    import numpy as np
+
+    from repro_torch.kernels import cram_attention as ca
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeLoop, SpillStore
+
+    rng = np.random.default_rng(rng_seed)
+    total = prompt + steps
+    n = CHURN_SEQS
+    k, v = attend_stream(rng, n, total)
+    kw = dict(max_pages=-(-total // PAGE), page=PAGE, n_kv=N_KV,
+              head_dim=HEAD_DIM, policy="static", packing=hot)
+    walls: dict = {}
+    originals = _spill_timers(torch, walls)
+    try:
+        loop = ServeLoop(slots=CHURN_SLOTS, spill_packing=spill,
+                         device=device, **kw)
+        twin = ServeLoop(slots=n, device="cpu", **kw)
+        for i in range(n):
+            loop.prefill(i, k[i, :prompt], v[i, :prompt])
+            twin.prefill(i, k[i, :prompt], v[i, :prompt])
+        lanes = loop.cache.group_lanes
+        pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+        worst = 0.0
+        for step in range(steps):
+            t = prompt + step
+            kvs = {i: (k[i, t:t + 1], v[i, t:t + 1]) for i in range(n)}
+            loop.step_all(kvs)
+            twin.step_all(kvs)
+            q = rng.standard_normal((n, N_HEADS, HEAD_DIM)).astype("float32")
+            act = loop.active_seqs()
+            if len(act) != CHURN_SLOTS:
+                fail(f"serve churn {hot}/{spill} step {step}: {len(act)} "
+                     f"resident sequences, expected {CHURN_SLOTS}")
+            out = loop.attend({i: q[i] for i in act})
+            c = loop.cache
+            nb = c._active_bucket()
+            kc = c._kernel_cache(nb)
+            s, st, mk, fv = pv(kc, c._valid(nb))
+            qs = torch.zeros((CHURN_SLOTS, N_HEADS, HEAD_DIM),
+                             dtype=torch.float32, device=device)
+            for i in act:
+                qs[loop.seqs[i].slot] = torch.from_numpy(q[i]).to(device)
+            ref, _ = ca.cram_decode_attention_batched_plain(
+                qs, s, st, mk, fv, kc["packed_mask"], lanes=lanes)
+            got = torch.stack([out[i] for i in act])
+            want = torch.stack([ref[loop.seqs[i].slot] for i in act])
+            worst = max(worst, _close(
+                torch, f"serve churn {hot}/{spill} step {step}", got, want))
+        twin.cache.repack()
+        for i in range(n):
+            loop.wake(i)
+            loop.cache.repack()
+            got = loop.cache.slot_physical_state(loop.seqs[i].slot)
+            want = twin.cache.slot_physical_state(twin.seqs[i].slot)
+            for key in want:
+                if not torch.equal(got[key].cpu(), want[key]):
+                    fail(f"serve churn {hot}/{spill}: woken sequence {i} "
+                         f"{key} differs from the never-spilled twin")
+        summary = loop.summary()
+    finally:
+        for attr, fn in originals.items():
+            setattr(SpillStore, attr, fn)
+    counts = loop.counts
+    rows = {d: loop.ledger.total("spill", consumer="kv",
+                                 tensor_class=f"kv-{d}")["count"]
+            for d in ("evict", "restore")}
+    if (rows["evict"] != counts["evicted"] + counts["spilled_direct"]
+            or rows["restore"] != counts["woken"]):
+        fail(f"serve churn {hot}/{spill}: spill rows {rows} against "
+             f"{counts}")
+    if counts["evicted"] < CHURN_SLOTS * steps:
+        fail(f"serve churn {hot}/{spill}: {counts['evicted']} evicts over "
+             f"{steps} steps, expected at least {CHURN_SLOTS} a step")
+    saving = summary["spill_tier"]["saving"]
+    if saving <= 0:
+        fail(f"serve churn {hot}/{spill}: spill saving {saving}")
+    if (loop.cache.state["traffic"] < 0).any():
+        fail(f"serve churn {hot}/{spill}: a ledger accumulator went "
+             "negative (int32 overflow)")
+    ms = {name: {"n": len(w), "median_ms": 1e3 * statistics.median(w),
+                 "max_ms": 1e3 * max(w)} for name, w in walls.items()}
+    print(f"serve churn {hot}/{spill}: {n} sequences in {CHURN_SLOTS} slots, "
+          f"{steps} steps: evicted {counts['evicted']}, woken "
+          f"{counts['woken']}, spilled direct {counts['spilled_direct']}; "
+          f"spill rows {rows}; spill saving {saving}, decode saving "
+          f"{summary['decode_saving']}; every attend within {ATOL} of the "
+          f"plain attention (max |diff| {worst:.3e}); every woken sequence "
+          "bit-exact against the never-spilled twin")
+    print(f"serve churn {hot}/{spill}: host wall per call, median / max ms "
+          f"(card {card}): " + "; ".join(
+              f"{name} {m['median_ms']:.3f} / {m['max_ms']:.3f} "
+              f"({m['n']} calls)" for name, m in ms.items()))
+    return {"counts": dict(counts), "spill_tier": summary["spill_tier"],
+            "decode_saving": summary["decode_saving"], "max_abs_err": worst,
+            "host_ms": ms}
 
 
 SMALL_PAGE, SMALL_HKV, SMALL_HQ, SMALL_HD = 8, 1, 1, 16
@@ -1801,7 +1998,7 @@ def main(argv=None) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: eight paths, each with the launch counters from 0
+    # phases 3 to 5: twelve paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -1861,21 +2058,39 @@ def main(argv=None) -> int:
         return result
 
     reports = {}
-    for packing in ("pair", "quad"):
+    launchers = {
+        "pair": ("launcher_pair", ["--kv-packing", "pair"]),
+        "quad": ("launcher_quad", ["--kv-packing", "quad"]),
+        "spill": ("launcher_spill", SPILL_ARGV + ["--kv-policy", "auto"]),
+        "spill_pair": ("launcher_spill_pair", SPILL_ARGV + [
+            "--kv-policy", "dynamic", "--kv-packing", "pair",
+            "--spill-packing", "quad"]),
+    }
+    for label, (path, extra) in launchers.items():
         t0 = time.perf_counter()
-        reports[packing] = drive(f"launcher_{packing}",
-                                 lambda p=packing: run_launcher(torch, p))
-        walls = reports[packing]["walls"]
-        print(f"launcher {packing}: {time.perf_counter() - t0:.1f} s "
+        reports[label] = r = drive(
+            path, lambda lb=label, x=extra: run_launcher(
+                torch, lb, x, profile="--slots" not in x))
+        walls, st = r["walls"], r["serve_tier"]
+        print(f"launcher {label}: {time.perf_counter() - t0:.1f} s "
               f"(model build {walls['model_build_s']:.2f} s, model prefill + "
               f"decode {walls['model_prefill_decode_s']:.3f} s, serve tier "
               f"{walls['serve_tier_s']:.3f} s over "
-              f"{reports[packing]['serve_tier']['serve_steps']} steps; decode "
+              f"{st['serve_steps']} steps; decode "
               f"step {walls['decode_step_ms']:.2f} ms, of it on the device "
               f"{walls['decode_step_device_ms']} ms, busy share "
               f"{walls['decode_device_busy_share']}), "
-              f"decode {reports[packing]['tokens_per_s']} tokens/s, prefill "
-              f"{reports[packing]['prefill_tokens_per_s']} tokens/s")
+              f"decode {r['tokens_per_s']} tokens/s, prefill "
+              f"{r['prefill_tokens_per_s']} tokens/s; card {card}")
+        if "--slots" in extra:
+            print(f"launcher {label}: {' '.join(extra)}: admitted "
+                  f"{st['admitted']}, retired {st['retired']}, evicted "
+                  f"{st['evicted']}, woken {st['woken']}, spilled direct "
+                  f"{st['spilled_direct']}, hot packing {st['hot_packing']}, "
+                  f"spill tier {st['spill_tier']}")
+            print(f"launcher {label}: policy_choice "
+                  f"{json.dumps(st['policy_choice'])}; tier_observations "
+                  f"{json.dumps(st['tier_observations'])}")
     phases = {}
     for packing in ("pair", "quad"):
         phases[packing] = drive(
@@ -1883,6 +2098,15 @@ def main(argv=None) -> int:
             lambda p=packing: serve_attend_phase(torch, p, device))
     small = drive("serve_attend_small",
                   lambda: serve_small_phase(torch, device))
+    churn = {}
+    for hot, spill in (("pair", "quad"), ("quad", "pair")):
+        t0 = time.perf_counter()
+        churn[hot] = drive(
+            f"serve_churn_{hot}",
+            lambda h=hot, sp=spill: serve_churn_phase(torch, h, sp, device,
+                                                      card))
+        print(f"serve churn {hot}/{spill}: {time.perf_counter() - t0:.1f} s "
+              f"wall (card {card})")
     codec = {}
     for packing, ph in phases.items():
         check_final_state(torch, ph["loop"], packing)
@@ -1951,6 +2175,7 @@ def main(argv=None) -> int:
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
              "page_codec": codec, "serve_attend_small": small,
+             "serve_churn": churn,
              "single_vs_batched": {p: ph["single_vs_batched"]
                                    for p, ph in phases.items()},
              "timing": timing}, indent=1))

@@ -1,9 +1,10 @@
 """repro_torch — the PyTorch / CUDA port of the CRAM-KV serve path.
 
 Mirrors the module layout of the JAX package `repro` (the reference) for
-the slice it covers: the serve launcher's main path (dense decoder, the
-continuous-batching serve tier, the CRAM-KV cache) and its three kernels,
-hand-written in CUDA C++ for Hopper (`csrc/`).  Every entry point takes a
+what it covers: the serve launcher's main path (dense decoder, the
+continuous-batching serve tier with its compressed spill tier and the
+AutoTuner, the CRAM-KV cache), the line codecs with the compressibility
+scan, and their kernels, hand-written in CUDA C++ for Hopper (`csrc/`).  Every entry point takes a
 `device=` that defaults to `"cuda"`; the CPU runs the kernels' plain
 PyTorch versions and is what the parity tests use.
 

@@ -1,6 +1,23 @@
-"""The traffic ledger and the KV cache's byte adapters (port of the KV
-part of `repro.bandwidth`; the AutoTuner comes with the spill tier)."""
+"""The traffic ledger, the KV cache's byte adapters and the AutoTuner
+(port of `repro.bandwidth`; the engine, checkpoint and gradient adapters
+come with the slices that port those consumers).
 
+  ledger   — typed traffic events with a host accumulator and a device
+             accumulator
+  adapters — the KV cache's decode, repack and spill-crossing rows
+  autotune — the §VI saturating-counter gate as a policy engine: KV
+             packing per tier, checkpoint codec, gradient codec
+"""
+
+from .adapters import kv_decode_event, kv_repack_event, kv_spill_event
+from .autotune import (
+    KV_PACKINGS,
+    AutoTuner,
+    PolicyChoice,
+    kv_expected_bytes_per_page,
+    kv_spill_bytes_per_page,
+    probe_kv_fit_rates,
+)
 from .ledger import (
     EV_PROBE,
     EV_READ,
@@ -19,4 +36,8 @@ __all__ = [
     "Ledger", "device_totals", "device_record", "event_id",
     "EV_READ", "EV_WRITE", "EV_PROBE", "EV_REPACK", "EV_SPILL",
     "N_EVENTS", "EVENT_NAMES",
+    "kv_decode_event", "kv_repack_event", "kv_spill_event",
+    "AutoTuner", "PolicyChoice", "KV_PACKINGS",
+    "kv_expected_bytes_per_page", "kv_spill_bytes_per_page",
+    "probe_kv_fit_rates",
 ]

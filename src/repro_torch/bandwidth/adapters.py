@@ -1,12 +1,13 @@
 """The KV cache's byte accounting as ledger rows (port of the KV half of
-`repro.bandwidth.adapters`).  A consumer module never adds byte counts
-itself; it calls one of these adapters."""
+`repro.bandwidth.adapters`: decode reads, repack writes and spill-tier
+crossings).  A consumer module never adds byte counts itself; it calls one
+of these adapters."""
 
 from __future__ import annotations
 
 import torch
 
-from .ledger import EV_READ, EV_REPACK, Ledger, device_record
+from .ledger import EV_READ, EV_REPACK, EV_SPILL, Ledger, device_record
 
 
 def kv_decode_event(ledger: Ledger, bw: dict, *,
@@ -58,3 +59,17 @@ def kv_read_device(traffic, raw_seq, cram_seq):
     return device_record(traffic, EV_READ, raw_seq.sum(), cram_seq.sum(),
                          count=1)
 
+
+
+def kv_spill_event(ledger: Ledger, *, raw: int, compressed: int,
+                   direction: str = "evict",
+                   tensor_class: str | None = None) -> tuple[int, int]:
+    """One sequence crossing the device<->host spill link still compressed
+    (`serving.SpillStore`): raw = what moving the decompressed KV pages
+    would have cost, compressed = the payload bytes that crossed.  Exactly
+    one spill row per evict and per restore, tensor class "kv-evict" or
+    "kv-restore", consumer "kv"."""
+    assert direction in ("evict", "restore"), direction
+    return ledger.record(EV_SPILL, raw=raw, compressed=compressed, count=1,
+                         tensor_class=tensor_class or f"kv-{direction}",
+                         consumer="kv")

@@ -157,6 +157,36 @@ class CRAMKVCache:
         self.slot_bytes = page * n_kv * self.d2 * 2
         self.strip_bytes = n_kv * (self.d2 + MARKER_LANES) * 2
 
+    @classmethod
+    def auto(cls, tuner, k_sample, v_sample, *, max_pages: int, page: int,
+             n_kv: int, head_dim: int, **kw):
+        """`policy="auto"`: a `bandwidth.AutoTuner` picks the packing (off /
+        pair / quad) from a sample of the KV stream, then the §VI dynamic
+        gate runs over the chosen layout.  Returns (cache, PolicyChoice)."""
+        d2 = 2 * head_dim
+        choice = tuner.choose_kv_packing(
+            k=k_sample, v=v_sample, page=page,
+            slot_bytes=page * n_kv * d2 * 2,
+            strip_bytes=n_kv * (d2 + MARKER_LANES) * 2)
+        if choice.choice == "off":
+            cache = cls(max_pages, page, n_kv, head_dim,
+                        policy="off", packing="pair", **kw)
+        else:
+            cache = cls(max_pages, page, n_kv, head_dim, policy="auto",
+                        packing=choice.choice, **kw)
+        return cache, choice
+
+    # the reference's pair-era names (the default packing is the pair)
+    @property
+    def n_pairs(self) -> int:
+        return self.n_groups
+
+    @property
+    def host_stats(self) -> KVStats:
+        """The host dispatch counters alone (pack_attempts, pack_calls,
+        ...), with no device sync: timed loops read this, not `stats`."""
+        return self._host_stats
+
     @property
     def stats(self) -> KVStats:
         """Host dispatch counters merged with the device tallies."""
@@ -201,6 +231,10 @@ class CRAMKVCache:
     @property
     def n_active_groups(self) -> int:
         return -(-self.n_pages // self.group_lanes)
+
+    @property
+    def n_active_pairs(self) -> int:
+        return self.n_active_groups
 
     def valid_per_page(self) -> np.ndarray:
         """(B, max_pages) int32 valid tokens per logical page."""

@@ -3,18 +3,21 @@
 
 Runs a dense model end to end — prefill token by token, then greedy step
 decoding with the dense cache — and mirrors one layer's real KV stream
-through the serve tier (`repro_torch.serving.ServeLoop`): staggered
-admits every `--admit-rate` steps, each prompt ingested by one bulk pack,
-per-step decode appends through the fused megastep, retire at the end of
-the stream.  The printed report has the reference's keys.
+through the serve tier (`repro_torch.serving.ServeLoop`): a fixed pool of
+`--slots` lanes with slot reuse, staggered admits every `--admit-rate`
+steps (each prompt ingested by one bulk pack), per-step decode appends
+through the fused megastep, and a compressed host spill tier behind the
+lanes (`--spill-pages` caps it).  With `--slots` below `--batch`, cold
+sequences spill compressed and wake on their next decode step; every
+crossing books one ledger `spill` row.  `--kv-policy auto` lets the
+AutoTuner pick both tiers' packings from the prompts' KV.  The printed
+report has the reference's keys.
 
   python -m repro_torch.launch.serve --arch phi4_mini_3_8b --no-smoke \
-      --batch 4 --prompt-len 32 --gen 32
+      --batch 4 --slots 2 --admit-rate 4 --kv-policy auto --spill-pages 64
 
 Runs on the card by default (`--device cuda`); `--device cpu` runs the
-plain PyTorch versions of the kernels.  This slice has one lane per
-sequence: `--slots` below `--batch` and the spill flags (the spill tier)
-and `--kv-policy auto` (the AutoTuner) are refused until the next slice.
+plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import configs
-from ..bandwidth import Ledger
+from ..bandwidth import AutoTuner, Ledger
 from ..device import resolve_device
 from ..models import ModelConfig, build, smoke_config
 from ..serving import ServeLoop
@@ -58,18 +61,30 @@ def _sync(device: torch.device) -> None:
 def _serve_tier(args, cfg, cache, ledger, *, prompt_len, total_tokens,
                 device):
     """Continuous-batching mirror of layer 0's KV stream: staggered admits
-    (whole prompt in one bulk pack), per-step decode appends, retire at
-    the end of the stream."""
+    (whole prompt in one bulk pack, or straight to the spill tier when the
+    pool is full and the newcomer is the coldest), per-step decode appends
+    in waves of `--slots`, retire at the end of the stream; spill
+    crossings happen whenever live > slots."""
     kcache = cache["b0"]["attn"]["k"][0]            # (B, T, hkv, hd)
     vcache = cache["b0"]["attn"]["v"][0]
     B = kcache.shape[0]
     P, T = prompt_len, total_tokens
     n_need = -(-T // PAGE)
-    loop = ServeLoop(slots=args.slots or B, max_pages=max(n_need, 2),
-                     page=PAGE, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                     policy=args.kv_policy, packing=args.kv_packing,
-                     ledger=ledger, fused=not args.unfused,
-                     migrate_budget=args.migrate_budget, device=device)
+    kw = dict(slots=args.slots or B, max_pages=max(n_need, 2), page=PAGE,
+              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+              spill_pages=args.spill_pages, ledger=ledger,
+              fused=not args.unfused, migrate_budget=args.migrate_budget,
+              async_spill=not args.sync_spill, device=device)
+    choices = None
+    if args.kv_policy == "auto":
+        # auto picks both tiers' packings; --kv-packing and
+        # --spill-packing apply to the explicit policies only
+        loop, ch = ServeLoop.auto(AutoTuner(), kcache[:, :P],
+                                  vcache[:, :P], **kw)
+        choices = {tier: c.as_dict() for tier, c in ch.items()}
+    else:
+        loop = ServeLoop(policy=args.kv_policy, packing=args.kv_packing,
+                         spill_packing=args.spill_packing, **kw)
     admit_every = max(args.admit_rate, 1)
     admit_at = {i: i * admit_every for i in range(B)}
     fed: dict[int, int] = {}                  # seq -> tokens consumed
@@ -94,7 +109,7 @@ def _serve_tier(args, cfg, cache, ledger, *, prompt_len, total_tokens,
         **loop.summary(),
         "serve_steps": step_no,
         "policy": args.kv_policy,
-        "policy_choice": None,
+        "policy_choice": choices,
         "tier_observations": obs or None,
     }
 
@@ -132,19 +147,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--slots", type=int, default=0,
-                    help="serve-tier batch lanes (0 = one per sequence)")
+                    help="serve-tier batch lanes (0 = one per sequence; "
+                         "fewer than --batch exercises the spill tier)")
     ap.add_argument("--spill-pages", type=int, default=None,
-                    help="host spill-tier capacity in pages (refused: the "
-                         "spill tier comes with the next slice)")
+                    help="host spill-tier capacity in pages (default "
+                         "unbounded)")
     ap.add_argument("--admit-rate", type=int, default=1,
                     help="admit one new sequence every N serve steps")
     ap.add_argument("--kv-policy", default="dynamic",
                     choices=["dynamic", "static", "off", "auto"])
-    ap.add_argument("--kv-packing", default="pair", choices=["pair", "quad"])
+    ap.add_argument("--kv-packing", default="pair", choices=["pair", "quad"],
+                    help="hot-tier packing (ignored with --kv-policy auto, "
+                         "where the AutoTuner picks per tier)")
     ap.add_argument("--spill-packing", default="quad",
                     choices=["off", "pair", "quad"],
-                    help="spill-tier packing (only the default: the spill "
-                         "tier comes with the next slice)")
+                    help="spill-tier packing (auto overrides it)")
     ap.add_argument("--migrate-budget", type=int, default=1,
                     help="page-group columns re-laid per decode step while "
                          "a gate flip / packing switch migrates the cache")
@@ -152,8 +169,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append / repack / account as separate calls "
                          "instead of the fused megastep")
     ap.add_argument("--sync-spill", action="store_true",
-                    help="(refused: the spill tier comes with the next "
-                         "slice)")
+                    help="re-encode spill payloads inline on evict instead "
+                         "of on the background worker")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -166,14 +183,6 @@ def main(argv=None, *, params: dict | None = None) -> dict:
     so a caller can run the port on the reference's weights."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.slots and args.slots < args.batch:
-        ap.error("--slots below --batch needs the spill tier: port slice 2")
-    if (args.spill_pages is not None or args.spill_packing != "quad"
-            or args.sync_spill):
-        ap.error("--spill-pages / --spill-packing / --sync-spill need the "
-                 "spill tier: port slice 2")
-    if args.kv_policy == "auto":
-        ap.error("--kv-policy auto needs the AutoTuner: port slice 2")
     device = resolve_device(args.device)
 
     if args.preset:

@@ -3,8 +3,8 @@
 As in the reference, `shard=True` runs the single-device decode when there
 is one device (a CPU cache, or at most one visible card) or when the slot
 count is not a multiple of the device count.  Sharding the slot axis across
-several cards is not ported yet (ROADMAP.md, Queue 1 item 5): there,
-`shard=True` raises.  `shard="auto"` always runs the single-device decode,
+several cards is not ported yet (ROADMAP.md, Queue 1: the sharded
+attend): there, `shard=True` raises.  `shard="auto"` always runs the single-device decode,
 which gives the same result as the reference's sharded one."""
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto"):
     if shard is True and n_dev > 1 and q.shape[0] % n_dev == 0:
         raise NotImplementedError(
             f"sharding the attend over {n_dev} cards is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+            "(ROADMAP.md, Queue 1: the sharded attend)")
     n = cache._active_bucket()
     decode = (kops.decode_attention_batched if cache.packing == "pair"
               else kops.decode_attention_quad_batched)

@@ -320,7 +320,7 @@ class SlotKVCache(CRAMKVCache):
 
     # ------------------------------------------------------ slot lifecycle
     def reset_slot(self, slot: int):
-        """Return a lane to pristine state for reuse (retire)."""
+        """Return a lane to pristine state for reuse (retire / evict)."""
         st = self.state
         for key in ("pages", "slots", "slots_overflow", "strips",
                     "packed_mask", "predictor"):
@@ -332,6 +332,23 @@ class SlotKVCache(CRAMKVCache):
         self._applied_b[slot] = self._gate_b[slot]
         self._last_enabled[slot] = bool(self._gate_b[slot])
         self.tokens = int(self.tokens_b.max())
+
+    def slot_enabled_from_counter(self, counter: int) -> bool:
+        """The gate a slot with this counter runs under (policy-resolved)."""
+        if self.policy == "off":
+            return False
+        if self.policy == "static":
+            return True
+        return counter >= ENABLE_THRESHOLD
+
+    def default_slot_gate(self) -> bool:
+        """Target gate a freshly admitted slot lays under: the override if
+        one is forced, else the policy gate at the counter init.  A
+        spill-direct admit records this as its payload gate, so a later
+        wake repacks like a hot-lane prefill."""
+        if self._gate_override is not None:
+            return bool(self._gate_override)
+        return self.slot_enabled_from_counter(self._counter_init)
 
     def slot_reference_state(self, slot: int) -> dict:
         """Per-slot from-scratch rebuild over the slot's own active prefix

@@ -241,7 +241,7 @@ def test_shard_true_raises_only_for_a_real_multi_card_shard(monkeypatch):
     for slots, raises in ((4, True), (3, False)):
         _, port, q = _serve_loops("pair", slots)
         if raises:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            with pytest.raises(NotImplementedError, match="Queue 1: the sharded attend"):
                 t_shard.shard_kv_attend(port.cache, _t(q), shard=True)
         else:
             assert torch.equal(

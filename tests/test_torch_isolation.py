@@ -80,6 +80,12 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--batch", "4", "--slots", "2", "--admit-rate", "4",
+                    "--kv-policy", "auto", "--spill-pages", "64"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeLoop(slots=1, max_pages=4, page=4, n_kv=1, head_dim=8,
+                  spill_packing="pair", spill_pages=8, async_spill=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         init_lm(smoke_config(configs.get("phi4_mini_3_8b")),
                 torch.Generator())
 
@@ -97,13 +103,3 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
-
-
-def test_launcher_refuses_what_the_slice_lacks():
-    from repro_torch.launch import serve
-
-    for argv in (["--slots", "1", "--batch", "2"], ["--kv-policy", "auto"],
-                 ["--spill-pages", "8"], ["--spill-packing", "pair"],
-                 ["--sync-spill"]):
-        with pytest.raises(SystemExit):
-            serve.main(argv + ["--device", "cpu"])

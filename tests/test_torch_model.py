@@ -11,6 +11,7 @@ and on which page groups pack."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro import configs as r_configs
@@ -73,8 +74,11 @@ def test_decode_steps_match_reference():
         np.asarray(cache_r["b0"]["attn"]["k"]), **TOL)
 
 
-def test_launcher_report_matches_reference(capsys):
-    argv = ["--batch", "2", "--prompt-len", "12", "--gen", "6"]
+@pytest.mark.parametrize("extra", [
+    [], ["--slots", "1", "--admit-rate", "2", "--kv-policy", "auto"]],
+    ids=["one-lane-per-sequence", "spill-churn-auto"])
+def test_launcher_report_matches_reference(capsys, extra):
+    argv = ["--batch", "2", "--prompt-len", "12", "--gen", "6"] + extra
     ref = r_serve.main(argv)
     cfg = r_smoke(r_configs.get("phi4_mini_3_8b"))
     _, tree = _reference_params(cfg, seed=0)
@@ -86,10 +90,10 @@ def test_launcher_report_matches_reference(capsys):
     st_r, st_t = ref["serve_tier"], got["serve_tier"]
     assert st_t["admitted"] == st_t["retired"] == 2
     for key, want in st_r.items():
-        if key in ("policy_choice", "spill_tier"):
-            assert st_t[key] is None
-        else:
-            assert st_t[key] == want, key
+        assert st_t[key] == want, key
+    if extra:
+        assert st_t["evicted"] > 0 and st_t["woken"] > 0
+        assert st_t["policy_choice"]["hot"]["basis"] == "probe"
     assert got["traffic"] == ref["traffic"]
     assert got["sample"] == ref["sample"]
     assert got["tokens_per_s"] > 0 and got["prefill_tokens_per_s"] > 0

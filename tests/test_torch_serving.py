@@ -8,8 +8,8 @@ predictor, the token counts, the ledger rows after `sync_ledger` and the
 `KVStats`.  Attend outputs agree within atol = rtol = 1e-4 (float32,
 different summation order).  Layouts are compared only once settled:
 pending migration is drained and dirty groups repacked first, on both.
-There is no evict: `slots >= live` throughout (the spill tier is the next
-slice)."""
+There is no evict here: `slots >= live` throughout (the spill tier's
+schedules are in tests/test_torch_spill.py)."""
 
 from dataclasses import asdict
 
@@ -180,19 +180,6 @@ def test_prefill_equals_token_replay(packing, t):
                            replay.cache.state[key]), key
     q = {0: rng.standard_normal((HQ, HD)).astype(np.float32)}
     assert torch.equal(bulk.attend(q)[0], replay.attend(q)[0])
-
-
-def test_spill_tier_and_autotuner_wait_for_the_next_slice():
-    loop = ServeLoop(slots=1, max_pages=4, page=PAGE, n_kv=HKV, head_dim=HD,
-                     device="cpu")
-    rng = np.random.default_rng(0)
-    loop.prefill(0, *_stream(rng, 3, True))
-    for call in (lambda: loop.prefill(1, *_stream(rng, 3, True)),
-                 lambda: loop.evict(0), lambda: loop.wake(0),
-                 lambda: ServeLoop.auto(None, None, None)):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            call()
-    assert loop.summary()["spill_tier"] is None
 
 
 @pytest.mark.parametrize("packing", ["pair", "quad"])
