@@ -60,7 +60,6 @@ def kv_read_device(traffic, raw_seq, cram_seq):
                          count=1)
 
 
-
 def kv_spill_event(ledger: Ledger, *, raw: int, compressed: int,
                    direction: str = "evict",
                    tensor_class: str | None = None) -> tuple[int, int]:

@@ -143,10 +143,9 @@ def _both(ref, port, name, *args, **kw):
 @pytest.mark.parametrize("spk", ["off", "pair", "quad"])
 def test_spill_roundtrip_matches_reference(spk, async_spill):
     rng = np.random.default_rng(10)
-    ref, port = _loops(slots=2, max_pages=16, policy="static",
-                       packing="pair", spill_packing=spk,
-                       async_spill=async_spill)
-    k, v = _stream(rng, 8 * PAGE + 3)
+    ref, port = _loops(slots=2, policy="static", packing="pair",
+                       spill_packing=spk, async_spill=async_spill)
+    k, v = _stream(rng, 6 * PAGE + 3)
     _both(ref, port, "admit", 0, k, v)
     port.cache.repack()
     ref.cache.repack()
