@@ -30,7 +30,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      reference's other head geometries (page 8, Hkv 1, Hq 1, head_dim 16;
      Hkv 1, Hq 4, head_dim 32; Hkv 32, Hq 32, head_dim 80; Hkv 8, Hq 96,
      head_dim 128, a group of 12), K3 within 2e-3 with the bytes exact and
-     K6 within 2e-3 and equal to K3's row of every sequence;
+     K6 within 2e-3 and equal to K3's row of every sequence; E1 (the trace
+     engine's scan) on every scheme row of the registry x libq / pr_twi /
+     mix3 at 4,000 events, at the default SimConfig and at a second one
+     (64 sets x 4 ways, 32 metadata sets, compress_clean off), in one
+     launch and in chunks of 1,000 and of 1,537: every carry tensor equal
+     (torch.equal) to the plain version's;
   3. the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -68,10 +73,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      n_lines_each = 2^21 (15,728,640 lines, 1,006,632,960 bytes, resident
      on the card) in one K7 launch through the `hybrid` codec's scan
      backend, the first 4,096 lines of each source held against the numpy
-     codec and marker reference, and the Fig. 4 statistics printed;
+     codec and marker reference, and the Fig. 4 statistics printed; then
+     the trace simulator through E1: the golden stats
+     (`tests/golden/engine_stats.json`) in one launch and through
+     `simulate("dynamic", chunk_size=5000)`, the full suite (27 workloads
+     x 10 scheme rows, 20,000 events) in one launch against the committed
+     JAX fixture (`tests/fixtures/torch_engine_sweep.json`), and the
+     paper's sweep (`sweep_workloads`, 27 x 10 at 200,000 events) in one
+     launch, equal to the same sweep in chunks of 50,000, with each
+     scheme's geomean and lowest speedup, mean LLP accuracy and metadata
+     share of accesses ("trace sim:" lines);
   6. every kernel launch of phases 3 to 5, held against the plain version
      on a copy of the inputs that launch was given (K7 in chunks of 2^20
-     lines over every line): bit-exact for K1, K2, K4, K5 and K7, within
+     lines over every line; E1 over the first 256 events of each launch,
+     from its input carry): bit-exact for K1, K2, K4, K5, K7 and E1, within
      atol = rtol = 2e-3 for K3 (bytes exact) and K6;
   7. timings of every kernel at the shapes phases 3 to 5 gave it, beside
      its plain version, its bound and, for K3 and K6,
@@ -94,14 +109,18 @@ Phases, each of which makes the script exit non-zero when it fails:
      MiB: 1,024 pair / 512 quad groups, made on the card from a seeded
      torch.Generator, every eighth group misfit only at its last element),
      bit-exact against `pagepack` before it is timed ("timing
-     [bulk-group]").  Every timing row carries `kernels_per_call`: the
+     [bulk-group]"); E1 at the paper's sweep (host time of the traces,
+     device time of the one launch, median of 3, its byte bound) and on
+     the sweep's first 2,000 events beside its plain version ("timing
+     [engine]").  Every timing row carries `kernels_per_call`: the
      device operations one call of the wrapper puts on the card after a
      warm-up, counted from torch.profiler's record of the CUDA calls that
-     enqueue them; the group pack must be exactly one.
+     enqueue them; the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive twelve paths (launcher pair and quad, the spill
+Phases 3 to 5 drive thirteen paths (launcher pair and quad, the spill
 launcher with auto and with pair, serve attend pair and quad, the small
-serve attend, serve churn pair and quad, page codec pair and quad, scan);
+serve attend, serve churn pair and quad, page codec pair and quad, scan,
+trace simulator);
 the launch counters are set to 0 just before each and read just after it,
 and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
@@ -153,6 +172,10 @@ KERNELS = {
                            "src/repro/kernels/cram_attention.py:137"),
     "compress_scan": ("src/repro_torch/csrc/compress_scan.cu",
                       "src/repro/kernels/compress_scan.py:280"),
+    # no pallas_call: the reference's lax.scan of the engine step
+    # (engine.py:221-378), vmapped at core/batchsim.py:45-58
+    "engine_scan": ("src/repro_torch/csrc/engine_scan.cu",
+                    "src/repro/core/engine.py:378"),
 }
 PACK_OUTPUTS = ("slots", "overflow", "strips", "lay", "fit")
 SCAN_OUTPUTS = ("sizes", "fpc", "bdi", "status")
@@ -176,6 +199,7 @@ PATHS = {
     "page_codec_pair": ("unpack_pair", "pack_pair_group"),
     "page_codec_quad": ("unpack_quad", "pack_quad_group"),
     "scan": ("compress_scan",),
+    "trace_sim": ("engine_scan",),
 }
 
 
@@ -198,7 +222,7 @@ def kernel_resources(cuda_lib) -> list[str]:
     funcs = ("window_fit_kernel", "window_write_kernel", "pack_pages_kernel",
              "unpack_pages_kernel", "cram_decode_kernel",
              "cram_decode_single_kernel", "cram_decode_combine",
-             "compress_scan_kernel")
+             "compress_scan_kernel", "engine_scan_kernel")
     lines = []
     for r in cuda_lib.ptxas_report():
         mangled = r["kernel"]
@@ -1445,6 +1469,345 @@ def check_final_state(torch, loop, packing) -> None:
           f"slots, decode saving {s['decode_saving']}")
 
 
+# --------------------------------------------- the trace simulator (E1)
+
+SIM_CFG2 = dict(llc_sets=64, llc_ways=4, meta_sets=32,
+                compress_clean=False)       # a second SimConfig
+SIM_CHECK_NAMES = ("libq", "pr_twi", "mix3")
+SIM_CHECK_EVENTS = 4_000        # E1 against its plain version (phase 2)
+SIM_PIN_EVENTS = 20_000         # the committed JAX fixture
+SIM_PAPER_EVENTS = 200_000      # the paper's sweep
+SIM_PAPER_CHUNK = 50_000
+SIM_PREFIX_EVENTS = 2_000       # the paper sweep's first events: E1 beside
+                                # its plain version (phase 7)
+SIM_LANE_EVENTS = 20_000        # one lane beside all lanes (phase 7)
+SIM_REPLAY_EVENTS = 256         # phase 6: events of a recorded launch
+                                # replayed through the plain version
+SIM_FIXTURE = "tests/fixtures/torch_engine_sweep.json"
+SIM_GOLDEN = "tests/golden/engine_stats.json"
+CARRY_NAMES = ("tag", "lru", "valid", "dirty", "pf", "mem_state", "lct",
+               "mtag", "mlru", "mdirty", "mclock", "counter", "clock",
+               "stats")
+
+
+def carry_leaves(carry) -> list:
+    (tag, lru, valid, dirty, pf, mem, lct, meta, counter, clock,
+     stats) = carry
+    return [tag, lru, valid, dirty, pf, mem, lct, *meta, counter, clock,
+            stats]
+
+
+def clone_carry(carry) -> tuple:
+    return tuple(tuple(x.clone() for x in c) if isinstance(c, tuple)
+                 else c.clone() for c in carry)
+
+
+def carry_equal(torch, label, got, want) -> None:
+    for name, g, w in zip(CARRY_NAMES, carry_leaves(got), carry_leaves(want),
+                          strict=True):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            fail(f"{label}: carry tensor {name} differs")
+
+
+def sim_inputs(torch, cfg, rows, names, n_events, seed, device):
+    """(flags, params, addrs, is_write, pair_ab, pair_cd, quad) on the card
+    for scheme rows x workloads, and the host seconds the traces took."""
+    from repro_torch.core import batchsim, schemes
+    from repro_torch.core.engine import trace_tensors
+
+    t0 = time.perf_counter()
+    _, _, *trace = batchsim.stack_workloads(names, n_events, seed)
+    host_s = time.perf_counter() - t0
+    flags = torch.as_tensor(schemes.flags_matrix(rows), device=device)
+    params = torch.as_tensor(schemes.params_matrix(rows, cfg), device=device)
+    return (flags, params, *trace_tensors(cfg, *trace, device)), host_s
+
+
+def sim_run(torch, cfg, inputs, *, chunk=None, plain=False, events=None):
+    """A fresh carry advanced over the first `events` events (all when
+    None): E1 in one launch, or one per `chunk` events, or its plain
+    version on the same tensors."""
+    from repro_torch.core.engine import (build_engine, device_tables,
+                                         engine_consts, run_trace)
+    from repro_torch.kernels import engine_scan as es
+
+    flags, params, a, w, pab, pcd, pq = inputs
+    t = a.shape[1] if events is None else events
+    if not plain:
+        return run_trace(cfg, flags, params, a[:, :t], w[:, :t], pab, pcd,
+                         pq, chunk_size=chunk, device=a.device)
+    carry = build_engine(cfg).init_state(params, a.shape[0], device=a.device)
+    return es.engine_scan_plain(carry, flags, params, a[:, :t], w[:, :t],
+                                pab, pcd, pq, device_tables(cfg, a.device),
+                                engine_consts(cfg))
+
+
+def check_engine_scan(torch, device) -> tuple[dict, float]:
+    """E1 against its plain version on the card: every registry row x
+    libq / pr_twi / mix3 at 4,000 events, at the default SimConfig and a
+    second one; one launch, chunks of 1,000 and chunks of 1,537 (a ragged
+    last one) must each leave every carry tensor equal (torch.equal) to
+    the plain version's.  Returns the error record and the plain
+    version's wall time per event."""
+    from repro_torch.core import schemes
+    from repro_torch.core.engine import SimConfig
+
+    plain_ms = []
+    for label, kw in (("default", {}), ("second", SIM_CFG2)):
+        cfg = SimConfig(**kw)
+        inputs, _ = sim_inputs(torch, cfg, schemes.names(), SIM_CHECK_NAMES,
+                               SIM_CHECK_EVENTS, 0, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sim_run(torch, cfg, inputs, plain=True)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3 / SIM_CHECK_EVENTS)
+        for chunk in (None, 1000, 1537):
+            got = sim_run(torch, cfg, inputs, chunk=chunk)
+            torch.cuda.synchronize()
+            carry_equal(torch, f"E1 {label} config, chunk {chunk}", got, want)
+        lanes = inputs[0].shape[0] * inputs[2].shape[0]
+        print(f"kernel check: engine scan {label} config ({lanes} lanes x "
+              f"{SIM_CHECK_EVENTS} events): every carry tensor equal to the "
+              f"plain version's, one launch and chunks of 1000 and 1537; "
+              f"plain {plain_ms[-1]:.3f} ms an event (wall)")
+    return {"engine_scan": 0.0}, statistics.mean(plain_ms)
+
+
+def geomean(xs) -> float:
+    return math.exp(statistics.mean(math.log(x) for x in xs))
+
+
+def paper_summary(out: dict) -> dict:
+    """Per scheme over the workloads: geomean and lowest speedup, mean LLP
+    accuracy, and the metadata share of accesses (mean over workloads)."""
+    schemes_ = next(iter(out.values()))["schemes"]
+    rows = {}
+    for sch in schemes_:
+        per = [w["schemes"][sch] for w in out.values()]
+        rows[sch] = {
+            "geomean_speedup": geomean(p["speedup"] for p in per),
+            "min_speedup": min(p["speedup"] for p in per),
+            "mean_llp_accuracy": statistics.mean(p["llp_accuracy"]
+                                                 for p in per),
+            "metadata_share": statistics.mean(
+                p["breakdown"]["metadata"] / max(p["accesses"], 1)
+                for p in per)}
+    return rows
+
+
+def launched(what: str, expected: int, fn):
+    """fn(), which must launch E1 exactly `expected` times."""
+    from repro_torch.kernels import engine_scan as es
+
+    before = es.LAUNCHES["engine_scan"]
+    out = fn()
+    n = es.LAUNCHES["engine_scan"] - before
+    if n != expected:
+        fail(f"{what}: {n} E1 launches, expected {expected}")
+    return out
+
+
+def trace_sim_phase(torch, device) -> dict:
+    """The trace simulator's main path on the card, every sweep through E1:
+    the golden (six paper schemes x libq / pr_twi / mix3, 12,000 events,
+    seed 1) in one launch and `simulate("dynamic", chunk_size=5000)` per
+    workload; the full suite (27 workloads x 10 rows, 20,000 events, seed
+    0) in one launch against the committed JAX fixture; the paper's sweep
+    (27 x 10 at 200,000 events) through `sweep_workloads` in one launch,
+    equal to the same sweep in chunks of 50,000."""
+    from repro_torch.core import batchsim, memsim, schemes
+
+    golden = json.loads((ROOT / SIM_GOLDEN).read_text())
+    names = tuple(golden["stats"]["cram"])
+    _, _, *trace = batchsim.stack_workloads(names, golden["n_events"],
+                                            golden["seed"])
+    stats = launched("golden sweep", 1, lambda: batchsim.sweep(
+        memsim.SCHEMES, *trace, device=device))
+    for si, sch in enumerate(memsim.SCHEMES):
+        for wi, name in enumerate(names):
+            if stats[si, wi].tolist() != golden["stats"][sch][name]:
+                fail(f"golden: {sch} / {name} differs")
+    for wi, name in enumerate(names):
+        r = launched("simulate dynamic", 3, lambda i=wi: memsim.simulate(
+            "dynamic", *(x[i] for x in trace), chunk_size=5_000,
+            device=device))
+        if [r.stats[k] for k in golden["stat_names"]] != \
+                golden["stats"]["dynamic"][name]:
+            fail(f"golden: simulate dynamic / {name} in chunks differs")
+    print(f"trace sim: golden ({len(memsim.SCHEMES)} schemes x {names}, "
+          f"{golden['n_events']} events) equal in one launch; "
+          "simulate('dynamic', chunk_size=5000) equal on each workload")
+
+    pin = json.loads((ROOT / SIM_FIXTURE).read_text())
+    _, _, *trace = batchsim.stack_workloads(pin["workloads"], pin["n_events"],
+                                            pin["seed"])
+    stats = launched("full-suite sweep", 1, lambda: batchsim.sweep(
+        pin["rows"], *trace, device=device))
+    if stats.tolist() != pin["stats"]:
+        bad = int((stats != np.asarray(pin["stats"])).any(-1).sum())
+        fail(f"full-suite pin: {bad} lanes differ from the JAX fixture")
+    print(f"trace sim: full suite ({len(pin['rows'])} rows x "
+          f"{len(pin['workloads'])} workloads, {pin['n_events']} events) "
+          f"equal to the JAX fixture (jax {pin['jax_version']}, reference "
+          f"{pin['reference_commit'][:7]})")
+
+    rows = schemes.names()
+    t0 = time.perf_counter()
+    paper = launched("paper sweep", 1, lambda: batchsim.sweep_workloads(
+        schemes=rows, n_events=SIM_PAPER_EVENTS, seed=0, device=device))
+    wall = time.perf_counter() - t0
+    chunked = launched(
+        "paper sweep in chunks", SIM_PAPER_EVENTS // SIM_PAPER_CHUNK,
+        lambda: batchsim.sweep_workloads(
+            schemes=rows, n_events=SIM_PAPER_EVENTS, seed=0,
+            chunk_size=SIM_PAPER_CHUNK, device=device))
+    if chunked != paper:
+        fail("paper sweep: chunks of 50000 differ from one launch")
+    summary = paper_summary(paper)
+    print(f"trace sim: paper sweep ({len(rows)} rows x {len(paper)} "
+          f"workloads, {SIM_PAPER_EVENTS} events) in {wall:.2f} s of wall "
+          f"time, traces and summaries included; chunks of "
+          f"{SIM_PAPER_CHUNK} equal")
+    for sch, r in summary.items():
+        print(f"trace sim: {sch}: geomean speedup {r['geomean_speedup']:.4f}, "
+              f"lowest {r['min_speedup']:.4f}, mean LLP accuracy "
+              f"{r['mean_llp_accuracy']:.4f}, metadata share of accesses "
+              f"{r['metadata_share']:.4f}")
+    for bad in [s for s, r in summary.items()
+                if not math.isfinite(r["geomean_speedup"])]:
+        fail(f"paper sweep: {bad} has a non-finite speedup")
+    return {"paper": summary, "paper_wall_s": wall}
+
+
+def _check_engine_scan(torch, label, args, kw, outs):
+    """A recorded E1 launch replayed from its input carry over its first
+    SIM_REPLAY_EVENTS events, by the plain version and by E1 again: every
+    carry tensor equal (the whole launch is held against the one-launch /
+    chunked runs, the golden and the JAX fixture in its path)."""
+    from repro_torch.kernels import engine_scan as es
+
+    carry, flags, params, a, w, pab, pcd, pq, tables, consts = args
+    k = min(a.shape[1], SIM_REPLAY_EVENTS)
+    trace = (a[:, :k], w[:, :k], pab, pcd, pq)
+    want = es.engine_scan_plain(clone_carry(carry), flags, params, *trace,
+                                tables, consts)
+    got = es.engine_scan_cuda(clone_carry(carry), flags, params, *trace,
+                              tables, consts)
+    torch.cuda.synchronize()
+    carry_equal(torch, label, got, want)
+    if k == a.shape[1]:
+        carry_equal(torch, label, outs, want)
+    return 0.0, (tuple(carry[0].shape[:2]), a.shape[1]), \
+        f"bit-exact on every carry tensor over the first {k} events"
+
+
+def engine_bound(inputs, events: int) -> float:
+    """E1's byte bound in ms: the trace's first `events` events, the fit
+    bitmaps and every lane's state read once, the state written once, at
+    HBM_BYTES_PER_S."""
+    from repro_torch.compression.predictor import LCT_ENTRIES
+    from repro_torch.core.engine import SimConfig
+    from repro_torch.kernels.engine_scan import N_STATS, smem_bytes
+
+    flags, params, a, w, pab, pcd, pq = inputs
+    lanes = flags.shape[0] * a.shape[0]
+    cfg = SimConfig()
+    state = (smem_bytes(cfg.llc_sets, cfg.llc_ways, cfg.meta_sets,
+                        cfg.meta_ways, LCT_ENTRIES) + cfg.n_groups
+             + 4 * (3 + N_STATS))
+    moved = (a.shape[0] * events * 5 + 3 * nbytes(pab)
+             + 2 * lanes * state)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def engine_rows(torch, device, plain_event_ms: float) -> dict:
+    """E1 at the paper's sweep (27 x 10 lanes, 200,000 events): host time
+    of the traces, device time of one launch (CUDA events, median of 3,
+    each from a fresh carry), its byte bound and the device operations one
+    wrapper call enqueues; then the sweep's first 2,000 events by E1 and by
+    its plain version on the same tensors (equal carries), each timed."""
+    from repro_torch.core import schemes
+    from repro_torch.core.engine import SimConfig, build_engine
+    from repro_torch.core.traces import all_workload_names
+
+    cfg = SimConfig()
+    inputs, host_s = sim_inputs(torch, cfg, schemes.names(),
+                                all_workload_names(), SIM_PAPER_EVENTS, 0,
+                                device)
+    flags, params, a, w, pab, pcd, pq = inputs
+    eng = build_engine(cfg)
+
+    def kernel_ms(events, rows=slice(None), loads=slice(None)):
+        """E1 over the first `events` events of the given scheme rows and
+        workloads from a fresh carry: CUDA-event time of the launch, median
+        of 3; and the last carry."""
+        fl, pr = flags[rows], params[rows]
+        trace = (a[loads, :events], w[loads, :events], pab[loads],
+                 pcd[loads], pq[loads])
+        times = []
+        for _ in range(3):
+            carry = eng.init_state(pr, trace[0].shape[0], device=device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            eng.run_chunk(carry, fl, pr, *trace)
+            ev1.record()
+            ev1.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        return statistics.median(times), carry
+
+    sweep_ms, _ = kernel_ms(SIM_PAPER_EVENTS)
+    # the per-event rate of one lane beside all lanes over the same events
+    # (cram on libq): equal rates mean the chain inside a lane bounds E1
+    cram = schemes.names().index("cram")
+    libq = all_workload_names().index("libq")
+    lane_ms, _ = kernel_ms(SIM_LANE_EVENTS, slice(cram, cram + 1),
+                           slice(libq, libq + 1))
+    lanes_ms, _ = kernel_ms(SIM_LANE_EVENTS)
+    prefix_ms, got = kernel_ms(SIM_PREFIX_EVENTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sim_run(torch, cfg, inputs, plain=True, events=SIM_PREFIX_EVENTS)
+    torch.cuda.synchronize()
+    prefix_plain_ms = (time.perf_counter() - t0) * 1e3
+    carry_equal(torch, "E1 on the paper sweep's first events", got, want)
+    carry = eng.init_state(params, a.shape[0], device=device)
+    kpc = kernels_per_call(torch, lambda: eng.run_chunk(
+        carry, flags, params, a[:, :SIM_PREFIX_EVENTS],
+        w[:, :SIM_PREFIX_EVENTS], pab, pcd, pq))
+    if kpc != 1:
+        fail(f"engine scan: {kpc} device operations a call, expected one")
+    lanes = flags.shape[0] * a.shape[0]
+    row = {
+        "shape": [flags.shape[0], a.shape[0], SIM_PREFIX_EVENTS],
+        "ms": prefix_ms, "plain_ms": prefix_plain_ms,
+        "bound_ms": engine_bound(inputs, SIM_PREFIX_EVENTS),
+        "bound_by": "bytes", "library_ms": None, "kernels_per_call": kpc,
+        "sweep_shape": [flags.shape[0], a.shape[0], SIM_PAPER_EVENTS],
+        "sweep_ms": sweep_ms,
+        "sweep_bound_ms": engine_bound(inputs, SIM_PAPER_EVENTS),
+        "sweep_us_per_event": sweep_ms * 1e3 / SIM_PAPER_EVENTS,
+        "plain_ms_per_event_check": plain_event_ms,
+        "one_lane_us_per_event": lane_ms * 1e3 / SIM_LANE_EVENTS,
+        "all_lanes_us_per_event": lanes_ms * 1e3 / SIM_LANE_EVENTS,
+        "traces_host_s": host_s}
+    print(f"timing [engine] engine_scan: paper sweep {lanes} lanes x "
+          f"{SIM_PAPER_EVENTS} events: host traces {host_s:.2f} s; device "
+          f"time: kernel {sweep_ms:.3f} ms (median of 3), "
+          f"{row['sweep_us_per_event']:.4f} us an event, bound "
+          f"{row['sweep_bound_ms']:.4f} ms (bytes), library none; kernels "
+          f"per call {kpc}; plain version {plain_event_ms:.3f} ms an event "
+          f"at {len(SIM_CHECK_NAMES) * 10} lanes x {SIM_CHECK_EVENTS} events "
+          f"(wall); first {SIM_PREFIX_EVENTS} events: kernel "
+          f"{prefix_ms:.3f} ms, plain {prefix_plain_ms:.1f} ms (wall), bound "
+          f"{row['bound_ms']:.4f} ms; first {SIM_LANE_EVENTS} events: one "
+          f"lane (cram / libq) {row['one_lane_us_per_event']:.4f} us an "
+          f"event, {lanes} lanes {row['all_lanes_us_per_event']:.4f} us an "
+          "event")
+    return {"engine_scan": row}
+
+
 # ------------------------------------------ phase 6: the main path's calls
 
 def _check_window_pack(torch, label, args, kw, outs):
@@ -1535,6 +1898,7 @@ MAIN_PATH_CHECKS = {
     "pack_pair_group": _check_group_pack, "pack_quad_group": _check_group_pack,
     "unpack_pair": _check_unpack, "unpack_quad": _check_unpack,
     "compress_scan": _check_scan,
+    "engine_scan": _check_engine_scan,
 }
 
 
@@ -1968,6 +2332,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import bdi_pack, cuda_lib
     from repro_torch.kernels import compress_scan as cs
     from repro_torch.kernels import cram_attention as ca
+    from repro_torch.kernels import engine_scan as es
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -1994,11 +2359,13 @@ def main(argv=None) -> int:
             **check_page_codecs(torch, rng, device),
             **check_scan(torch, rng, device),
             **check_single_decode(torch, rng, device)}
+    e1_errs, plain_event_ms = check_engine_scan(torch, device)
+    errs.update(e1_errs)
     geo_errs, geo_inputs = check_geometries(torch, rng, device)
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: twelve paths, each with the launch counters from 0
+    # phases 3 to 5: thirteen paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -2022,7 +2389,9 @@ def main(argv=None) -> int:
         bdi_pack.unpack_pages_cuda, bdi_pack.LAUNCHES)
     cs.compress_scan_cuda = rec.wrap(lambda a, kw: "compress_scan",
                                      cs.compress_scan_cuda, cs.LAUNCHES)
-    launches = (bdi_pack.LAUNCHES, ca.LAUNCHES, cs.LAUNCHES)
+    es.engine_scan_cuda = rec.wrap(lambda a, kw: "engine_scan",
+                                   es.engine_scan_cuda, es.LAUNCHES)
+    launches = (bdi_pack.LAUNCHES, ca.LAUNCHES, cs.LAUNCHES, es.LAUNCHES)
     for part in ("prefill", "step_all", "attend"):
         setattr(ServeLoop, part, rec.wrap_part(part, getattr(ServeLoop, part)))
     by_path: dict = {}
@@ -2120,6 +2489,9 @@ def main(argv=None) -> int:
     if by_path["scan"]["compress_scan"]["launches"] != 1:
         fail(f"scan: {by_path['scan']} launches, expected exactly one")
     print(f"scan path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sim = drive("trace_sim", lambda: trace_sim_phase(torch, device))
+    print(f"trace sim path: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: every launch of phases 3 to 5 against its plain version
     t0 = time.perf_counter()
@@ -2142,7 +2514,8 @@ def main(argv=None) -> int:
         "long-context": long_context_rows(torch, device),
         "prefill-window": prefill_window_rows(torch, device),
         "geometry": geometry_rows(torch, geo_inputs),
-        "bulk-group": bulk_group_rows(torch, device)}
+        "bulk-group": bulk_group_rows(torch, device),
+        "engine": engine_rows(torch, device, plain_event_ms)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     for phase in ("page-codec", "bulk-group"):
         for name in ("pack_pair_group", "pack_quad_group"):
@@ -2151,7 +2524,7 @@ def main(argv=None) -> int:
                 fail(f"{phase} {name}: {n} device operations a call, "
                      "expected one launch")
     main_rows = {**timing["serve-attend"], **timing["page-codec"],
-                 **timing["scan"]}
+                 **timing["scan"], **timing["engine"]}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2167,7 +2540,9 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "kernels_per_call": r["kernels_per_call"]})
+            "kernels_per_call": r["kernels_per_call"],
+            **{k: r[k] for k in ("shape", "sweep_shape", "sweep_ms",
+                                 "sweep_bound_ms") if k in r}})
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
@@ -2175,7 +2550,7 @@ def main(argv=None) -> int:
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
              "page_codec": codec, "serve_attend_small": small,
-             "serve_churn": churn,
+             "serve_churn": churn, "trace_sim": sim,
              "single_vs_batched": {p: ph["single_vs_batched"]
                                    for p, ph in phases.items()},
              "timing": timing}, indent=1))

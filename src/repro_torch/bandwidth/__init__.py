@@ -1,15 +1,23 @@
-"""The traffic ledger, the KV cache's byte adapters and the AutoTuner
-(port of `repro.bandwidth`; the engine, checkpoint and gradient adapters
-come with the slices that port those consumers).
+"""The traffic ledger, the trace engine's and the KV cache's byte adapters
+and the AutoTuner (port of `repro.bandwidth`; the checkpoint and gradient
+adapters come with the slices that port those consumers).
 
   ledger   — typed traffic events with a host accumulator and a device
              accumulator
-  adapters — the KV cache's decode, repack and spill-crossing rows
+  adapters — the trace engine's STAT counters as rows (`engine_traffic`,
+             `engine_breakdown`); the KV cache's decode, repack and
+             spill-crossing rows
   autotune — the §VI saturating-counter gate as a policy engine: KV
              packing per tier, checkpoint codec, gradient codec
 """
 
-from .adapters import kv_decode_event, kv_repack_event, kv_spill_event
+from .adapters import (
+    engine_breakdown,
+    engine_traffic,
+    kv_decode_event,
+    kv_repack_event,
+    kv_spill_event,
+)
 from .autotune import (
     KV_PACKINGS,
     AutoTuner,
@@ -36,6 +44,7 @@ __all__ = [
     "Ledger", "device_totals", "device_record", "event_id",
     "EV_READ", "EV_WRITE", "EV_PROBE", "EV_REPACK", "EV_SPILL",
     "N_EVENTS", "EVENT_NAMES",
+    "engine_traffic", "engine_breakdown",
     "kv_decode_event", "kv_repack_event", "kv_spill_event",
     "AutoTuner", "PolicyChoice", "KV_PACKINGS",
     "kv_expected_bytes_per_page", "kv_spill_bytes_per_page",

@@ -1,13 +1,72 @@
-"""The KV cache's byte accounting as ledger rows (port of the KV half of
-`repro.bandwidth.adapters`: decode reads, repack writes and spill-tier
-crossings).  A consumer module never adds byte counts itself; it calls one
-of these adapters."""
+"""Byte accounting as ledger rows (port of the trace-engine and KV parts of
+`repro.bandwidth.adapters`: the engine's STAT counters, decode reads,
+repack writes and spill-tier crossings).  A consumer module never adds
+byte counts itself; it calls one of these adapters."""
 
 from __future__ import annotations
 
 import torch
 
-from .ledger import EV_READ, EV_REPACK, EV_SPILL, Ledger, device_record
+from ..compression.framing import LINE_BYTES
+from .ledger import (EV_PROBE, EV_READ, EV_REPACK, EV_SPILL, EV_WRITE,
+                     Ledger, device_record)
+
+# ---------------------------------------------------------------- trace engine
+
+
+def engine_traffic(stats: dict, *, consumer: str = "engine") -> Ledger:
+    """Ledger view of one engine run's STAT counters.
+
+    Every access is one 64-byte line.  Category mapping:
+      read   — demand fetches (`demand_reads`)
+      probe  — extra LLP probes (`read_probes - demand_reads`) on data
+               lines
+      write  — dirty writebacks on "lines"; clean writebacks + invalidate
+               line writes on "lines-clean"
+      spill  — next-line prefetch extra accesses (`pf_extra_access`)
+    and metadata-cache fills / writebacks as read / write rows of the
+    "metadata" tensor class.  Total ledger bytes == `SimResult.accesses *
+    LINE_BYTES`.
+    """
+    led = Ledger(consumer)
+    L = LINE_BYTES
+
+    def put(event, count, tensor_class):
+        if count:
+            led.record(event, raw=count * L, compressed=count * L,
+                       count=count, tensor_class=tensor_class)
+
+    put(EV_READ, stats["demand_reads"], "lines")
+    put(EV_PROBE, stats["read_probes"] - stats["demand_reads"], "lines")
+    put(EV_WRITE, stats["wb_dirty"], "lines")
+    put(EV_WRITE, stats["wb_clean"] + stats["il_writes"], "lines-clean")
+    put("spill", stats["pf_extra_access"], "lines")
+    put(EV_READ, stats["meta_reads"], "metadata")
+    put(EV_WRITE, stats["meta_wb"], "metadata")
+    return led
+
+
+def engine_breakdown(traffic: dict, *, consumer: str = "engine") -> dict:
+    """The Fig. 8/15 access categories re-derived from `engine_traffic`
+    rows (its `Ledger.as_dict()` form, as the workload summaries embed
+    it), in line counts."""
+    rows = traffic.get(consumer, {})
+
+    def cnt(tensor_class, event):
+        return rows.get(tensor_class, {}).get(event, {}).get("count", 0)
+
+    return {
+        "data": cnt("lines", "read") + cnt("lines", "write"),
+        "metadata": cnt("metadata", "read") + cnt("metadata", "write"),
+        "mispredict": cnt("lines", "probe"),
+        "wbclean+inv": cnt("lines-clean", "write"),
+        "prefetch": cnt("lines", "spill"),
+        "total": sum(v["count"] for events in rows.values()
+                     for v in events.values()),
+    }
+
+
+# ------------------------------------------------------------------- KV cache
 
 
 def kv_decode_event(ledger: Ledger, bw: dict, *,

@@ -2,14 +2,50 @@
 `repro.compression.gate` the port runs): one 12-bit counter whose MSB
 gates compression; it starts enabled with a margin.  The KV cache keeps
 one counter per sequence on the device; the AutoTuner keeps one per
-decision key on the host (`counter_step` / `counter_enabled`)."""
+decision key on the host (`counter_step` / `counter_enabled`); the trace
+engine keeps one per simulated lane, and the functional model
+(`core/cram.py`) a `DynamicController` over set-sampled LLC events
+(`is_sampled_set`)."""
 
 from __future__ import annotations
+
+import numpy as np
+
+from .framing import FIB_MULT
 
 COUNTER_BITS = 12
 COUNTER_MAX = (1 << COUNTER_BITS) - 1
 ENABLE_THRESHOLD = 1 << (COUNTER_BITS - 1)
 COUNTER_INIT = ENABLE_THRESHOLD + 128
+SAMPLE_RATE = 0.01
+
+
+class DynamicController:
+    """Host-side counters, one per core: cost decrements, benefit
+    increments, both saturating; the MSB enables compression."""
+
+    def __init__(self, n_cores: int = 1):
+        self.counters = np.full(n_cores, COUNTER_INIT, dtype=np.int32)
+
+    def cost(self, n: int = 1, core: int = 0) -> None:
+        self.counters[core] = max(0, int(self.counters[core]) - n)
+
+    def benefit(self, n: int = 1, core: int = 0) -> None:
+        self.counters[core] = min(COUNTER_MAX, int(self.counters[core]) + n)
+
+    def enabled(self, core: int = 0) -> bool:
+        return bool(self.counters[core] >= ENABLE_THRESHOLD)
+
+    @property
+    def storage_bytes(self) -> int:
+        return self.counters.size * COUNTER_BITS // 8
+
+
+def is_sampled_set(set_idx, n_sets, rate: float = SAMPLE_RATE):
+    """Deterministic ~1% sampling of LLC sets (hash-spread, not
+    contiguous); `n_sets` is unused, as in the reference."""
+    h = (set_idx * FIB_MULT) & 0xFFFFFFFF
+    return (h % 1024) < max(1, int(rate * 1024))
 
 
 def counter_step(counter, cost, benefit, xp):

@@ -54,6 +54,8 @@ SIGNATURES = {
     "cram_unpack_pages": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # lines, n, key, out, stream
     "cram_compress_scan": [_P, _L, _U, _P, _P],
+    # &EngineArgs, dynamic shared memory bytes, stream
+    "cram_engine_scan": [_P, _L, _P],
 }
 
 _state: dict = {"lib": None, "build_seconds": None}

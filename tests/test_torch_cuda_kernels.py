@@ -5,8 +5,10 @@ fixture skips it.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-K1/K2 (window pack and the registry's group pack), K4/K5 (unpack) and K7
-(the compressibility scan) must be bit-exact.  K3 (batched decode on the
+K1/K2 (window pack and the registry's group pack), K4/K5 (unpack), K7
+(the compressibility scan) and E1 (the trace engine's scan, every carry
+tensor, at three SimConfigs, one lane and 3 x 5 lanes, whole and in
+chunks of 1 event and of odd lengths) must be bit-exact.  K3 (batched decode on the
 compressed cache) and K6 (single-sequence decode) must agree within
 atol = rtol = 2e-3 (the kernels' online softmax sums in another order and
 uses __expf), K3 with its byte output exact, and K6 on a sequence equals
@@ -36,9 +38,12 @@ import torch
 
 from repro_torch.compression import pagepack
 from repro_torch.compression.marker import LineStatus
+from repro_torch.core import engine
+from repro_torch.core.engine import SimConfig
 from repro_torch.kernels import bdi_pack
 from repro_torch.kernels import compress_scan as cs
 from repro_torch.kernels import cram_attention as ca
+from repro_torch.kernels import engine_scan as es
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import strip_is_packed
 from repro_torch.kv import synthetic_kv_stream
@@ -484,6 +489,81 @@ def test_new_kernels_refuse_what_they_cannot_run(cuda):
         bdi_pack.unpack_pair(packed, packed[:, 0])
 
 
+# ------------------------------------------------------ E1: the engine scan
+
+E1_CONFIGS = {
+    "default": {},
+    "second": dict(llc_sets=64, llc_ways=4, meta_sets=32,
+                   compress_clean=False),
+    "small": dict(llc_sets=16, llc_ways=2, n_groups=512),
+}
+
+
+def _e1_inputs(rng, cfg, n_s, n_w, t):
+    """Seeded random (flags, params) rows and traces over `cfg`'s groups
+    (every trace reaches the last group)."""
+    flags = (rng.random((n_s, engine.N_FLAGS)) < 0.5).astype(np.int32)
+    params = np.zeros((n_s, engine.N_PARAMS), np.int32)
+    params[:, engine.PARAM_LCT_SIZE] = rng.choice([1, 64, 512], n_s)
+    params[:, engine.PARAM_SAMPLE_THRESH] = rng.integers(0, 1025, n_s)
+    params[:, engine.PARAM_COUNTER_INIT] = rng.integers(0, 4096, n_s)
+    params[:, engine.PARAM_META_SETS] = rng.integers(1, cfg.meta_sets + 1,
+                                                     n_s)
+    addrs = rng.integers(0, 4 * cfg.n_groups, (n_w, t)).astype(np.int32)
+    addrs[:, -1] = 4 * cfg.n_groups - 1
+    trace = (addrs, rng.random((n_w, t)) < 0.4,
+             *(rng.random((n_w, cfg.n_groups)) < p for p in (0.6, 0.6, 0.3)))
+    return flags, params, trace
+
+
+def _e1_run(cfg, flags, params, trace, device, chunks=None):
+    eng = engine.build_engine(cfg)
+    a, w, pab, pcd, pq = engine.trace_tensors(cfg, *trace, device)
+    fl = torch.as_tensor(flags, device=device)
+    pr = torch.as_tensor(params, device=device)
+    carry = eng.init_state(pr, a.shape[0], device=device)
+    bounds = [0, *(chunks or []), a.shape[1]]
+    for lo, hi in zip(bounds[:-1], bounds[1:], strict=True):
+        eng.run_chunk(carry, fl, pr, a[:, lo:hi], w[:, lo:hi], pab, pcd, pq)
+    mtag, mlru, mdirty, mclock = carry[7]
+    return [x.cpu() for x in (*carry[:7], mtag, mlru, mdirty, mclock,
+                              *carry[8:])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(E1_CONFIGS))
+@pytest.mark.parametrize("n_s,n_w,t,chunks", [
+    (1, 1, 1500, None),                 # one lane, one launch
+    (3, 5, 700, [1, 2, 351, 699]),      # 15 lanes; chunks of 1, 1, 349, 348, 1
+])
+def test_engine_scan_kernel_equals_plain(cuda, config, n_s, n_w, t, chunks):
+    """E1, whole or in chunks, leaves every carry tensor equal to the plain
+    version's single run on the same inputs, one launch per chunk."""
+    cfg = SimConfig(**E1_CONFIGS[config])
+    rng = np.random.default_rng(n_s * 100 + n_w)
+    flags, params, trace = _e1_inputs(rng, cfg, n_s, n_w, t)
+    want = _e1_run(cfg, flags, params, trace, torch.device("cpu"))
+    before = es.LAUNCHES["engine_scan"]
+    got = _e1_run(cfg, flags, params, trace, cuda, chunks)
+    torch.cuda.synchronize()
+    assert es.LAUNCHES["engine_scan"] - before == len(chunks or []) + 1
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_engine_scan_kernel_refuses_what_it_cannot_run(cuda):
+    cfg = SimConfig(llc_sets=4096, llc_ways=4)
+    carry = engine.build_engine(cfg).init_state(np.zeros((1, 4), np.int32),
+                                         device=cuda)
+    z = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    fit = torch.zeros((1, cfg.n_groups), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        engine.build_engine(cfg).run_chunk(carry, torch.zeros((1, 7)), z, z,
+                                    z.bool(), fit, fit, fit)
+    assert es.smem_bytes(4096, 4, 64, 8, 512) > es.SMEM_LIMIT
+
+
 # ------------------------------------------------- the CPU half (runs here)
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
@@ -516,6 +596,13 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     got = cs.compress_scan(img)
     want = cs.compress_scan_plain(img)
     assert all(torch.equal(got[k], want[k]) for k in want)
+    e1 = es.LAUNCHES["engine_scan"]
+    small = SimConfig(**E1_CONFIGS["small"])
+    flags, params, trace = _e1_inputs(rng, small, 2, 2, 50)
+    whole = _e1_run(small, flags, params, trace, cpu)
+    chunked = _e1_run(small, flags, params, trace, cpu, [7, 8])
+    assert all(torch.equal(a, b) for a, b in zip(whole, chunked, strict=True))
+    assert es.LAUNCHES["engine_scan"] == e1
     assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES} == before
 
 

@@ -9,6 +9,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,13 +63,17 @@ def test_no_source_imports_jax_or_reference():
 def test_entry_points_default_to_cuda():
     from repro_torch import configs
     from repro_torch.bandwidth import device_totals
+    from repro_torch.core import batchsim, engine, memsim
     from repro_torch.kv.cache import CRAMKVCache
     from repro_torch.launch import serve
     from repro_torch.models import build, init_lm, smoke_config
     from repro_torch.serving import ServeLoop, SlotKVCache
 
+    init_state = engine.build_engine(engine.SimConfig()).init_state
     for fn in (ServeLoop.__init__, SlotKVCache.__init__,
-               CRAMKVCache.__init__, build, init_lm, device_totals):
+               CRAMKVCache.__init__, build, init_lm, device_totals,
+               memsim.simulate, memsim.run_workload, batchsim.sweep,
+               batchsim.sweep_workloads, init_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert serve.build_parser().parse_args([]).device == "cuda"
     if torch.cuda.is_available():
@@ -88,6 +93,18 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         init_lm(smoke_config(configs.get("phi4_mini_3_8b")),
                 torch.Generator())
+    trace = (np.zeros((1, 4), np.int32), np.zeros((1, 4), bool),
+             *(np.zeros((1, 1 << 18), bool),) * 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        memsim.simulate("cram", *(x[0] for x in trace))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        memsim.run_workload("libq", n_events=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batchsim.sweep(["cram"], *trace)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batchsim.sweep_workloads(["libq"], n_events=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(np.zeros((1, engine.N_PARAMS), np.int32))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
