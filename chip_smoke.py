@@ -1702,22 +1702,42 @@ def _check_engine_scan(torch, label, args, kw, outs):
         f"bit-exact on every carry tensor over the first {k} events"
 
 
-def engine_bound(inputs, events: int) -> float:
-    """E1's byte bound in ms: the trace's first `events` events, the fit
-    bitmaps and every lane's state read once, the state written once, at
-    HBM_BYTES_PER_S."""
+def engine_bound(torch, cfg, inputs, events: int, carry) -> float:
+    """E1's byte bound in ms for one launch over the trace's first `events`
+    events from the zero state, counted from this run's data (`carry` is
+    the launch's final carry) at HBM_BYTES_PER_S, in 32-byte sectors where
+    the access is scattered:
+      * the trace read once (a 4-byte address and a write flag an event a
+        workload; every scheme lane of a workload shares its row);
+      * every lane's small state (LLC arrays, metadata cache, LCT, clocks,
+        stats) read once and written once;
+      * mem_state read at the sectors of the groups the lane's workload
+        touches (from the zero state the first touch of a group is a miss,
+        which reads it) and written at the sectors whose final state is
+        not S_U (only an eviction writes mem_state);
+      * the three fit bitmaps read at the sectors of a workload's groups
+        that some lane left compressed (the eviction that did it read them).
+    It is far below the real floor, the chain of dependent reads inside a
+    lane (`one_lane_us_per_event` in the engine's timing row)."""
     from repro_torch.compression.predictor import LCT_ENTRIES
-    from repro_torch.core.engine import SimConfig
     from repro_torch.kernels.engine_scan import N_STATS, smem_bytes
 
     flags, params, a, w, pab, pcd, pq = inputs
-    lanes = flags.shape[0] * a.shape[0]
-    cfg = SimConfig()
-    state = (smem_bytes(cfg.llc_sets, cfg.llc_ways, cfg.meta_sets,
-                        cfg.meta_ways, LCT_ENTRIES) + cfg.n_groups
-             + 4 * (3 + N_STATS))
-    moved = (a.shape[0] * events * 5 + 3 * nbytes(pab)
-             + 2 * lanes * state)
+    n_s, n_w = flags.shape[0], a.shape[0]
+    sector = 32
+    n_sec = -(-cfg.n_groups // sector)
+    touched = torch.zeros((n_w, n_sec), dtype=torch.bool, device=a.device)
+    touched.scatter_(1, (a[:, :events] >> 2).long() // sector, True)
+    left = carry[5].ne(0)
+    pad = n_sec * sector - cfg.n_groups
+    if pad:
+        left = torch.cat([left, left.new_zeros(n_s, n_w, pad)], -1)
+    written = left.view(n_s, n_w, n_sec, sector).any(-1)
+    small = (smem_bytes(cfg.llc_sets, cfg.llc_ways, cfg.meta_sets,
+                        cfg.meta_ways, LCT_ENTRIES) + 4 * (3 + N_STATS))
+    moved = (n_w * events * 5 + 2 * n_s * n_w * small
+             + sector * (n_s * int(touched.sum()) + int(written.sum())
+                         + 3 * int(written.any(0).sum())))
     return moved / HBM_BYTES_PER_S * 1e3
 
 
@@ -1757,7 +1777,7 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
             times.append(ev0.elapsed_time(ev1))
         return statistics.median(times), carry
 
-    sweep_ms, _ = kernel_ms(SIM_PAPER_EVENTS)
+    sweep_ms, sweep_carry = kernel_ms(SIM_PAPER_EVENTS)
     # the per-event rate of one lane beside all lanes over the same events
     # (cram on libq): equal rates mean the chain inside a lane bounds E1
     cram = schemes.names().index("cram")
@@ -1782,27 +1802,35 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
     row = {
         "shape": [flags.shape[0], a.shape[0], SIM_PREFIX_EVENTS],
         "ms": prefix_ms, "plain_ms": prefix_plain_ms,
-        "bound_ms": engine_bound(inputs, SIM_PREFIX_EVENTS),
+        "bound_ms": engine_bound(torch, cfg, inputs, SIM_PREFIX_EVENTS,
+                                 got),
         "bound_by": "bytes", "library_ms": None, "kernels_per_call": kpc,
         "sweep_shape": [flags.shape[0], a.shape[0], SIM_PAPER_EVENTS],
         "sweep_ms": sweep_ms,
-        "sweep_bound_ms": engine_bound(inputs, SIM_PAPER_EVENTS),
+        "sweep_bound_ms": engine_bound(torch, cfg, inputs,
+                                       SIM_PAPER_EVENTS, sweep_carry),
         "sweep_us_per_event": sweep_ms * 1e3 / SIM_PAPER_EVENTS,
         "plain_ms_per_event_check": plain_event_ms,
         "one_lane_us_per_event": lane_ms * 1e3 / SIM_LANE_EVENTS,
         "all_lanes_us_per_event": lanes_ms * 1e3 / SIM_LANE_EVENTS,
+        # the latency floor: the events run one after another at one
+        # lane's measured rate
+        "chain_floor_ms": lane_ms * SIM_PREFIX_EVENTS / SIM_LANE_EVENTS,
+        "sweep_chain_floor_ms": lane_ms * SIM_PAPER_EVENTS / SIM_LANE_EVENTS,
         "traces_host_s": host_s}
     print(f"timing [engine] engine_scan: paper sweep {lanes} lanes x "
           f"{SIM_PAPER_EVENTS} events: host traces {host_s:.2f} s; device "
           f"time: kernel {sweep_ms:.3f} ms (median of 3), "
           f"{row['sweep_us_per_event']:.4f} us an event, bound "
-          f"{row['sweep_bound_ms']:.4f} ms (bytes), library none; kernels "
+          f"{row['sweep_bound_ms']:.4f} ms (bytes), one lane's chain "
+          f"{row['sweep_chain_floor_ms']:.3f} ms, library none; kernels "
           f"per call {kpc}; plain version {plain_event_ms:.3f} ms an event "
           f"at {len(SIM_CHECK_NAMES) * 10} lanes x {SIM_CHECK_EVENTS} events "
           f"(wall); first {SIM_PREFIX_EVENTS} events: kernel "
           f"{prefix_ms:.3f} ms, plain {prefix_plain_ms:.1f} ms (wall), bound "
-          f"{row['bound_ms']:.4f} ms; first {SIM_LANE_EVENTS} events: one "
-          f"lane (cram / libq) {row['one_lane_us_per_event']:.4f} us an "
+          f"{row['bound_ms']:.4f} ms (bytes), one lane's chain "
+          f"{row['chain_floor_ms']:.3f} ms; first {SIM_LANE_EVENTS} events: "
+          f"one lane (cram / libq) {row['one_lane_us_per_event']:.4f} us an "
           f"event, {lanes} lanes {row['all_lanes_us_per_event']:.4f} us an "
           "event")
     return {"engine_scan": row}
@@ -2542,7 +2570,8 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "kernels_per_call": r["kernels_per_call"],
             **{k: r[k] for k in ("shape", "sweep_shape", "sweep_ms",
-                                 "sweep_bound_ms") if k in r}})
+                                 "sweep_bound_ms", "chain_floor_ms",
+                                 "sweep_chain_floor_ms") if k in r}})
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(

@@ -213,9 +213,10 @@ def build_engine(cfg: SimConfig) -> EngineParts:
 def trace_tensors(cfg: SimConfig, addrs, is_write, pair_ab, pair_cd, quad,
                   device) -> tuple:
     """The trace (W, T) and fit bitmaps (W, n_groups) as contiguous int32 /
-    bool tensors on `device` (numpy arrays or tensors in).  Addresses are
-    checked on the host to lie in [0, 4 * n_groups), the range the step
-    indexes."""
+    bool tensors on `device` (numpy arrays or tensors in).  Addresses on
+    the host are checked here to lie in [0, 4 * n_groups), the range the
+    step indexes; a trace already on the card is checked by E1 as it
+    runs."""
     def tensor(x, np_dtype, dtype):
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np_dtype))

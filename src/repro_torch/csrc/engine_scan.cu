@@ -34,8 +34,17 @@
 // probes apply whole or not at all, demand miss first; the order of
 // updates within an event is stats, counter, probe 1, probe 2, LCT,
 // mem_state[vg], then the LLC arrays at the update way.
+//
+// Indices from the caller are checked where they would leave a lane's
+// slice or a table (JAX clamps them; here they are refused): an address
+// outside [0, 4 * n_groups), a params row whose LCT size or metadata sets
+// exceed what the carry holds, and carry values that index the tables
+// (mem_state, LCT levels, valid/dirty masks, victim tags).  A lane that
+// finds one stops there and sets a flag in mapped host memory; the entry
+// point waits for the launch and returns the flag as a negative code.
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 // the engine's layouts (core/engine.py: ST_*, FLAG_*, PARAM_*)
@@ -55,6 +64,10 @@ enum {
   PARAM_META_SETS = 3, N_PARAMS = 4
 };
 constexpr int GROUP_LANES = 4;   // lines in a group (addr & 3)
+constexpr int MEM_STATES = 5;    // mem_state values (S_U .. S_Q)
+constexpr int LANE_MASKS = 16;   // valid / dirty / pf masks of a group
+// what a lane refused, one flag each; returned as -(1 + kind)
+enum { ERR_ADDRESS = 0, ERR_PARAMS = 1, ERR_CARRY = 2, ERR_KINDS = 3 };
 
 // Every field is 8 bytes wide, in the order of `_Args` in
 // kernels/engine_scan.py.
@@ -72,7 +85,7 @@ struct EngineArgs {
   const int32_t* lane_level; const int32_t* set_hash;
   long long n_schemes, n_workloads, addr_stride, write_stride, n_events;
   long long sets, ways, n_groups, meta_sets, meta_ways, lct_entries;
-  long long n_levels, set_hash_len;
+  long long n_levels;
   long long enable_threshold, counter_max, hash_mult, lines_per_page;
   long long groups_per_meta;
 };
@@ -125,7 +138,7 @@ __device__ __forceinline__ void meta_probe(int32_t* mtag, int32_t* mlru,
 }
 
 __global__ void __launch_bounds__(32)
-engine_scan_kernel(const EngineArgs a) {
+engine_scan_kernel(const EngineArgs a, volatile int* err) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long lane = blockIdx.x;
   const int si = (int)(lane / a.n_workloads);
@@ -171,9 +184,13 @@ engine_scan_kernel(const EngineArgs a) {
     const bool f_meta = fl[FLAG_META] > 0, f_next = fl[FLAG_NEXTLINE] > 0;
     const bool f_ideal = fl[FLAG_IDEAL] > 0, f_dyn = fl[FLAG_DYNAMIC] > 0;
     const bool f_lct = fl[FLAG_LCT_UPDATE] > 0;
-    const uint32_t lct_size = (uint32_t)pr[PARAM_LCT_SIZE];
+    const int lct_param = pr[PARAM_LCT_SIZE];
+    const uint32_t lct_size = (uint32_t)lct_param;
     const int sample_thresh = pr[PARAM_SAMPLE_THRESH];
     const int meta_sets = pr[PARAM_META_SETS];
+    const bool params_ok = lct_param >= 1 && lct_param <= n_lct
+                           && meta_sets >= 1 && meta_sets <= a.meta_sets;
+    if (!params_ok) err[ERR_PARAMS] = 1;
     const int sets = (int)a.sets, ways = (int)a.ways;
     const int mw = (int)a.meta_ways, n_levels = (int)a.n_levels;
     const int enable = (int)a.enable_threshold, cmax = (int)a.counter_max;
@@ -193,7 +210,8 @@ engine_scan_kernel(const EngineArgs a) {
     const uint8_t* __restrict__ fcd = a.pair_cd + wi * a.n_groups;
     const uint8_t* __restrict__ fq = a.quad + wi * a.n_groups;
 
-    const long long n = a.n_events;
+    const long long n = params_ok ? a.n_events : 0;
+    const unsigned n_groups = (unsigned)a.n_groups;
     int next_addr = __ldg(arow);
     int next_wr = __ldg(wrow);
     for (long long e = 0; e < n; ++e) {
@@ -204,6 +222,7 @@ engine_scan_kernel(const EngineArgs a) {
         next_wr = __ldg(wrow + e + 1);
       }
       const int g = addr >> 2;
+      if ((unsigned)g >= n_groups) { err[ERR_ADDRESS] = 1; break; }
       const int lanei = addr & 3;
       const int lane_bit = 1 << lanei;
       const int s = floormod(g, sets);
@@ -235,6 +254,12 @@ engine_scan_kernel(const EngineArgs a) {
       const int vg = row_v - 1;
       const int v_valid = s_valid[base + vway];
       const int v_dirty = s_dirty[base + vway];
+      if (evicting && ((unsigned)vg >= n_groups
+                       || (unsigned)v_valid >= LANE_MASKS
+                       || (unsigned)v_dirty >= LANE_MASKS)) {
+        err[ERR_CARRY] = 1;
+        break;
+      }
 
       // this event's global reads, started together (vg only when evicting:
       // on an empty victim way it is -1)
@@ -244,14 +269,22 @@ engine_scan_kernel(const EngineArgs a) {
         vst = mem[vg];
         fa = __ldg(fab + vg); fc = __ldg(fcd + vg); fqv = __ldg(fq + vg);
       }
-
-      // fetch accounting (miss path)
-      int probes = 1, obtained = 0;
       uint32_t pidx = 0;
+      int pred = 0;
       if (miss) {
         const uint32_t page = (uint32_t)floordiv(addr, lpp);
         pidx = (page * hash_mult) % lct_size;
-        const int pred = s_lct[pidx];
+        pred = s_lct[pidx];
+      }
+      if ((unsigned)st_g >= MEM_STATES || (unsigned)vst >= MEM_STATES
+          || (unsigned)pred >= (unsigned)n_levels) {
+        err[ERR_CARRY] = 1;
+        break;
+      }
+
+      // fetch accounting (miss path)
+      int probes = 1, obtained = 0;
+      if (miss) {
         if (f_llp && lanei != 0)
           probes = __ldg(a.probe + (st_g * GROUP_LANES + lanei) * n_levels
                          + pred);
@@ -267,8 +300,8 @@ engine_scan_kernel(const EngineArgs a) {
         const int ev_en = f_dyn ? ((sampled || dyn_on) ? 1 : 0)
                                 : (f_comp ? 1 : 0);
         const int eidx =
-            (((((ev_en * 5 + vst) * 2 + fa) * 2 + fc) * 2 + fqv) * 16
-             + v_valid) * 16 + v_dirty;
+            (((((ev_en * MEM_STATES + vst) * 2 + fa) * 2 + fc) * 2 + fqv)
+                 * LANE_MASKS + v_valid) * LANE_MASKS + v_dirty;
         wb_d = __ldg(a.evt_wb_dirty + eidx);
         wb_c = __ldg(a.evt_wb_clean + eidx);
         ilw = __ldg(a.evt_il + eidx);
@@ -354,21 +387,51 @@ engine_scan_kernel(const EngineArgs a) {
   for (int i = threadIdx.x; i < n_lct; i += blockDim.x) g_lct[i] = s_lct[i];
 }
 
+// Launches E1 on `stream` and waits for it.  Returns 0, a cudaError, or
+// -(1 + kind) when a lane refused an input (ERR_*); the carry then holds
+// each lane's state as far as it got.
 extern "C" int cram_engine_scan(const EngineArgs* args, long long smem,
                                 void* stream) {
   const EngineArgs a = *args;
   const long long lanes = a.n_schemes * a.n_workloads;
-  if (lanes <= 0 || lanes > 0x7FFFFFFFLL || a.n_events <= 0 || smem <= 0)
+  if (lanes <= 0 || lanes > 0x7FFFFFFFLL || a.n_events <= 0 || smem <= 0
+      || a.n_groups <= 0 || a.n_groups > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   const long long expect = 5 * up16(4 * a.sets * a.ways)
       + 2 * up16(4 * a.meta_sets * a.meta_ways)
       + up16(a.meta_sets * a.meta_ways) + up16(a.lct_entries);
   if (smem != expect) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      engine_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+
+  // one set of flags for the process, in mapped host memory: the kernel
+  // writes them without a copy being enqueued
+  static std::mutex mu;
+  static int* host_err = nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  cudaError_t err = cudaSuccess;
+  if (host_err == nullptr) {
+    err = cudaHostAlloc(reinterpret_cast<void**>(&host_err),
+                        ERR_KINDS * sizeof(int),
+                        cudaHostAllocMapped | cudaHostAllocPortable);
+    if (err != cudaSuccess) { host_err = nullptr; return (int)err; }
+  }
+  int* dev_err = nullptr;
+  err = cudaHostGetDevicePointer(reinterpret_cast<void**>(&dev_err),
+                                 host_err, 0);
+  if (err != cudaSuccess) return (int)err;
+  volatile int* flags = host_err;
+  for (int k = 0; k < ERR_KINDS; ++k) flags[k] = 0;
+
+  err = cudaFuncSetAttribute(engine_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   engine_scan_kernel<<<(unsigned)lanes, 32, (size_t)smem,
-                       (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                       (cudaStream_t)stream>>>(a, dev_err);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamSynchronize((cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  for (int k = 0; k < ERR_KINDS; ++k)
+    if (flags[k]) return -(1 + k);
+  return 0;
 }

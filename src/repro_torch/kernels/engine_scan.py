@@ -55,6 +55,15 @@ TABLE_NAMES = ("wb_dirty", "wb_clean", "il", "new_state", "probe", "loc",
 CONST_NAMES = ("enable_threshold", "counter_max", "hash_mult",
                "lines_per_page", "groups_per_meta")
 SMEM_LIMIT = 232_448        # dynamic shared memory a block may use (H100)
+MEM_STATES = 5              # mem_state values (S_U .. S_Q)
+LANE_MASKS = 16             # valid / dirty / pf masks of a group
+# what E1 refuses as it runs, by the negative code it returns (ERR_* in
+# csrc/engine_scan.cu)
+REFUSALS = ("a trace address lies outside [0, 4 * n_groups)",
+            "a params row's LCT size or metadata sets lie outside [1, what "
+            "the carry holds]",
+            "the carry holds a value outside the engine's tables (mem_state, "
+            "LCT level, valid / dirty mask or victim tag)")
 
 # kernel launches; only the CUDA path counts
 LAUNCHES = {"engine_scan": 0}
@@ -300,7 +309,7 @@ class _Args(ctypes.Structure):
                     "n_schemes", "n_workloads", "addr_stride",
                     "write_stride", "n_events", "sets", "ways", "n_groups",
                     "meta_sets", "meta_ways", "lct_entries", "n_levels",
-                    "set_hash_len", *CONST_NAMES)])
+                    *CONST_NAMES)])
 
 
 def smem_bytes(sets: int, ways: int, meta_sets: int, meta_ways: int,
@@ -323,7 +332,11 @@ def _check(name, x, dtype, shape, dev):
 def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                      pair_cd, quad, tables: dict, consts: dict):
     """The CUDA kernel on the contract of `engine_scan_plain`: one launch
-    for the whole chunk, the carry updated in place."""
+    for the whole chunk, the carry updated in place.  Shapes, types and
+    tables are checked here; addresses, params rows and carry values by
+    the kernel as it runs (the call waits for the launch and raises
+    ValueError on one that would index outside a lane's slice or a
+    table, where the reference would clamp it)."""
     (tag, lru, valid, dirty, pf, mem_state, lct, (mtag, mlru, mdirty,
      mclock), counter, clock, stats) = carry
     dev = addrs.device
@@ -361,11 +374,20 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                          "contiguous")
     if addrs.stride(-1) != 1 or is_write.stride(-1) != 1:
         raise ValueError("addrs and is_write need a unit column stride")
+    n_evict = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS
+    n_levels = tables["probe"].shape[-1]
+    shapes = dict.fromkeys(("wb_dirty", "wb_clean", "il", "new_state"),
+                           (n_evict,))
+    shapes.update(dict.fromkeys(("loc", "lanes_in_slot", "lane_level"),
+                                (MEM_STATES, 4)),
+                  probe=(MEM_STATES, 4, n_levels), set_hash=(sets,))
     for name in TABLE_NAMES:
         x = tables[name]
         if x.dtype != torch.int32 or x.device != dev or \
-                not x.is_contiguous():
-            raise ValueError(f"table {name} must be contiguous int32 on {dev}")
+                not x.is_contiguous() or tuple(x.shape) != shapes[name]:
+            raise ValueError(f"table {name} must be contiguous int32 "
+                             f"{shapes[name]} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
     smem = smem_bytes(sets, ways, ms_alloc, mw, lct.shape[-1])
     if smem > SMEM_LIMIT:
         raise ValueError(f"one lane's state needs {smem} bytes of shared "
@@ -380,11 +402,15 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                                pair_ab, pair_cd, quad)),
         *(p(tables[k]).value for k in TABLE_NAMES),
         n_s, n_w, addrs.stride(0), is_write.stride(0), n_events, sets, ways,
-        n_groups, ms_alloc, mw, lct.shape[-1], tables["probe"].shape[-1],
-        tables["set_hash"].numel(),
+        n_groups, ms_alloc, mw, lct.shape[-1], n_levels,
         *(int(consts[k]) for k in CONST_NAMES))
     code = cuda_lib.load().cram_engine_scan(
         ctypes.byref(args), smem, cuda_lib.stream_ptr(addrs))
+    if code < 0:
+        LAUNCHES["engine_scan"] += 1
+        raise ValueError(f"engine scan refused its input: "
+                         f"{REFUSALS[-code - 1]}; each lane's carry holds "
+                         "its state up to the event that was refused")
     cuda_lib.check(code, "cram_engine_scan")
     LAUNCHES["engine_scan"] += 1
     return carry

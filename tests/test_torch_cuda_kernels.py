@@ -8,7 +8,9 @@ fixture skips it.  On a machine with a card:
 K1/K2 (window pack and the registry's group pack), K4/K5 (unpack), K7
 (the compressibility scan) and E1 (the trace engine's scan, every carry
 tensor, at three SimConfigs, one lane and 3 x 5 lanes, whole and in
-chunks of 1 event and of odd lengths) must be bit-exact.  K3 (batched decode on the
+chunks of 1 event and of odd lengths) must be bit-exact, and E1 must raise
+on an address, a params row or a carry value outside its tables.  K3
+(batched decode on the
 compressed cache) and K6 (single-sequence decode) must agree within
 atol = rtol = 2e-3 (the kernels' online softmax sums in another order and
 uses __expf), K3 with its byte output exact, and K6 on a sequence equals
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.compression import pagepack
 from repro_torch.compression.marker import LineStatus
+from repro_torch.compression.predictor import LCT_ENTRIES
 from repro_torch.core import engine
 from repro_torch.core.engine import SimConfig
 from repro_torch.kernels import bdi_pack
@@ -562,6 +565,49 @@ def test_engine_scan_kernel_refuses_what_it_cannot_run(cuda):
         engine.build_engine(cfg).run_chunk(carry, torch.zeros((1, 7)), z, z,
                                     z.bool(), fit, fit, fit)
     assert es.smem_bytes(4096, 4, 64, 8, 512) > es.SMEM_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,match", [
+    ("address", "trace address"), ("negative", "trace address"),
+    ("lct_size", "params row"), ("meta_sets", "params row"),
+    ("carry", "carry holds"),
+])
+def test_engine_scan_kernel_refuses_bad_indices(cuda, fault, match):
+    """An address outside the lanes' groups, a params row beyond what the
+    carry holds, or a carry value outside the tables makes E1 raise (after
+    its launch) instead of writing outside a lane's slice; the neighbour
+    lane's mem_state is left as the plain version leaves it."""
+    cfg = SimConfig(**E1_CONFIGS["small"])
+    rng = np.random.default_rng(7)
+    flags, params, trace = _e1_inputs(rng, cfg, 2, 1, 300)
+    eng = engine.build_engine(cfg)
+    a, w, pab, pcd, pq = engine.trace_tensors(cfg, *trace, cuda)
+    pr = torch.as_tensor(params, device=cuda)
+    carry = eng.init_state(pr, 1, device=cuda)
+    if fault == "address":
+        a[0, 150] = 4 * cfg.n_groups
+    elif fault == "negative":
+        a[0, 150] = -4
+    elif fault == "lct_size":
+        pr[1, engine.PARAM_LCT_SIZE] = LCT_ENTRIES + 1
+    elif fault == "meta_sets":
+        pr[0, engine.PARAM_META_SETS] = 0
+    else:
+        carry[5][1, 0, int(a[0, 0]) >> 2] = es.MEM_STATES
+    with pytest.raises(ValueError, match=match):
+        eng.run_chunk(carry, torch.as_tensor(flags, device=cuda), pr, a, w,
+                      pab, pcd, pq)
+    torch.cuda.synchronize()
+    if fault == "address":
+        want = eng.init_state(params, 1, device="cpu")
+        es.engine_scan_plain(want, torch.as_tensor(flags), torch.as_tensor(
+            params), torch.as_tensor(trace[0][:, :150]), torch.as_tensor(
+            trace[1][:, :150]), *(torch.as_tensor(x) for x in trace[2:]),
+            engine.device_tables(cfg, torch.device("cpu")),
+            engine.engine_consts(cfg))
+        for g, r in zip(carry[:7], want[:7], strict=True):
+            assert torch.equal(g.cpu(), r)
 
 
 # ------------------------------------------------- the CPU half (runs here)
