@@ -234,6 +234,20 @@ def kernel_resources(cuda_lib) -> list[str]:
     return sorted(lines)
 
 
+def engine_smem_line() -> str:
+    """E1's dynamic shared memory a CTA at the default SimConfig (it has
+    no static shared memory; ptxas reports registers and spills)."""
+    from repro_torch.compression.predictor import LCT_ENTRIES
+    from repro_torch.core.engine import SimConfig
+    from repro_torch.kernels.engine_scan import smem_bytes
+
+    c = SimConfig()
+    n = smem_bytes(c.llc_sets, c.llc_ways, c.meta_sets, c.meta_ways,
+                   LCT_ENTRIES)
+    return (f"engine_scan_kernel: {n} B of dynamic shared memory a CTA at "
+            "the default SimConfig")
+
+
 def sass_count(cuda_lib, stem: str, kernel: str) -> str:
     """`kernel`'s SASS instructions in the object `csrc/<stem>.cu` built
     into the bound library, counted from `cuobjdump -sass`: all, and
@@ -1741,6 +1755,51 @@ def engine_bound(torch, cfg, inputs, events: int, carry) -> float:
     return moved / HBM_BYTES_PER_S * 1e3
 
 
+def engine_lanes(torch, cfg, inputs, rows, names, events: int) -> dict:
+    """Which lanes set the length of one E1 launch of the paper sweep:
+    each lane's device clock (%globaltimer) at the start and the end of
+    its events, from one more launch from the zero state.  Prints the
+    five slowest lanes (scheme row, workload, us an event, share of
+    events that missed the LLC) and the slowest lane of each row."""
+    from repro_torch.core.engine import (build_engine, device_tables,
+                                         engine_consts)
+    from repro_torch.kernels import engine_scan as es
+
+    flags, params, a, w, pab, pcd, pq = inputs
+    n_w = a.shape[0]
+    carry = build_engine(cfg).init_state(params, n_w, device=a.device)
+    ns = torch.zeros((flags.shape[0] * n_w, 2), dtype=torch.int64,
+                     device=a.device)
+    es.engine_scan_cuda(carry, flags, params, a[:, :events], w[:, :events],
+                        pab, pcd, pq, device_tables(cfg, a.device),
+                        engine_consts(cfg), lane_ns=ns)
+    torch.cuda.synchronize()
+    t = ns.cpu().double()
+    us = ((t[:, 1] - t[:, 0]) / 1e3 / events).tolist()
+    miss = (carry[-1].reshape(-1, es.N_STATS)[:, es.ST_LLC_MISSES].cpu()
+            .double() / events).tolist()
+    lane = [{"row": rows[i // n_w], "workload": names[i % n_w],
+             "us_per_event": us[i], "miss_share": miss[i]}
+            for i in range(len(us))]
+    slowest = sorted(lane, key=lambda r: -r["us_per_event"])
+    by_row = {r: max(x["us_per_event"] for x in lane if x["row"] == r)
+              for r in rows}
+    out = {"span_ms": float(t[:, 1].max() - t[:, 0].min()) / 1e6,
+           "start_spread_ms": float(t[:, 0].max() - t[:, 0].min()) / 1e6,
+           "median_us_per_event": statistics.median(us),
+           "slowest": slowest[:5], "slowest_by_row": by_row}
+    print(f"engine lanes: paper sweep {len(lane)} lanes x {events} events, "
+          f"one launch: first start to last end {out['span_ms']:.3f} ms, "
+          f"starts within {out['start_spread_ms']:.3f} ms; median lane "
+          f"{out['median_us_per_event']:.4f} us an event; slowest five: "
+          + "; ".join(f"{r['row']} / {r['workload']} "
+                      f"{r['us_per_event']:.4f} us an event, miss share "
+                      f"{r['miss_share']:.4f}" for r in slowest[:5]))
+    print("engine lanes: slowest lane of each row, us an event: "
+          + ", ".join(f"{r} {v:.4f}" for r, v in by_row.items()))
+    return out
+
+
 def engine_rows(torch, device, plain_event_ms: float) -> dict:
     """E1 at the paper's sweep (27 x 10 lanes, 200,000 events): host time
     of the traces, device time of one launch (CUDA events, median of 3,
@@ -1778,6 +1837,8 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
         return statistics.median(times), carry
 
     sweep_ms, sweep_carry = kernel_ms(SIM_PAPER_EVENTS)
+    lanes_row = engine_lanes(torch, cfg, inputs, schemes.names(),
+                             all_workload_names(), SIM_PAPER_EVENTS)
     # the per-event rate of one lane beside all lanes over the same events
     # (cram on libq): equal rates mean the chain inside a lane bounds E1
     cram = schemes.names().index("cram")
@@ -1817,7 +1878,7 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
         # lane's measured rate
         "chain_floor_ms": lane_ms * SIM_PREFIX_EVENTS / SIM_LANE_EVENTS,
         "sweep_chain_floor_ms": lane_ms * SIM_PAPER_EVENTS / SIM_LANE_EVENTS,
-        "traces_host_s": host_s}
+        "traces_host_s": host_s, "lanes": lanes_row}
     print(f"timing [engine] engine_scan: paper sweep {lanes} lanes x "
           f"{SIM_PAPER_EVENTS} events: host traces {host_s:.2f} s; device "
           f"time: kernel {sweep_ms:.3f} ms (median of 3), "
@@ -2379,6 +2440,7 @@ def main(argv=None) -> int:
         print(f"build: {line}")
     print(f"build: "
           f"{sass_count(cuda_lib, 'compress_scan', 'compress_scan_kernel')}")
+    print(f"build: {engine_smem_line()}")
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(0)

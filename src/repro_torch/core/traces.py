@@ -124,7 +124,10 @@ def generate_trace(spec: WorkloadSpec, n_events: int, seed: int = 0):
     hot_lines = max(4096, min(int(n_lines * spec.hot_frac), 1 << 14))
 
     segs_addr, total = [], 0
-    # draw segments until we cover n_events
+    # draw segments until we cover n_events; a batch's segments are kept
+    # up to the first one whose end reaches n_events, the reference's
+    # per-segment loop in a few array operations (the same draws, in the
+    # same order)
     while total < n_events:
         batch = max(1024, (n_events - total) // 8)
         lens = rng.geometric(1.0 / max(spec.seq_len, 1), size=batch)
@@ -137,11 +140,13 @@ def generate_trace(spec: WorkloadSpec, n_events: int, seed: int = 0):
             rng.integers(0, hot_lines, size=batch),
             rng.integers(0, n_lines, size=batch),
         )
-        for s, l in zip(starts, lens, strict=True):
-            segs_addr.append(np.arange(s, s + l, dtype=np.int64) % n_lines)
-            total += int(l)
-            if total >= n_events:
-                break
+        ends = total + np.cumsum(lens)
+        keep = min(int(np.searchsorted(ends, n_events)) + 1, batch)
+        lens, starts = lens[:keep], starts[:keep]
+        first = np.repeat(np.cumsum(lens) - lens, lens)
+        steps = np.arange(first.size, dtype=np.int64) - first
+        segs_addr.append((np.repeat(starts, lens) + steps) % n_lines)
+        total = int(ends[keep - 1])
     addrs = np.concatenate(segs_addr)[:n_events].astype(np.int32)
     is_write = rng.random(n_events) < spec.write_frac
     return addrs, is_write

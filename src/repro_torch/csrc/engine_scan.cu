@@ -83,6 +83,7 @@ struct EngineArgs {
   const int32_t* evt_il; const int32_t* evt_new_state;
   const int32_t* probe; const int32_t* loc; const int32_t* lanes_in_slot;
   const int32_t* lane_level; const int32_t* set_hash;
+  long long* lane_ns;              // (lanes, 2) or null: start, end (ns)
   long long n_schemes, n_workloads, addr_stride, write_stride, n_events;
   long long sets, ways, n_groups, meta_sets, meta_ways, lct_entries;
   long long n_levels;
@@ -98,6 +99,12 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 __device__ __forceinline__ int floormod(int a, int b) {
   int r = a % b;
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 __host__ __device__ __forceinline__ long long up16(long long n) {
@@ -211,6 +218,7 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
     const uint8_t* __restrict__ fq = a.quad + wi * a.n_groups;
 
     const long long n = params_ok ? a.n_events : 0;
+    const long long t_start = globaltimer();
     const unsigned n_groups = (unsigned)a.n_groups;
     int next_addr = __ldg(arow);
     int next_wr = __ldg(wrow);
@@ -369,6 +377,10 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
       }
     }
 
+    if (a.lane_ns != nullptr) {
+      a.lane_ns[2 * lane] = t_start;
+      a.lane_ns[2 * lane + 1] = globaltimer();
+    }
     a.mclock[lane] = mclock;
     a.counter[lane] = counter;
     a.clock[lane] = clock;

@@ -304,7 +304,7 @@ class _Args(ctypes.Structure):
         "tag", "lru", "valid", "dirty", "pf", "mem_state", "lct", "mtag",
         "mlru", "mdirty", "mclock", "counter", "clock", "stats", "flags",
         "params", "addrs", "is_write", "pair_ab", "pair_cd", "quad",
-        *TABLE_NAMES)]
+        *TABLE_NAMES, "lane_ns")]
                 + [(n, ctypes.c_longlong) for n in (
                     "n_schemes", "n_workloads", "addr_stride",
                     "write_stride", "n_events", "sets", "ways", "n_groups",
@@ -330,13 +330,16 @@ def _check(name, x, dtype, shape, dev):
 
 
 def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
-                     pair_cd, quad, tables: dict, consts: dict):
+                     pair_cd, quad, tables: dict, consts: dict, *,
+                     lane_ns=None):
     """The CUDA kernel on the contract of `engine_scan_plain`: one launch
     for the whole chunk, the carry updated in place.  Shapes, types and
     tables are checked here; addresses, params rows and carry values by
     the kernel as it runs (the call waits for the launch and raises
     ValueError on one that would index outside a lane's slice or a
-    table, where the reference would clamp it)."""
+    table, where the reference would clamp it).  `lane_ns`, when given,
+    is an (S * W, 2) int64 tensor on the card that receives each lane's
+    device clock (%globaltimer, ns) when it starts and ends its events."""
     (tag, lru, valid, dirty, pf, mem_state, lct, (mtag, mlru, mdirty,
      mclock), counter, clock, stats) = carry
     dev = addrs.device
@@ -388,6 +391,10 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
             raise ValueError(f"table {name} must be contiguous int32 "
                              f"{shapes[name]} on {dev}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+    if lane_ns is not None:
+        _check("lane_ns", lane_ns, torch.int64, (n_s * n_w, 2), dev)
+        if not lane_ns.is_contiguous():
+            raise ValueError("lane_ns must be contiguous")
     smem = smem_bytes(sets, ways, ms_alloc, mw, lct.shape[-1])
     if smem > SMEM_LIMIT:
         raise ValueError(f"one lane's state needs {smem} bytes of shared "
@@ -401,6 +408,7 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                                stats, flags, params, addrs, is_write,
                                pair_ab, pair_cd, quad)),
         *(p(tables[k]).value for k in TABLE_NAMES),
+        None if lane_ns is None else p(lane_ns).value,
         n_s, n_w, addrs.stride(0), is_write.stride(0), n_events, sets, ways,
         n_groups, ms_alloc, mw, lct.shape[-1], n_levels,
         *(int(consts[k]) for k in CONST_NAMES))
