@@ -8,8 +8,8 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. the card's name and power limit; build of the CUDA kernels from
      `src/repro_torch/csrc` (nvcc, one process per source, in parallel),
-     with every kernel's registers and spills and K7's SASS instruction
-     count (cuobjdump);
+     with every kernel's registers and spills, K7's SASS instruction
+     count (cuobjdump) and E1's shared memory;
   2. kernels against their plain versions: at the phi4-mini-3.8B KV
      geometry (page 16, 8 KV heads, head_dim 128, 24 query heads) K1/K2
      (window pack) bit-exact on a 32-group and a 64-group window, each
@@ -112,7 +112,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      [bulk-group]"); E1 at the paper's sweep (host time of the traces,
      device time of the one launch, median of 3, its byte bound) and on
      the sweep's first 2,000 events beside its plain version ("timing
-     [engine]").  Every timing row carries `kernels_per_call`: the
+     [engine]"), and each lane's own time in one more launch of the
+     sweep, from the device clock at its first and last event, with the
+     five slowest lanes and the slowest of each row ("engine lanes").  Every timing row carries `kernels_per_call`: the
      device operations one call of the wrapper puts on the card after a
      warm-up, counted from torch.profiler's record of the CUDA calls that
      enqueue them; the group pack and E1 must be exactly one.
@@ -238,12 +240,12 @@ def engine_smem_line() -> str:
     """E1's dynamic shared memory a CTA at the default SimConfig (it has
     no static shared memory; ptxas reports registers and spills)."""
     from repro_torch.compression.predictor import LCT_ENTRIES
-    from repro_torch.core.engine import SimConfig
+    from repro_torch.core.engine import SimConfig, engine_tables
     from repro_torch.kernels.engine_scan import smem_bytes
 
     c = SimConfig()
     n = smem_bytes(c.llc_sets, c.llc_ways, c.meta_sets, c.meta_ways,
-                   LCT_ENTRIES)
+                   LCT_ENTRIES, engine_tables(c)["probe"].shape[-1])
     return (f"engine_scan_kernel: {n} B of dynamic shared memory a CTA at "
             "the default SimConfig")
 
@@ -1734,7 +1736,7 @@ def engine_bound(torch, cfg, inputs, events: int, carry) -> float:
     It is far below the real floor, the chain of dependent reads inside a
     lane (`one_lane_us_per_event` in the engine's timing row)."""
     from repro_torch.compression.predictor import LCT_ENTRIES
-    from repro_torch.kernels.engine_scan import N_STATS, smem_bytes
+    from repro_torch.kernels.engine_scan import N_STATS
 
     flags, params, a, w, pab, pcd, pq = inputs
     n_s, n_w = flags.shape[0], a.shape[0]
@@ -1747,8 +1749,8 @@ def engine_bound(torch, cfg, inputs, events: int, carry) -> float:
     if pad:
         left = torch.cat([left, left.new_zeros(n_s, n_w, pad)], -1)
     written = left.view(n_s, n_w, n_sec, sector).any(-1)
-    small = (smem_bytes(cfg.llc_sets, cfg.llc_ways, cfg.meta_sets,
-                        cfg.meta_ways, LCT_ENTRIES) + 4 * (3 + N_STATS))
+    sw, mm = cfg.llc_sets * cfg.llc_ways, cfg.meta_sets * cfg.meta_ways
+    small = 5 * 4 * sw + 2 * 4 * mm + mm + LCT_ENTRIES + 4 * (3 + N_STATS)
     moved = (n_w * events * 5 + 2 * n_s * n_w * small
              + sector * (n_s * int(touched.sum()) + int(written.sum())
                          + 3 * int(written.any(0).sum())))

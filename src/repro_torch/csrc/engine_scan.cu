@@ -7,24 +7,49 @@
 // lane `si * W + wi` runs scheme row si's flags and params over workload
 // wi's trace and fit bitmaps.
 //
-// What bounds it: the chain of dependent reads inside a lane, one event
+// What bounds it: the chain of dependent steps inside a lane, one event
 // after another (each event reads the state the previous one wrote: the
 // LLC set, the metadata cache, the LCT, mem_state), with at most a few
 // hundred lanes (270 at the paper's 10 rows x 27 workloads), so at most
-// about 2 CTAs per SM.  The bytes moved (trace, fit bitmaps, state) are
-// far below what the card could move in the same time.
+// 3 CTAs per SM.  The bytes moved (trace, fit bitmaps, state) are far
+// below what the card could move in the same time.
 //
-// What the design does about that: one CTA of one warp per lane.  The
-// warp stages the lane's small state into dynamic shared memory (the five
-// LLC arrays, the metadata cache, the LCT), one thread runs the events in
-// order against it, and the warp writes it back.  Only mem_state (one
-// byte per group, 256 KiB a lane at the defaults), the trace and the fit
-// bitmaps stay in global memory; every scheme lane of a workload reads
-// the same trace row.  A hit touches shared memory only; a miss reads
-// mem_state[g], an eviction reads mem_state[vg] and the three fit bits,
-// started together.  The tables (eviction table, PROBE, LOC,
-// LANES_IN_SLOT, LANE_LEVEL, SET_HASH) come in as tensors built from the
-// port's numpy tables.
+// What the design does about that: no global-memory round trip sits on
+// the chain.  One CTA of one warp per lane; the warp stages the lane's
+// small state (the five LLC arrays, the metadata cache, the LCT) and the
+// tables into dynamic shared memory, runs the events in lockstep, and
+// writes the state back.
+//   * The trace ring: thread t holds the slot of event `base + t` of the
+//     current batch of 32: its group, set, LCT index, write and sampling
+//     bits, and the group's mem_state and three fit bits, fetched one
+//     batch ahead (the next batch's loads are in flight while the current
+//     one runs).  Event j takes its slot from thread j by shuffles.  A
+//     fetched mem_state goes stale when its group is evicted before the
+//     event that uses it, so every eviction `mem[vg] = ns` patches each
+//     slot of the current batch whose group is vg, and records ns for the
+//     next batch's slots whose loads are in flight.
+//   * The shadow: one byte beside each LLC way holds its group's
+//     mem_state and fit bits, written when the group is installed (and at
+//     launch for the ways the incoming carry holds).  Only an eviction
+//     writes mem_state, and only at the group it evicts, so a resident
+//     group's state is the one it was installed with: the victim's state
+//     and fit bits come from the shadow, not from global memory.  A carry
+//     the engine never makes (a group held in two ways, or outside its
+//     set) breaks that, and the lane then reads the victim's state from
+//     mem_state as before.
+//   * The set searches (the LLC's and the metadata cache's): thread w
+//     reads ways w, w + 32, ...; warp reductions give the first match,
+//     the first empty way and the first LRU minimum.
+//   * Tables in shared memory: the eviction table's four columns packed
+//     3 bits each into one 16-bit word an entry (the wrapper packs them
+//     and refuses values outside [0, 8)), PROBE, LOC, LANES_IN_SLOT and
+//     LANE_LEVEL; SET_HASH is read only when a slot is fetched.
+// Every thread computes every value of the event and makes every store
+// itself (the same value to the same address), so a thread's later read
+// of an address follows its own write of it in program order; one
+// __syncwarp() between an event's reads of the state and its writes
+// keeps a thread that runs ahead from writing what another has yet to
+// read.
 //
 // Semantics held bit for bit (the plain version, kernels/engine_scan.py,
 // is the oracle): first index wins in every tag, empty-way and LRU search
@@ -39,10 +64,12 @@
 // slice or a table (JAX clamps them; here they are refused): an address
 // outside [0, 4 * n_groups), a params row whose LCT size or metadata sets
 // exceed what the carry holds, and carry values that index the tables
-// (mem_state, LCT levels, valid/dirty masks, victim tags).  A lane that
-// finds one stops there and sets a flag in mapped host memory; the entry
-// point waits for the launch and returns the flag as a negative code.
+// (mem_state, LCT levels, valid/dirty masks, victim tags), each in the
+// event that would use it.  A lane that finds one stops there and sets a
+// flag in mapped host memory; the entry point waits for the launch and
+// returns the flag as a negative code.
 
+#include <climits>
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
@@ -66,8 +93,24 @@ enum {
 constexpr int GROUP_LANES = 4;   // lines in a group (addr & 3)
 constexpr int MEM_STATES = 5;    // mem_state values (S_U .. S_Q)
 constexpr int LANE_MASKS = 16;   // valid / dirty / pf masks of a group
+constexpr int EVICT_ENTRIES = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS;
+constexpr int EVICT_BITS = 3;    // each eviction-table column, packed
+constexpr int SLOT_TABLE = MEM_STATES * GROUP_LANES;  // LOC, LANES_IN_SLOT..
 // what a lane refused, one flag each; returned as -(1 + kind)
 enum { ERR_ADDRESS = 0, ERR_PARAMS = 1, ERR_CARRY = 2, ERR_KINDS = 3 };
+
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NONE = 0xffffffffu;   // no way found
+// a mem_state held in 3 bits: 0..4 as they are, any value outside them
+// (a carry the tables cannot index) as BAD, which every check refuses
+constexpr int BAD_STATE = 7;
+// a ring slot's `info` word and a shadow byte share the low six bits:
+// state (3 bits), then the group's pair_ab, pair_cd and quad fit bits
+enum {
+  INFO_FA = 1 << 3, INFO_FC = 1 << 4, INFO_FQ = 1 << 5, INFO_WR = 1 << 6,
+  INFO_SAMPLED = 1 << 7, INFO_LANE_SHIFT = 8, INFO_OK = 1 << 10
+};
 
 // Every field is 8 bytes wide, in the order of `_Args` in
 // kernels/engine_scan.py.
@@ -79,8 +122,7 @@ struct EngineArgs {
   const int32_t* flags; const int32_t* params;
   const int32_t* addrs; const uint8_t* is_write;
   const uint8_t* pair_ab; const uint8_t* pair_cd; const uint8_t* quad;
-  const int32_t* evt_wb_dirty; const int32_t* evt_wb_clean;
-  const int32_t* evt_il; const int32_t* evt_new_state;
+  const uint16_t* evict;           // the eviction table, packed
   const int32_t* probe; const int32_t* loc; const int32_t* lanes_in_slot;
   const int32_t* lane_level; const int32_t* set_hash;
   long long* lane_ns;              // (lanes, 2) or null: start, end (ns)
@@ -111,211 +153,299 @@ __host__ __device__ __forceinline__ long long up16(long long n) {
   return (n + 15) / 16 * 16;
 }
 
-// One metadata-cache access, applied (the caller gates it): the
-// reference's `meta_probe` followed by `_sel_state` with apply = true.
-__device__ __forceinline__ void meta_probe(int32_t* mtag, int32_t* mlru,
-                                           uint8_t* mdirty, int& mclock,
-                                           int mw, int meta_sets, int mline,
-                                           bool make_dirty, int& reads,
-                                           int& wbs, int& hits) {
-  const int ms = floormod(mline, meta_sets);
-  int32_t* row = mtag + ms * mw;
-  int32_t* lrow = mlru + ms * mw;
-  uint8_t* drow = mdirty + ms * mw;
-  int hw = -1, ew = -1, lw = 0;
-  int lmin = lrow[0];
-  for (int w = 0; w < mw; ++w) {
-    const int tg = row[w];
-    if (hw < 0 && tg == mline + 1) hw = w;
-    if (ew < 0 && tg == 0) ew = w;
-    const int lv = lrow[w];
-    if (lv < lmin) { lmin = lv; lw = w; }
+// Dynamic shared memory of one CTA, region by region, each rounded up to
+// 16 bytes: the five LLC arrays, the metadata cache's tag and LRU arrays
+// (int32), its dirty bytes, the LCT, the shadow (a byte a way), the
+// packed eviction table (16 bits an entry), PROBE, LOC, LANES_IN_SLOT and
+// LANE_LEVEL (int32).  `smem_bytes` in kernels/engine_scan.py counts the
+// same.
+__host__ __device__ __forceinline__ long long smem_layout(
+    long long sw, long long mm, long long lct, long long n_levels) {
+  return 5 * up16(4 * sw) + 2 * up16(4 * mm) + up16(mm) + up16(lct)
+         + up16(sw) + up16(2 * EVICT_ENTRIES)
+         + up16(4 * SLOT_TABLE * n_levels) + 3 * up16(4 * SLOT_TABLE);
+}
+
+__device__ __forceinline__ int state_code(int v) {
+  return (unsigned)v < (unsigned)MEM_STATES ? v : BAD_STATE;
+}
+
+// The first match of `want`, the first empty way (NONE when there is
+// none) and the first LRU minimum (strict `<`) among n ways: thread t
+// reads ways t, t + 32, ..., then the warp reduces.
+struct Found { unsigned match, empty, lru; };
+
+__device__ __forceinline__ Found set_search(const int32_t* tags,
+                                            const int32_t* lrus, int n,
+                                            int want) {
+  unsigned m = NONE, e = NONE, li = NONE;
+  int lv = INT_MAX;
+  for (int w = threadIdx.x; w < n; w += WARP) {
+    const int tg = tags[w];
+    const int l = lrus[w];
+    if (m == NONE && tg == want) m = w;
+    if (e == NONE && tg == 0) e = w;
+    if (li == NONE || l < lv) { lv = l; li = w; }
   }
-  const bool hit = hw >= 0;
-  const int way = hit ? hw : (ew >= 0 ? ew : lw);
+  Found f;
+  f.match = __reduce_min_sync(FULL, m);
+  f.empty = __reduce_min_sync(FULL, e);
+  const int lmin = __reduce_min_sync(FULL, lv);
+  f.lru = __reduce_min_sync(FULL, lv == lmin ? li : NONE);
+  return f;
+}
+
+// x / d and x % d for x >= 0 by a divisor fixed for the launch, with a
+// shift and a mask when d is a power of two (the defaults' metadata sets
+// and groups per metadata line are)
+struct Div {
+  int d, shift;
+  bool pow2;
+  __device__ void set(int v) {
+    d = v;
+    pow2 = v > 0 && (v & (v - 1)) == 0;
+    shift = pow2 ? __ffs(v) - 1 : 0;
+  }
+  __device__ __forceinline__ int div(int x) const {
+    return pow2 ? x >> shift : x / d;
+  }
+  __device__ __forceinline__ int mod(int x) const {
+    return pow2 ? x & (d - 1) : x % d;
+  }
+};
+
+// One ring slot: what event `e` needs that does not depend on the
+// events before it, and its group's fetched mem_state and fit bits.
+struct Slot { int g, base, pidx, info, ms; };
+
+// One lane: its inputs, its state in shared memory, its scheme row.
+struct Lane {
+  const int32_t* addrs; const uint8_t* is_write;
+  int8_t* mem; const uint8_t* fab; const uint8_t* fcd; const uint8_t* fq;
+  const int32_t* set_hash;
+  int32_t *tag, *lru, *valid, *dirty, *pf, *mtag, *mlru;
+  uint8_t *mdirty, *shadow;
+  int8_t* lct;
+  const uint16_t* evict;
+  const int32_t *probe, *loc, *lis, *ll;
+  long long n;
+  unsigned n_groups;
+  int sets, ways, mw, lpp, n_levels, sample_thresh, enable, cmax;
+  uint32_t hash_mult, lct_size;
+  Div gpm, meta_sets;
+  bool comp, llp, next, ideal, dyn, lct_update, canonical;
+};
+
+// One metadata-cache access, applied (the caller gates it) from the
+// search `f` of set `ms` for `mline`: the reference's `meta_probe`
+// followed by `_sel_state` with apply = true.
+__device__ __forceinline__ void meta_apply(const Lane& L, int ms, int mline,
+                                           const Found& f, bool make_dirty,
+                                           int& mclock, int* st) {
+  int32_t* row = L.mtag + ms * L.mw;
+  int32_t* lrow = L.mlru + ms * L.mw;
+  uint8_t* drow = L.mdirty + ms * L.mw;
+  const bool hit = f.match != NONE;
+  const int way = (int)(hit ? f.match : (f.empty != NONE ? f.empty : f.lru));
   const bool old_dirty = drow[way] != 0;
   const bool vic_dirty = !hit && row[way] != 0 && old_dirty;
+  __syncwarp();   // read before any thread writes
   row[way] = mline + 1;
   mclock += 1;
   lrow[way] = mclock;
   drow[way] = ((hit && old_dirty) || make_dirty) ? 1 : 0;
-  reads += hit ? 0 : 1;
-  wbs += vic_dirty ? 1 : 0;
-  hits += hit ? 1 : 0;
+  st[ST_META_READS] += hit ? 0 : 1;
+  st[ST_META_WB] += vic_dirty ? 1 : 0;
+  st[ST_META_HITS] += hit ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(32)
-engine_scan_kernel(const EngineArgs a, volatile int* err) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long lane = blockIdx.x;
-  const int si = (int)(lane / a.n_workloads);
-  const int wi = (int)(lane % a.n_workloads);
-  const int sw = (int)(a.sets * a.ways);
-  const int mm = (int)(a.meta_sets * a.meta_ways);
-  const int n_lct = (int)a.lct_entries;
-
-  int32_t* s_tag = reinterpret_cast<int32_t*>(smem);
-  int32_t* s_lru = s_tag + up16(4LL * sw) / 4;
-  int32_t* s_valid = s_lru + up16(4LL * sw) / 4;
-  int32_t* s_dirty = s_valid + up16(4LL * sw) / 4;
-  int32_t* s_pf = s_dirty + up16(4LL * sw) / 4;
-  int32_t* s_mtag = s_pf + up16(4LL * sw) / 4;
-  int32_t* s_mlru = s_mtag + up16(4LL * mm) / 4;
-  uint8_t* s_mdirty = reinterpret_cast<uint8_t*>(s_mlru + up16(4LL * mm) / 4);
-  int8_t* s_lct = reinterpret_cast<int8_t*>(s_mdirty + up16(mm));
-
-  int32_t* g_tag = a.tag + lane * sw;
-  int32_t* g_lru = a.lru + lane * sw;
-  int32_t* g_valid = a.valid + lane * sw;
-  int32_t* g_dirty = a.dirty + lane * sw;
-  int32_t* g_pf = a.pf + lane * sw;
-  int32_t* g_mtag = a.mtag + lane * mm;
-  int32_t* g_mlru = a.mlru + lane * mm;
-  uint8_t* g_mdirty = a.mdirty + lane * mm;
-  int8_t* g_lct = a.lct + lane * n_lct;
-
-  for (int i = threadIdx.x; i < sw; i += blockDim.x) {
-    s_tag[i] = g_tag[i]; s_lru[i] = g_lru[i]; s_valid[i] = g_valid[i];
-    s_dirty[i] = g_dirty[i]; s_pf[i] = g_pf[i];
+// The trace's address and write flag of event e (0 past the chunk's end).
+__device__ __forceinline__ void fetch_event(const Lane& L, long long e,
+                                            int& addr, int& wr) {
+  addr = 0;
+  wr = 0;
+  if (e < L.n) {
+    addr = __ldg(L.addrs + e);
+    wr = __ldg(L.is_write + e);
   }
-  for (int i = threadIdx.x; i < mm; i += blockDim.x) {
-    s_mtag[i] = g_mtag[i]; s_mlru[i] = g_mlru[i]; s_mdirty[i] = g_mdirty[i];
+}
+
+// The group's mem_state and fit bits, as raw loads (none for a group
+// outside [0, n_groups): the event refuses its address).
+__device__ __forceinline__ void fetch_group(const Lane& L, int addr,
+                                            int& st, int& fa, int& fc,
+                                            int& fq) {
+  const int g = addr >> 2;
+  st = fa = fc = fq = 0;
+  if ((unsigned)g < L.n_groups) {
+    st = L.mem[g];
+    fa = __ldg(L.fab + g);
+    fc = __ldg(L.fcd + g);
+    fq = __ldg(L.fq + g);
   }
-  for (int i = threadIdx.x; i < n_lct; i += blockDim.x) s_lct[i] = g_lct[i];
-  __syncthreads();
+}
 
-  if (threadIdx.x == 0) {
-    const int32_t* fl = a.flags + si * N_FLAGS;
-    const int32_t* pr = a.params + si * N_PARAMS;
-    const bool f_comp = fl[FLAG_COMP] > 0, f_llp = fl[FLAG_LLP] > 0;
-    const bool f_meta = fl[FLAG_META] > 0, f_next = fl[FLAG_NEXTLINE] > 0;
-    const bool f_ideal = fl[FLAG_IDEAL] > 0, f_dyn = fl[FLAG_DYNAMIC] > 0;
-    const bool f_lct = fl[FLAG_LCT_UPDATE] > 0;
-    const int lct_param = pr[PARAM_LCT_SIZE];
-    const uint32_t lct_size = (uint32_t)lct_param;
-    const int sample_thresh = pr[PARAM_SAMPLE_THRESH];
-    const int meta_sets = pr[PARAM_META_SETS];
-    const bool params_ok = lct_param >= 1 && lct_param <= n_lct
-                           && meta_sets >= 1 && meta_sets <= a.meta_sets;
-    if (!params_ok) err[ERR_PARAMS] = 1;
-    const int sets = (int)a.sets, ways = (int)a.ways;
-    const int mw = (int)a.meta_ways, n_levels = (int)a.n_levels;
-    const int enable = (int)a.enable_threshold, cmax = (int)a.counter_max;
-    const uint32_t hash_mult = (uint32_t)a.hash_mult;
-    const int lpp = (int)a.lines_per_page, gpm = (int)a.groups_per_meta;
+__device__ __forceinline__ Slot make_slot(const Lane& L, int addr, int wr,
+                                          int st, int fa, int fc, int fq) {
+  Slot s;
+  s.g = addr >> 2;
+  const bool ok = (unsigned)s.g < L.n_groups;
+  const int set = ok ? floormod(s.g, L.sets) : 0;
+  s.base = set * L.ways;
+  const uint32_t page = (uint32_t)floordiv(addr, L.lpp);
+  s.pidx = (int)((page * L.hash_mult) % L.lct_size);
+  s.ms = ok ? L.meta_sets.mod(L.gpm.div(s.g)) : 0;
+  const bool sampled = ok && __ldg(L.set_hash + set) < L.sample_thresh;
+  s.info = state_code(st) | (fa ? INFO_FA : 0) | (fc ? INFO_FC : 0)
+           | (fq ? INFO_FQ : 0) | (wr ? INFO_WR : 0)
+           | (sampled ? INFO_SAMPLED : 0) | ((addr & 3) << INFO_LANE_SHIFT)
+           | (ok ? INFO_OK : 0);
+  return s;
+}
 
-    int mclock = a.mclock[lane], counter = a.counter[lane];
-    int clock = a.clock[lane];
-    int st[N_STATS];
-#pragma unroll
-    for (int k = 0; k < N_STATS; ++k) st[k] = a.stats[lane * N_STATS + k];
+__device__ __forceinline__ Slot shfl_slot(const Slot& s, int j) {
+  Slot o;
+  o.g = __shfl_sync(FULL, s.g, j);
+  o.base = __shfl_sync(FULL, s.base, j);
+  o.pidx = __shfl_sync(FULL, s.pidx, j);
+  o.info = __shfl_sync(FULL, s.info, j);
+  o.ms = __shfl_sync(FULL, s.ms, j);
+  return o;
+}
 
-    const int32_t* __restrict__ arow = a.addrs + wi * a.addr_stride;
-    const uint8_t* __restrict__ wrow = a.is_write + wi * a.write_stride;
-    int8_t* __restrict__ mem = a.mem_state + lane * a.n_groups;
-    const uint8_t* __restrict__ fab = a.pair_ab + wi * a.n_groups;
-    const uint8_t* __restrict__ fcd = a.pair_cd + wi * a.n_groups;
-    const uint8_t* __restrict__ fq = a.quad + wi * a.n_groups;
+// A ring slot's state after an eviction wrote `ns` to group vg.
+__device__ __forceinline__ void patch(Slot& s, int vg, int ns) {
+  if (s.g == vg) s.info = (s.info & ~7) | ns;
+}
 
-    const long long n = params_ok ? a.n_events : 0;
-    const long long t_start = globaltimer();
-    const unsigned n_groups = (unsigned)a.n_groups;
-    int next_addr = __ldg(arow);
-    int next_wr = __ldg(wrow);
-    for (long long e = 0; e < n; ++e) {
-      const int addr = next_addr;
-      const bool wr = next_wr != 0;
-      if (e + 1 < n) {
-        next_addr = __ldg(arow + e + 1);
-        next_wr = __ldg(wrow + e + 1);
+// Every event of the lane, in order; META: the scheme row keeps explicit
+// metadata (its metadata-cache search for the demand miss is made before
+// the event knows it misses, beside the LLC's).  Stops at an event that
+// refuses an input, its flag set in `err`.
+template <bool META>
+__device__ __forceinline__ void run_events(const Lane& L, int* st,
+                                           int& clock, int& counter,
+                                           int& mclock, volatile int* err) {
+  const int t = threadIdx.x;
+  // the ring: `cur` holds the current batch's slots; the next batch's
+  // addresses are in (n_addr, n_wr) and its group loads in flight in
+  // (n_st, n_fa, n_fc, n_fq); n_patch is what an eviction of this batch
+  // wrote to the next slot's group (-1: none)
+  int addr, wr, gst, gfa, gfc, gfq;
+  fetch_event(L, t, addr, wr);
+  fetch_group(L, addr, gst, gfa, gfc, gfq);
+  Slot cur = make_slot(L, addr, wr, gst, gfa, gfc, gfq);
+  int n_addr, n_wr;
+  fetch_event(L, WARP + t, n_addr, n_wr);
+  for (long long b = 0; b < L.n; b += WARP) {
+    int n_st, n_fa, n_fc, n_fq, nn_addr, nn_wr;
+    fetch_group(L, n_addr, n_st, n_fa, n_fc, n_fq);
+    fetch_event(L, b + 2 * WARP + t, nn_addr, nn_wr);
+    const int n_g = n_addr >> 2;
+    int n_patch = -1;
+    const int len = (int)(L.n - b < WARP ? L.n - b : WARP);
+    Slot e = shfl_slot(cur, 0);
+    for (int j = 0; j < len; ++j) {
+      // the next event's slot, shuffled now so that its latency hides
+      // behind this event (patched below like the ring)
+      Slot nx = shfl_slot(cur, j + 1);
+      if (!(e.info & INFO_OK)) {
+        if (t == 0) err[ERR_ADDRESS] = 1;
+        return;
       }
-      const int g = addr >> 2;
-      if ((unsigned)g >= n_groups) { err[ERR_ADDRESS] = 1; break; }
-      const int lanei = addr & 3;
+      const int g = e.g, base = e.base, info = e.info;
+      const uint32_t pidx = (uint32_t)e.pidx;
+      const int lanei = (info >> INFO_LANE_SHIFT) & 3;
       const int lane_bit = 1 << lanei;
-      const int s = floormod(g, sets);
       clock += 1;
 
-      // the set's tag search: first match, first empty, first LRU minimum
-      const int base = s * ways;
-      int way = 0, ew = -1, lw = 0;
-      bool tag_hit = false;
-      int lmin = s_lru[base];
-      for (int w = 0; w < ways; ++w) {
-        const int tg = s_tag[base + w];
-        if (!tag_hit && tg == g + 1) { tag_hit = true; way = w; }
-        if (ew < 0 && tg == 0) ew = w;
-        const int lv = s_lru[base + w];
-        if (lv < lmin) { lmin = lv; lw = w; }
-      }
-      const int v_here = tag_hit ? s_valid[base + way] : 0;
+      // the set's tag search: first match, first empty, first LRU min
+      const Found f = set_search(L.tag + base, L.lru + base, L.ways, g + 1);
+      Found fm;
+      if (META) fm = set_search(L.mtag + e.ms * L.mw, L.mlru + e.ms * L.mw,
+                                L.mw, L.gpm.div(g) + 1);
+      // the miss path's lookups, made before the event knows it misses
+      // (indices clamped into the tables; a state or level outside them
+      // is refused below, before any of these is used)
+      const int sg = info & 7;
+      const int sgc = (sg < MEM_STATES ? sg : 0) * GROUP_LANES;
+      const int pred_raw = L.lct[pidx];
+      const int predc = (unsigned)pred_raw < (unsigned)L.n_levels ? pred_raw
+                                                                   : 0;
+      const int probe_v = L.probe[(sgc + lanei) * L.n_levels + predc];
+      const int lis_v = L.lis[sgc + L.loc[sgc + lanei]];
+      const int level = L.ll[sgc + lanei];
+      // the update way: the tag's way on a tag hit, else the victim (the
+      // first empty way, else the first LRU minimum); every read of the
+      // LLC arrays is at it
+      const bool tag_hit = f.match != NONE;
+      const int i = base + (int)(tag_hit ? f.match
+                                 : (f.empty != NONE ? f.empty : f.lru));
+      const int row_v = L.tag[i];
+      const int v_valid = L.valid[i];
+      const int v_dirty = L.dirty[i];
+      const int v_pf = L.pf[i];
+      const int sh = L.shadow[i];
+      const int vg = row_v - 1;
+      // a carry the engine never makes: the victim's state from mem_state
+      const int v_mem = (!L.canonical && row_v != 0
+                         && (unsigned)vg < L.n_groups) ? L.mem[vg] : 0;
+      // every read of the event's state is made: no thread writes before
+      // all have read (each thread writes the same values itself)
+      __syncwarp();
+      const int v_here = tag_hit ? v_valid : 0;
       const bool hit = tag_hit && (v_here & lane_bit) != 0;
       const bool miss = !hit;
-      const bool sampled = __ldg(a.set_hash + s) < sample_thresh;
-      const bool dyn_on = counter >= enable;
-      const bool pf_bit = hit && (s_pf[base + way] & lane_bit) != 0;
-
-      // victim: merge into the existing way when the group tag is present
-      const int vway = tag_hit ? way : (ew >= 0 ? ew : lw);
-      const int row_v = s_tag[base + vway];
+      const bool sampled = (info & INFO_SAMPLED) != 0;
+      const bool dyn_on = counter >= L.enable;
+      const bool pf_bit = hit && (v_pf & lane_bit) != 0;
       const bool evicting = miss && !tag_hit && row_v != 0;
-      const int vg = row_v - 1;
-      const int v_valid = s_valid[base + vway];
-      const int v_dirty = s_dirty[base + vway];
-      if (evicting && ((unsigned)vg >= n_groups
+      if (evicting && ((unsigned)vg >= L.n_groups
                        || (unsigned)v_valid >= LANE_MASKS
                        || (unsigned)v_dirty >= LANE_MASKS)) {
-        err[ERR_CARRY] = 1;
-        break;
+        if (t == 0) err[ERR_CARRY] = 1;
+        return;
       }
 
-      // this event's global reads, started together (vg only when evicting:
-      // on an empty victim way it is -1)
-      int st_g = 0, vst = 0, fa = 0, fc = 0, fqv = 0;
-      if (miss) st_g = mem[g];
+      // the demand group's state from the ring, the victim's from the
+      // shadow (vg only when evicting: on an empty victim way it is -1)
+      const int st_g = miss ? sg : 0, pred = miss ? pred_raw : 0;
+      int vst = 0, vfit = 0;
       if (evicting) {
-        vst = mem[vg];
-        fa = __ldg(fab + vg); fc = __ldg(fcd + vg); fqv = __ldg(fq + vg);
-      }
-      uint32_t pidx = 0;
-      int pred = 0;
-      if (miss) {
-        const uint32_t page = (uint32_t)floordiv(addr, lpp);
-        pidx = (page * hash_mult) % lct_size;
-        pred = s_lct[pidx];
+        vst = L.canonical ? (sh & 7) : v_mem;
+        vfit = sh >> 3;
       }
       if ((unsigned)st_g >= MEM_STATES || (unsigned)vst >= MEM_STATES
-          || (unsigned)pred >= (unsigned)n_levels) {
-        err[ERR_CARRY] = 1;
-        break;
+          || (unsigned)pred >= (unsigned)L.n_levels) {
+        if (t == 0) err[ERR_CARRY] = 1;
+        return;
       }
 
       // fetch accounting (miss path)
       int probes = 1, obtained = 0;
       if (miss) {
-        if (f_llp && lanei != 0)
-          probes = __ldg(a.probe + (st_g * GROUP_LANES + lanei) * n_levels
-                         + pred);
-        const int true_slot = __ldg(a.loc + st_g * GROUP_LANES + lanei);
+        if (L.llp && lanei != 0) probes = probe_v;
         const int obt_next = lane_bit | (lanei < 3 ? lane_bit << 1 : 0);
-        obtained = f_comp
-            ? __ldg(a.lanes_in_slot + st_g * GROUP_LANES + true_slot)
-            : (f_next ? obt_next : lane_bit);
+        obtained = L.comp ? lis_v : (L.next ? obt_next : lane_bit);
       }
 
       int wb_d = 0, wb_c = 0, ilw = 0, ns = vst;
       if (evicting) {
-        const int ev_en = f_dyn ? ((sampled || dyn_on) ? 1 : 0)
-                                : (f_comp ? 1 : 0);
-        const int eidx =
-            (((((ev_en * MEM_STATES + vst) * 2 + fa) * 2 + fc) * 2 + fqv)
-                 * LANE_MASKS + v_valid) * LANE_MASKS + v_dirty;
-        wb_d = __ldg(a.evt_wb_dirty + eidx);
-        wb_c = __ldg(a.evt_wb_clean + eidx);
-        ilw = __ldg(a.evt_il + eidx);
-        ns = __ldg(a.evt_new_state + eidx);
+        const int ev_en = L.dyn ? ((sampled || dyn_on) ? 1 : 0)
+                                : (L.comp ? 1 : 0);
+        // (vfit & 1, 2, 4) are pair_ab, pair_cd, quad: the reference's
+        // index ((ev_en * 5 + vst) * 2 + fa) * 2 + fc) * 2 + fq
+        const int fits = ((vfit & 1) << 2) | (vfit & 2) | ((vfit >> 2) & 1);
+        const int eidx = (((ev_en * MEM_STATES + vst) * 8 + fits)
+                          * LANE_MASKS + v_valid) * LANE_MASKS + v_dirty;
+        const int ev = L.evict[eidx];
+        constexpr int M = (1 << EVICT_BITS) - 1;
+        wb_d = ev & M;
+        wb_c = (ev >> EVICT_BITS) & M;
+        ilw = (ev >> (2 * EVICT_BITS)) & M;
+        ns = (ev >> (3 * EVICT_BITS)) & M;
       }
-      if (f_ideal) { wb_c = 0; ilw = 0; }
+      if (L.ideal) { wb_c = 0; ilw = 0; }
 
       // stats
       st[ST_LLC_HITS] += hit ? 1 : 0;
@@ -326,57 +456,188 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
       st[ST_WB_DIRTY] += wb_d;
       st[ST_WB_CLEAN] += wb_c;
       st[ST_IL_WRITES] += ilw;
-      const bool need_pred = f_llp && miss && lanei > 0;
+      const bool need_pred = L.llp && miss && lanei > 0;
       st[ST_PRED_TOTAL] += need_pred ? 1 : 0;
       st[ST_PRED_HIT] += (need_pred && probes == 1) ? 1 : 0;
-      st[ST_PF_EXTRA_ACCESS] += (f_next && miss) ? 1 : 0;
+      st[ST_PF_EXTRA_ACCESS] += (L.next && miss) ? 1 : 0;
 
       // dynamic cost/benefit counter
-      if (f_dyn) {
+      if (L.dyn) {
         const int cost = ((evicting && sampled) ? wb_c + ilw : 0)
                          + ((miss && sampled) ? probes - 1 : 0);
         const int benefit = (hit && pf_bit && sampled) ? 1 : 0;
         int c = counter + benefit - cost;
-        counter = c < 0 ? 0 : (c > cmax ? cmax : c);
+        counter = c < 0 ? 0 : (c > L.cmax ? L.cmax : c);
       }
 
       // explicit metadata cache: demand miss first, then the victim's
       // dirty update against the state the first probe left
-      if (f_meta && miss)
-        meta_probe(s_mtag, s_mlru, s_mdirty, mclock, mw, meta_sets,
-                   floordiv(g, gpm), false, st[ST_META_READS],
-                   st[ST_META_WB], st[ST_META_HITS]);
-      if (f_meta && evicting && ns != vst)
-        meta_probe(s_mtag, s_mlru, s_mdirty, mclock, mw, meta_sets,
-                   floordiv(vg, gpm), true, st[ST_META_READS],
-                   st[ST_META_WB], st[ST_META_HITS]);
+      if (META && miss)
+        meta_apply(L, e.ms, L.gpm.div(g), fm, false, mclock, st);
+      if (META && evicting && ns != vst) {
+        const int vmline = L.gpm.div(vg);
+        const int vms = L.meta_sets.mod(vmline);
+        const Found fv = set_search(L.mtag + vms * L.mw, L.mlru + vms * L.mw,
+                                    L.mw, vmline + 1);
+        meta_apply(L, vms, vmline, fv, true, mclock, st);
+      }
 
       // LCT update (frozen when FLAG_LCT_UPDATE is off: cram-nollp)
-      if (f_lct && miss)
-        s_lct[pidx] = (int8_t)__ldg(a.lane_level + st_g * GROUP_LANES + lanei);
+      if (L.lct_update && miss) L.lct[pidx] = (int8_t)level;
 
-      if (evicting) mem[vg] = (int8_t)ns;
+      // the eviction's write, and the ring's slots of the same group
+      if (evicting) {
+        L.mem[vg] = (int8_t)ns;
+        patch(cur, vg, ns);
+        patch(nx, vg, ns);
+        if (n_g == vg) n_patch = ns;
+      }
 
       // LLC arrays at the update way
-      const int i = base + (hit ? way : vway);
-      const int wr_bit = wr ? lane_bit : 0;
-      s_lru[i] = clock;
+      const int wr_bit = (info & INFO_WR) ? lane_bit : 0;
+      L.lru[i] = clock;
       if (hit) {
-        s_dirty[i] = s_dirty[i] | wr_bit;
-        s_pf[i] = s_pf[i] & ~lane_bit;
+        L.dirty[i] = v_dirty | wr_bit;
+        L.pf[i] = v_pf & ~lane_bit;
       } else {
         const int prior = tag_hit ? v_here : 0;
         const int fresh = obtained & ~prior & ~lane_bit;
         st[ST_PF_INSTALLED] += __popc(fresh & 15);
-        const int prev_pf = tag_hit ? s_pf[i] : 0;
-        const int prev_dirty = tag_hit ? s_dirty[i] : 0;
-        s_tag[i] = g + 1;
-        s_valid[i] = prior | obtained;
-        s_dirty[i] = prev_dirty | wr_bit;
-        s_pf[i] = (prev_pf | fresh) & ~lane_bit;
+        const int prev_pf = tag_hit ? v_pf : 0;
+        const int prev_dirty = tag_hit ? v_dirty : 0;
+        L.tag[i] = g + 1;
+        L.valid[i] = prior | obtained;
+        L.dirty[i] = prev_dirty | wr_bit;
+        L.pf[i] = (prev_pf | fresh) & ~lane_bit;
+        if (!tag_hit) L.shadow[i] = (uint8_t)(info & 63);
       }
+      e = nx;
     }
+    // the next batch becomes current, its state patched where this batch
+    // evicted its group
+    cur = make_slot(L, n_addr, n_wr, n_st, n_fa, n_fc, n_fq);
+    if (n_patch >= 0) cur.info = (cur.info & ~7) | n_patch;
+    n_addr = nn_addr;
+    n_wr = nn_wr;
+  }
+}
 
+__global__ void __launch_bounds__(WARP)
+engine_scan_kernel(const EngineArgs a, volatile int* err) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const long long lane = blockIdx.x;
+  const int si = (int)(lane / a.n_workloads);
+  const int wi = (int)(lane % a.n_workloads);
+  const int sw = (int)(a.sets * a.ways);
+  const int mm = (int)(a.meta_sets * a.meta_ways);
+  const int n_lct = (int)a.lct_entries;
+  const int n_levels = (int)a.n_levels;
+
+  Lane L;
+  L.tag = reinterpret_cast<int32_t*>(smem);
+  L.lru = L.tag + up16(4LL * sw) / 4;
+  L.valid = L.lru + up16(4LL * sw) / 4;
+  L.dirty = L.valid + up16(4LL * sw) / 4;
+  L.pf = L.dirty + up16(4LL * sw) / 4;
+  L.mtag = L.pf + up16(4LL * sw) / 4;
+  L.mlru = L.mtag + up16(4LL * mm) / 4;
+  L.mdirty = reinterpret_cast<uint8_t*>(L.mlru + up16(4LL * mm) / 4);
+  L.lct = reinterpret_cast<int8_t*>(L.mdirty + up16(mm));
+  L.shadow = reinterpret_cast<uint8_t*>(L.lct + up16(n_lct));
+  uint16_t* s_evict = reinterpret_cast<uint16_t*>(L.shadow + up16(sw));
+  int32_t* s_probe = reinterpret_cast<int32_t*>(
+      s_evict + up16(2LL * EVICT_ENTRIES) / 2);
+  int32_t* s_loc = s_probe + up16(4LL * SLOT_TABLE * n_levels) / 4;
+  int32_t* s_lis = s_loc + up16(4LL * SLOT_TABLE) / 4;
+  int32_t* s_ll = s_lis + up16(4LL * SLOT_TABLE) / 4;
+  L.evict = s_evict; L.probe = s_probe; L.loc = s_loc; L.lis = s_lis;
+  L.ll = s_ll;
+
+  int32_t* g_tag = a.tag + lane * sw;
+  int32_t* g_lru = a.lru + lane * sw;
+  int32_t* g_valid = a.valid + lane * sw;
+  int32_t* g_dirty = a.dirty + lane * sw;
+  int32_t* g_pf = a.pf + lane * sw;
+  int32_t* g_mtag = a.mtag + lane * mm;
+  int32_t* g_mlru = a.mlru + lane * mm;
+  uint8_t* g_mdirty = a.mdirty + lane * mm;
+  int8_t* g_lct = a.lct + lane * n_lct;
+  L.mem = a.mem_state + lane * a.n_groups;
+  L.fab = a.pair_ab + wi * a.n_groups;
+  L.fcd = a.pair_cd + wi * a.n_groups;
+  L.fq = a.quad + wi * a.n_groups;
+  L.n_groups = (unsigned)a.n_groups;
+
+  // stage the lane's state and the tables; fill the shadow of every way
+  // the carry holds, and check that no group is held twice or outside
+  // its set (the shadow's invariant)
+  bool placed = true;
+  for (int i = t; i < sw; i += WARP) {
+    const int tg = g_tag[i];
+    L.tag[i] = tg; L.lru[i] = g_lru[i]; L.valid[i] = g_valid[i];
+    L.dirty[i] = g_dirty[i]; L.pf[i] = g_pf[i];
+    const unsigned vg = (unsigned)(tg - 1);
+    int sh = 0;
+    if (tg != 0 && vg < L.n_groups) {
+      sh = state_code(L.mem[vg]) | (__ldg(L.fab + vg) ? INFO_FA : 0)
+           | (__ldg(L.fcd + vg) ? INFO_FC : 0)
+           | (__ldg(L.fq + vg) ? INFO_FQ : 0);
+      const int set = i / (int)a.ways;
+      placed &= floormod((int)vg, (int)a.sets) == set;
+      for (int j = set * (int)a.ways; j < i; ++j) placed &= g_tag[j] != tg;
+    }
+    L.shadow[i] = (uint8_t)sh;
+  }
+  L.canonical = __all_sync(FULL, placed);
+  for (int i = t; i < mm; i += WARP) {
+    L.mtag[i] = g_mtag[i]; L.mlru[i] = g_mlru[i]; L.mdirty[i] = g_mdirty[i];
+  }
+  for (int i = t; i < n_lct; i += WARP) L.lct[i] = g_lct[i];
+  for (int i = t; i < EVICT_ENTRIES; i += WARP) s_evict[i] = __ldg(a.evict + i);
+  for (int i = t; i < SLOT_TABLE * n_levels; i += WARP)
+    s_probe[i] = __ldg(a.probe + i);
+  for (int i = t; i < SLOT_TABLE; i += WARP) {
+    s_loc[i] = __ldg(a.loc + i);
+    s_lis[i] = __ldg(a.lanes_in_slot + i);
+    s_ll[i] = __ldg(a.lane_level + i);
+  }
+  __syncwarp();
+
+  const int32_t* fl = a.flags + si * N_FLAGS;
+  const int32_t* pr = a.params + si * N_PARAMS;
+  L.comp = fl[FLAG_COMP] > 0; L.llp = fl[FLAG_LLP] > 0;
+  L.next = fl[FLAG_NEXTLINE] > 0; L.ideal = fl[FLAG_IDEAL] > 0;
+  L.dyn = fl[FLAG_DYNAMIC] > 0; L.lct_update = fl[FLAG_LCT_UPDATE] > 0;
+  const bool f_meta = fl[FLAG_META] > 0;
+  const int lct_param = pr[PARAM_LCT_SIZE];
+  const int meta_sets = pr[PARAM_META_SETS];
+  const bool params_ok = lct_param >= 1 && lct_param <= n_lct
+                         && meta_sets >= 1 && meta_sets <= a.meta_sets;
+  if (!params_ok && t == 0) err[ERR_PARAMS] = 1;
+  L.addrs = a.addrs + wi * a.addr_stride;
+  L.is_write = a.is_write + wi * a.write_stride;
+  L.set_hash = a.set_hash;
+  L.n = params_ok ? a.n_events : 0;
+  L.sets = (int)a.sets; L.ways = (int)a.ways; L.mw = (int)a.meta_ways;
+  L.lpp = (int)a.lines_per_page; L.n_levels = n_levels;
+  L.sample_thresh = pr[PARAM_SAMPLE_THRESH];
+  L.enable = (int)a.enable_threshold; L.cmax = (int)a.counter_max;
+  L.hash_mult = (uint32_t)a.hash_mult; L.lct_size = (uint32_t)lct_param;
+  L.gpm.set((int)a.groups_per_meta);
+  L.meta_sets.set(meta_sets);
+
+  int mclock = a.mclock[lane], counter = a.counter[lane];
+  int clock = a.clock[lane];
+  int st[N_STATS];
+#pragma unroll
+  for (int k = 0; k < N_STATS; ++k) st[k] = a.stats[lane * N_STATS + k];
+  const long long t_start = globaltimer();
+  if (L.n > 0) {
+    if (f_meta) run_events<true>(L, st, clock, counter, mclock, err);
+    else run_events<false>(L, st, clock, counter, mclock, err);
+  }
+  if (t == 0) {
     if (a.lane_ns != nullptr) {
       a.lane_ns[2 * lane] = t_start;
       a.lane_ns[2 * lane + 1] = globaltimer();
@@ -387,16 +648,15 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
 #pragma unroll
     for (int k = 0; k < N_STATS; ++k) a.stats[lane * N_STATS + k] = st[k];
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < sw; i += blockDim.x) {
-    g_tag[i] = s_tag[i]; g_lru[i] = s_lru[i]; g_valid[i] = s_valid[i];
-    g_dirty[i] = s_dirty[i]; g_pf[i] = s_pf[i];
+  __syncwarp();
+  for (int i = t; i < sw; i += WARP) {
+    g_tag[i] = L.tag[i]; g_lru[i] = L.lru[i]; g_valid[i] = L.valid[i];
+    g_dirty[i] = L.dirty[i]; g_pf[i] = L.pf[i];
   }
-  for (int i = threadIdx.x; i < mm; i += blockDim.x) {
-    g_mtag[i] = s_mtag[i]; g_mlru[i] = s_mlru[i]; g_mdirty[i] = s_mdirty[i];
+  for (int i = t; i < mm; i += WARP) {
+    g_mtag[i] = L.mtag[i]; g_mlru[i] = L.mlru[i]; g_mdirty[i] = L.mdirty[i];
   }
-  for (int i = threadIdx.x; i < n_lct; i += blockDim.x) g_lct[i] = s_lct[i];
+  for (int i = t; i < n_lct; i += WARP) g_lct[i] = L.lct[i];
 }
 
 // Launches E1 on `stream` and waits for it.  Returns 0, a cudaError, or
@@ -407,11 +667,11 @@ extern "C" int cram_engine_scan(const EngineArgs* args, long long smem,
   const EngineArgs a = *args;
   const long long lanes = a.n_schemes * a.n_workloads;
   if (lanes <= 0 || lanes > 0x7FFFFFFFLL || a.n_events <= 0 || smem <= 0
-      || a.n_groups <= 0 || a.n_groups > 0x7FFFFFFFLL)
+      || a.n_groups <= 0 || a.n_groups > 0x7FFFFFFFLL || a.n_levels <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long expect = 5 * up16(4 * a.sets * a.ways)
-      + 2 * up16(4 * a.meta_sets * a.meta_ways)
-      + up16(a.meta_sets * a.meta_ways) + up16(a.lct_entries);
+  const long long expect = smem_layout(a.sets * a.ways,
+                                       a.meta_sets * a.meta_ways,
+                                       a.lct_entries, a.n_levels);
   if (smem != expect) return (int)cudaErrorInvalidValue;
 
   // one set of flags for the process, in mapped host memory: the kernel
@@ -437,7 +697,7 @@ extern "C" int cram_engine_scan(const EngineArgs* args, long long smem,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  engine_scan_kernel<<<(unsigned)lanes, 32, (size_t)smem,
+  engine_scan_kernel<<<(unsigned)lanes, WARP, (size_t)smem,
                        (cudaStream_t)stream>>>(a, dev_err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

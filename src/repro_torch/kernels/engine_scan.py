@@ -57,6 +57,10 @@ CONST_NAMES = ("enable_threshold", "counter_max", "hash_mult",
 SMEM_LIMIT = 232_448        # dynamic shared memory a block may use (H100)
 MEM_STATES = 5              # mem_state values (S_U .. S_Q)
 LANE_MASKS = 16             # valid / dirty / pf masks of a group
+EVICT_ENTRIES = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS
+EVICT_COLUMNS = TABLE_NAMES[:4]     # packed into one word an entry
+EVICT_BITS = 3
+_PACKED: list = []          # (columns, their versions, packed): recent packs
 # what E1 refuses as it runs, by the negative code it returns (ERR_* in
 # csrc/engine_scan.cu)
 REFUSALS = ("a trace address lies outside [0, 4 * n_groups)",
@@ -304,7 +308,7 @@ class _Args(ctypes.Structure):
         "tag", "lru", "valid", "dirty", "pf", "mem_state", "lct", "mtag",
         "mlru", "mdirty", "mclock", "counter", "clock", "stats", "flags",
         "params", "addrs", "is_write", "pair_ab", "pair_cd", "quad",
-        *TABLE_NAMES, "lane_ns")]
+        "evict", *TABLE_NAMES[len(EVICT_COLUMNS):], "lane_ns")]
                 + [(n, ctypes.c_longlong) for n in (
                     "n_schemes", "n_workloads", "addr_stride",
                     "write_stride", "n_events", "sets", "ways", "n_groups",
@@ -313,14 +317,45 @@ class _Args(ctypes.Structure):
 
 
 def smem_bytes(sets: int, ways: int, meta_sets: int, meta_ways: int,
-               lct_entries: int) -> int:
-    """Dynamic shared memory of one CTA: the five LLC arrays, the metadata
-    cache's tag and LRU arrays (int32), its dirty bits and the LCT (one
-    byte each), each region rounded up to 16 bytes."""
+               lct_entries: int, n_levels: int) -> int:
+    """Dynamic shared memory of one CTA (`smem_layout` in the CUDA
+    source), each region rounded up to 16 bytes: the lane's state (the
+    five LLC arrays, the metadata cache's tag and LRU arrays as int32, its
+    dirty bits and the LCT as bytes), the shadow (a byte an LLC way), the
+    packed eviction table (16 bits an entry) and PROBE (5 x 4 x n_levels),
+    LOC, LANES_IN_SLOT and LANE_LEVEL (5 x 4 each) as int32."""
     def up(n):
         return (n + 15) // 16 * 16
+    slot_table = MEM_STATES * 4
     return (5 * up(4 * sets * ways) + 2 * up(4 * meta_sets * meta_ways)
-            + up(meta_sets * meta_ways) + up(lct_entries))
+            + up(meta_sets * meta_ways) + up(lct_entries)
+            + up(sets * ways) + up(2 * EVICT_ENTRIES)
+            + up(4 * slot_table * n_levels) + 3 * up(4 * slot_table))
+
+
+def pack_evict_table(tables: dict):
+    """The eviction table's four int32 columns as one 16-bit word an
+    entry, 3 bits a column: wb_dirty | wb_clean << 3 | il << 6 |
+    new_state << 9 (int16 on the columns' device).  Made once for a set
+    of column tensors (kept with them, and made again after an in-place
+    change to one), so a launch enqueues nothing else.  Raises ValueError
+    when a column holds a value outside [0, 8)."""
+    cols = tuple(tables[k] for k in EVICT_COLUMNS)
+    versions = tuple(c._version for c in cols)
+    for held, vers, packed in _PACKED:
+        if vers == versions and all(h is c for h, c in zip(held, cols)):
+            return packed
+    for name, c in zip(EVICT_COLUMNS, cols, strict=True):
+        lo, hi = int(c.min()), int(c.max())
+        if lo < 0 or hi >= 1 << EVICT_BITS:
+            raise ValueError(f"eviction table column {name} holds values in "
+                             f"[{lo}, {hi}], outside the [0, "
+                             f"{1 << EVICT_BITS}) its {EVICT_BITS} packed "
+                             "bits hold")
+    packed = sum(c << (EVICT_BITS * k) for k, c in enumerate(cols))
+    _PACKED.insert(0, (cols, versions, packed.to(torch.int16)))
+    del _PACKED[4:]
+    return _PACKED[0][2]
 
 
 def _check(name, x, dtype, shape, dev):
@@ -377,10 +412,8 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                          "contiguous")
     if addrs.stride(-1) != 1 or is_write.stride(-1) != 1:
         raise ValueError("addrs and is_write need a unit column stride")
-    n_evict = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS
     n_levels = tables["probe"].shape[-1]
-    shapes = dict.fromkeys(("wb_dirty", "wb_clean", "il", "new_state"),
-                           (n_evict,))
+    shapes = dict.fromkeys(EVICT_COLUMNS, (EVICT_ENTRIES,))
     shapes.update(dict.fromkeys(("loc", "lanes_in_slot", "lane_level"),
                                 (MEM_STATES, 4)),
                   probe=(MEM_STATES, 4, n_levels), set_hash=(sets,))
@@ -395,19 +428,22 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
         _check("lane_ns", lane_ns, torch.int64, (n_s * n_w, 2), dev)
         if not lane_ns.is_contiguous():
             raise ValueError("lane_ns must be contiguous")
-    smem = smem_bytes(sets, ways, ms_alloc, mw, lct.shape[-1])
+    smem = smem_bytes(sets, ways, ms_alloc, mw, lct.shape[-1], n_levels)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"one lane's state needs {smem} bytes of shared "
-                         f"memory, above the block limit of {SMEM_LIMIT}")
+        raise ValueError(f"one lane's state and the tables need {smem} bytes "
+                         "of shared memory, above the block limit of "
+                         f"{SMEM_LIMIT}")
     if n_events == 0 or n_s * n_w == 0:
         return carry
+    evict = pack_evict_table(tables)
     p = cuda_lib.ptr
     args = _Args(
         *(p(x).value for x in (tag, lru, valid, dirty, pf, mem_state, lct,
                                mtag, mlru, mdirty, mclock, counter, clock,
                                stats, flags, params, addrs, is_write,
                                pair_ab, pair_cd, quad)),
-        *(p(tables[k]).value for k in TABLE_NAMES),
+        p(evict).value,
+        *(p(tables[k]).value for k in TABLE_NAMES[len(EVICT_COLUMNS):]),
         None if lane_ns is None else p(lane_ns).value,
         n_s, n_w, addrs.stride(0), is_write.stride(0), n_events, sets, ways,
         n_groups, ms_alloc, mw, lct.shape[-1], n_levels,

@@ -41,7 +41,7 @@ import torch
 from repro_torch.compression import pagepack
 from repro_torch.compression.marker import LineStatus
 from repro_torch.compression.predictor import LCT_ENTRIES
-from repro_torch.core import engine
+from repro_torch.core import engine, schemes, traces
 from repro_torch.core.engine import SimConfig
 from repro_torch.kernels import bdi_pack
 from repro_torch.kernels import compress_scan as cs
@@ -499,7 +499,16 @@ E1_CONFIGS = {
     "second": dict(llc_sets=64, llc_ways=4, meta_sets=32,
                    compress_clean=False),
     "small": dict(llc_sets=16, llc_ways=2, n_groups=512),
+    # more ways than a warp has threads: a thread searches several
+    "wide_llc": dict(llc_sets=4, llc_ways=40, n_groups=512),
+    "wide_meta": dict(llc_sets=16, llc_ways=2, n_groups=512, meta_sets=2,
+                      meta_ways=40, groups_per_meta=4),
 }
+
+
+CARRY_NAMES = ("tag", "lru", "valid", "dirty", "pf", "mem_state", "lct",
+               "mtag", "mlru", "mdirty", "mclock", "counter", "clock",
+               "stats")
 
 
 def _e1_inputs(rng, cfg, n_s, n_w, t):
@@ -564,7 +573,7 @@ def test_engine_scan_kernel_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         engine.build_engine(cfg).run_chunk(carry, torch.zeros((1, 7)), z, z,
                                     z.bool(), fit, fit, fit)
-    assert es.smem_bytes(4096, 4, 64, 8, 512) > es.SMEM_LIMIT
+    assert es.smem_bytes(4096, 4, 64, 8, 512, 3) > es.SMEM_LIMIT
 
 
 @pytest.mark.cuda
@@ -608,6 +617,132 @@ def test_engine_scan_kernel_refuses_bad_indices(cuda, fault, match):
             engine.engine_consts(cfg))
         for g, r in zip(carry[:7], want[:7], strict=True):
             assert torch.equal(g.cpu(), r)
+
+
+def _e1_rows(cfg, device):
+    rows = schemes.names()
+    return (torch.as_tensor(schemes.flags_matrix(rows), device=device),
+            torch.as_tensor(schemes.params_matrix(rows, cfg), device=device))
+
+
+def _refetch_trace(gap, offset, t=200):
+    """A one-way, one-set LLC's trace over groups 5 (A) and 9 (B): A from
+    event `offset`, B evicts A at `offset + 1` (A's mem_state changes:
+    its fit bits say it packs), B hits until A misses again `gap` events
+    after its eviction, which evicts B; B misses right after, and the
+    pattern repeats to the end.  E1 fetched A's mem_state a batch of 32
+    events ahead: a stale fetch changes the stats."""
+    rng = np.random.default_rng(gap * 100 + offset)
+    groups = np.full(t, 9)
+    e = offset
+    groups[:e + 1] = 5
+    while e + 2 + gap < t:
+        groups[e + 1:e + 1 + gap] = 9       # B: evicts A, then hits
+        groups[e + 1 + gap] = 5             # A again, `gap` events later
+        e += 1 + gap
+    addrs = 4 * groups + rng.integers(0, 4, t)
+    return addrs.astype(np.int32), rng.random(t) < 0.5
+
+
+@pytest.mark.cuda
+def test_engine_scan_kernel_refetch_after_eviction(cuda):
+    """A group evicted and missed again 1, 2, 31, 32, 33 and 63 events
+    later, the eviction at every offset of a batch from its first event
+    to its last: E1 equals the plain version on every carry tensor, for
+    all 10 registry rows, in one launch."""
+    cfg = SimConfig(llc_sets=1, llc_ways=1, n_groups=512)
+    gaps, offsets = (1, 2, 31, 32, 33, 63), (0, 1, 15, 30, 31)
+    traces = [_refetch_trace(g, o) for g in gaps for o in offsets]
+    fits = np.zeros((len(traces), cfg.n_groups), bool)
+    fits[:, 5] = True
+    trace = (np.stack([a for a, _ in traces]),
+             np.stack([w for _, w in traces]), fits, fits, fits)
+    flags, params = _e1_rows(cfg, "cpu")
+    want = _e1_run(cfg, flags, params, trace, torch.device("cpu"))
+    got = _e1_run(cfg, flags.to(cuda), params.to(cuda), trace, cuda)
+    torch.cuda.synchronize()
+    assert int(want[5].ne(0).sum()) > 0      # A's mem_state did change
+    for name, g, w in zip(CARRY_NAMES, got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_engine_scan_kernel_second_chunk_starts_full(cuda):
+    """A chunked run whose second chunk starts with every LLC way holding
+    a group (E1 fills each way's shadow from mem_state and the fit bits
+    at launch): equal to the plain version's single run."""
+    cfg = SimConfig(llc_sets=16, llc_ways=4)
+    built = [traces.build_workload(n, 1500, 0)
+             for n in ("libq", "pr_twi", "mix3")]
+    trace = tuple(np.stack([b[i] for b in built]) for i in range(1, 6))
+    flags, params = _e1_rows(cfg, "cpu")
+    head = _e1_run(cfg, flags, params, tuple(
+        x[:, :700] if k < 2 else x for k, x in enumerate(trace)),
+        torch.device("cpu"))
+    assert bool(head[0].ne(0).all())          # every way of every lane
+    want = _e1_run(cfg, flags, params, trace, torch.device("cpu"))
+    got = _e1_run(cfg, flags.to(cuda), params.to(cuda), trace, cuda, [700])
+    torch.cuda.synchronize()
+    for name, g, w in zip(CARRY_NAMES, got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_engine_scan_kernel_group_held_in_two_ways(cuda):
+    """A carry the engine never makes: one group in both ways of its set.
+    Its first eviction changes its mem_state, so the copy left behind no
+    longer matches its shadow; E1 then reads the victim's state from
+    mem_state, and equals the plain version on every carry tensor."""
+    cfg = SimConfig(**E1_CONFIGS["small"])           # 16 sets x 2 ways
+    x = 3                                            # groups 3, 19, 35: set 3
+    trace = (np.array([[4 * (x + 16), 4 * (x + 32), 4 * x + 1,
+                        4 * (x + 16) + 2]], np.int32),
+             np.array([[True, False, True, False]]),
+             *(np.ones((1, cfg.n_groups), bool) for _ in range(3)))
+    flags, params = _e1_rows(cfg, "cpu")
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        eng = engine.build_engine(cfg)
+        pr = params.to(dev)
+        carry = eng.init_state(pr, 1, device=dev)
+        carry[0][:, 0, x] = x + 1
+        carry[1][:, 0, x] = torch.tensor([1, 2], device=dev)
+        carry[2][:, 0, x] = 15
+        carry[3][:, 0, x] = 1
+        carry[9][:] = 10
+        eng.run_chunk(carry, flags.to(dev), pr,
+                      *engine.trace_tensors(cfg, *trace, dev))
+        mtag, mlru, mdirty, mclock = carry[7]
+        out.append([t.cpu() for t in (*carry[:7], mtag, mlru, mdirty,
+                                      mclock, *carry[8:])])
+    want, got = out
+    assert int(want[5][:, 0, x].ne(0).sum()) > 0
+    for name, g, w in zip(CARRY_NAMES, got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("column,value", [("wb_dirty", 8), ("new_state", -1)])
+def test_engine_scan_kernel_refuses_an_unpackable_evict_table(cuda, column,
+                                                              value):
+    """The wrapper packs the eviction table 3 bits a column and refuses a
+    table that does not fit, before it launches."""
+    cfg = SimConfig(**E1_CONFIGS["small"])
+    flags, params, trace = _e1_inputs(np.random.default_rng(3), cfg, 1, 1,
+                                      50)
+    eng = engine.build_engine(cfg)
+    a, w, pab, pcd, pq = engine.trace_tensors(cfg, *trace, cuda)
+    pr = torch.as_tensor(params, device=cuda)
+    carry = eng.init_state(pr, 1, device=cuda)
+    tables = dict(engine.device_tables(cfg, cuda))
+    tables[column] = tables[column].clone()
+    tables[column][11] = value
+    before = es.LAUNCHES["engine_scan"]
+    with pytest.raises(ValueError, match=f"column {column}"):
+        es.engine_scan_cuda(carry, torch.as_tensor(flags, device=cuda), pr,
+                            a, w, pab, pcd, pq, tables,
+                            engine.engine_consts(cfg))
+    assert es.LAUNCHES["engine_scan"] == before
 
 
 # ------------------------------------------------- the CPU half (runs here)

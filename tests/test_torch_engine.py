@@ -156,28 +156,76 @@ def test_layout_indices_equal_reference():
 
 
 def test_cuda_source_matches_the_python_layouts():
-    """E1's enums and its argument struct, read from the source, agree with
-    the layouts in Python and with the ctypes struct field by field."""
+    """E1's enums, its table constants and its argument struct, read from
+    the source, agree with the layouts in Python and with the ctypes
+    struct field by field; the shared-memory layout the C entry expects
+    (`smem_layout`, evaluated from the source) equals `smem_bytes`."""
     src = (ROOT / "src/repro_torch/csrc/engine_scan.cu").read_text()
     for name, value in re.findall(r"\b((?:ST|FLAG|PARAM|N)_[A-Z_]+) = (\d+)",
                                   src):
         assert getattr(es, name) == int(value), name
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    env = {}
+    for name in ("MEM_STATES", "LANE_MASKS", "EVICT_ENTRIES", "EVICT_BITS",
+                 "GROUP_LANES", "SLOT_TABLE"):
+        env[name] = eval(consts[name], dict(env))
+    for name in ("MEM_STATES", "LANE_MASKS", "EVICT_ENTRIES", "EVICT_BITS"):
+        assert env[name] == getattr(es, name), name
+    assert env["SLOT_TABLE"] == es.MEM_STATES * env["GROUP_LANES"]
     body = src.split("struct EngineArgs {", 1)[1].split("};", 1)[0]
     body = re.sub(r"//[^\n]*", "", body)
     fields = [f.strip().split()[-1].lstrip("*")
               for decl in body.split(";") if decl.strip()
               for f in decl.replace("const ", "").split(",")]
-    py = [f[0] for f in es._Args._fields_]
-    py = [("evt_" + f if f in ("wb_dirty", "wb_clean", "il", "new_state")
-           else f) for f in py]
-    assert fields == py
+    assert fields == [f[0] for f in es._Args._fields_]
     assert all(ctypes.sizeof(t) == 8 for _, t in es._Args._fields_)
+    layout = src.split("long long smem_layout(", 1)[1]
+    layout = " ".join(layout.split("return", 1)[1].split(";", 1)[0].split())
+    assert "smem_layout(a.sets * a.ways,\n" in src
+    env["up16"] = lambda n: (n + 15) // 16 * 16
+    for sets, ways, ms, mw, lct, lv in ((128, 8, 64, 8, 512, 3),
+                                        (5, 3, 3, 3, 7, 2), (4, 40, 2, 40,
+                                                             512, 3)):
+        got = eval(layout, env | dict(sw=sets * ways, mm=ms * mw, lct=lct,
+                                      n_levels=lv))
+        assert got == es.smem_bytes(sets, ways, ms, mw, lct, lv)
 
 
 def test_smem_bytes():
-    assert es.smem_bytes(128, 8, 64, 8, 512) == 25_600
-    assert es.smem_bytes(64, 4, 32, 8, 512) == 5120 + 2048 + 256 + 512
-    assert es.smem_bytes(5, 3, 3, 3, 7) == 5 * 64 + 2 * 48 + 16 + 16
+    """The lane's state, the shadow and the tables (eviction table packed
+    to 16 bits an entry; PROBE, LOC, LANES_IN_SLOT, LANE_LEVEL int32),
+    each region rounded up to 16 bytes: 68,064 B at the defaults, so 3
+    CTAs fit on an SM."""
+    tables = 40_960 + 240 + 3 * 80
+    assert es.smem_bytes(128, 8, 64, 8, 512, 3) == 25_600 + 1024 + tables
+    assert es.smem_bytes(128, 8, 64, 8, 512, 3) == 68_064
+    assert 3 * (68_064 + 1024) <= 228 * 1024
+    assert es.smem_bytes(64, 4, 32, 8, 512, 3) == (5120 + 2048 + 256 + 512
+                                                   + 256 + tables)
+    assert es.smem_bytes(5, 3, 3, 3, 7, 3) == (5 * 64 + 2 * 48 + 16 + 16
+                                               + 16 + tables)
+
+
+def test_pack_evict_table():
+    """The eviction table's columns, 3 bits each in one 16-bit word, made
+    once per set of column tensors and again after an in-place change;
+    a value outside [0, 8) is refused."""
+    tables = {k: torch.from_numpy(v.copy()) for k, v in
+              engine.engine_tables(SimConfig()).items()}
+    packed = es.pack_evict_table(tables)
+    assert packed.dtype == torch.int16 and packed.shape == (es.EVICT_ENTRIES,)
+    word = packed.to(torch.int32)
+    for k, name in enumerate(es.EVICT_COLUMNS):
+        assert torch.equal((word >> (3 * k)) & 7, tables[name]), name
+    assert int(word.max()) < 1 << 12
+    assert es.pack_evict_table(tables) is packed
+    tables["il"][7] = 5
+    again = es.pack_evict_table(tables)
+    assert again is not packed and int(again[7]) >> 6 & 7 == 5
+    for bad in (8, -1):
+        tables["new_state"][3] = bad
+        with pytest.raises(ValueError, match="new_state"):
+            es.pack_evict_table(tables)
 
 
 # ------------------------------------------------------------- workloads
