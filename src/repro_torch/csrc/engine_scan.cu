@@ -15,10 +15,10 @@
 // below what the card could move in the same time.
 //
 // What the design does about that: no global-memory round trip sits on
-// the chain.  One CTA of one warp per lane; the warp stages the lane's
-// small state (the five LLC arrays, the metadata cache, the LCT) and the
-// tables into dynamic shared memory, runs the events in lockstep, and
-// writes the state back.
+// the chain.  One CTA of two warps per lane.  The first warp stages the
+// lane's small state (the five LLC arrays, the LCT) and the tables into
+// dynamic shared memory, runs the events in lockstep, and writes the
+// state back.
 //   * The trace ring: thread t holds the slot of event `base + t` of the
 //     current batch of 32: its group, set, LCT index, write and sampling
 //     bits, and the group's mem_state and three fit bits, fetched one
@@ -37,20 +37,28 @@
 //     the engine never makes (a group held in two ways, or outside its
 //     set) breaks that, and the lane then reads the victim's state from
 //     mem_state as before.
-//   * The set searches (the LLC's and the metadata cache's): thread w
-//     reads ways w, w + 32, ...; warp reductions give the first match,
-//     the first empty way and the first LRU minimum.
+//   * The set searches: up to 32 ways, thread w reads way w and votes
+//     give the first match, the first empty way and the first LRU
+//     minimum; above that, thread t reads ways t, t + 32, ... and the
+//     warp reduces.
 //   * Tables in shared memory: the eviction table's four columns packed
 //     3 bits each into one 16-bit word an entry (the wrapper packs them
 //     and refuses values outside [0, 8)), PROBE, LOC, LANES_IN_SLOT and
 //     LANE_LEVEL; SET_HASH is read only when a slot is fetched.
-// Every thread computes every value of the event and makes every store
-// itself (the same value to the same address), so a thread's later read
-// of an address follows its own write of it in program order; one
-// __syncwarp() between an event's reads of the state and its writes
+//   * The metadata cache (explicit-metadata rows only) is the second
+//     warp's: nothing else the step computes reads it, so the first warp
+//     queues its accesses in order in shared memory (the demand miss's
+//     line, then the victim's dirty update when its state changes), a
+//     batch of 32 events at a time, and the second warp runs them while
+//     the first runs the next batch.  In every other row the second warp
+//     returns at once.
+// Every thread of a warp computes every value of an event and makes
+// every store itself (the same value to the same address), so a thread's
+// later read of an address follows its own write of it in program order;
+// one __syncwarp() between an event's reads of the state and its writes
 // keeps a thread that runs ahead from writing what another has yet to
 // read.
-//
+
 // Semantics held bit for bit (the plain version, kernels/engine_scan.py,
 // is the oracle): first index wins in every tag, empty-way and LRU search
 // (strict `<`); an empty victim way gives vg = -1, whose reads the
@@ -105,11 +113,13 @@ constexpr unsigned NONE = 0xffffffffu;   // no way found
 // a mem_state held in 3 bits: 0..4 as they are, any value outside them
 // (a carry the tables cannot index) as BAD, which every check refuses
 constexpr int BAD_STATE = 7;
-// a ring slot's `info` word and a shadow byte share the low six bits:
-// state (3 bits), then the group's pair_ab, pair_cd and quad fit bits
+// a ring slot's `info` word and a shadow byte share the low six bits,
+// state * 8 + fits, where fits = pair_ab * 4 + pair_cd * 2 + quad: the
+// eviction table's index of (state, fits), as the reference orders them
 enum {
-  INFO_FA = 1 << 3, INFO_FC = 1 << 4, INFO_FQ = 1 << 5, INFO_WR = 1 << 6,
-  INFO_SAMPLED = 1 << 7, INFO_LANE_SHIFT = 8, INFO_OK = 1 << 10
+  INFO_FQ = 1, INFO_FC = 2, INFO_FA = 4, INFO_STATE_SHIFT = 3,
+  INFO_STATE = 7 << INFO_STATE_SHIFT, INFO_WR = 1 << 6, INFO_SAMPLED = 1 << 7,
+  INFO_LANE_SHIFT = 8, INFO_OK = 1 << 10
 };
 
 // Every field is 8 bytes wide, in the order of `_Args` in
@@ -157,13 +167,16 @@ __host__ __device__ __forceinline__ long long up16(long long n) {
 // 16 bytes: the five LLC arrays, the metadata cache's tag and LRU arrays
 // (int32), its dirty bytes, the LCT, the shadow (a byte a way), the
 // packed eviction table (16 bits an entry), PROBE, LOC, LANES_IN_SLOT and
-// LANE_LEVEL (int32).  `smem_bytes` in kernels/engine_scan.py counts the
-// same.
+// LANE_LEVEL (int32), and the metadata-cache queue (two batches of
+// requests and their two counts, int32).  `smem_bytes` in
+// kernels/engine_scan.py counts the same.
+constexpr int QUEUE = 2 * WARP;        // requests a batch: two an event
 __host__ __device__ __forceinline__ long long smem_layout(
     long long sw, long long mm, long long lct, long long n_levels) {
   return 5 * up16(4 * sw) + 2 * up16(4 * mm) + up16(mm) + up16(lct)
          + up16(sw) + up16(2 * EVICT_ENTRIES)
-         + up16(4 * SLOT_TABLE * n_levels) + 3 * up16(4 * SLOT_TABLE);
+         + up16(4 * SLOT_TABLE * n_levels) + 3 * up16(4 * SLOT_TABLE)
+         + up16(4 * 2 * QUEUE) + up16(4 * 2);
 }
 
 __device__ __forceinline__ int state_code(int v) {
@@ -171,23 +184,39 @@ __device__ __forceinline__ int state_code(int v) {
 }
 
 // The first match of `want`, the first empty way (NONE when there is
-// none) and the first LRU minimum (strict `<`) among n ways: thread t
-// reads ways t, t + 32, ..., then the warp reduces.
+// none) and the first LRU minimum (strict `<`) among n ways.  Up to 32
+// ways, thread w reads way w: votes give the first match and the first
+// empty way, a min-reduction then a vote the first LRU minimum.  Above
+// that, thread t reads ways t, t + 32, ... and the warp reduces each.
 struct Found { unsigned match, empty, lru; };
 
 __device__ __forceinline__ Found set_search(const int32_t* tags,
                                             const int32_t* lrus, int n,
                                             int want) {
+  Found f;
+  if (n <= WARP) {
+    const int w = threadIdx.x & (WARP - 1);
+    const bool in = w < n;
+    const int tg = in ? tags[w] : 0;
+    const int l = in ? lrus[w] : INT_MAX;
+    const unsigned bm = __ballot_sync(FULL, in && tg == want);
+    const unsigned be = __ballot_sync(FULL, in && tg == 0);
+    const int lmin = __reduce_min_sync(FULL, l);
+    const unsigned bl = __ballot_sync(FULL, in && l == lmin);
+    f.match = bm ? __ffs(bm) - 1 : NONE;
+    f.empty = be ? __ffs(be) - 1 : NONE;
+    f.lru = __ffs(bl) - 1;
+    return f;
+  }
   unsigned m = NONE, e = NONE, li = NONE;
   int lv = INT_MAX;
-  for (int w = threadIdx.x; w < n; w += WARP) {
+  for (int w = threadIdx.x & (WARP - 1); w < n; w += WARP) {
     const int tg = tags[w];
     const int l = lrus[w];
     if (m == NONE && tg == want) m = w;
     if (e == NONE && tg == 0) e = w;
     if (li == NONE || l < lv) { lv = l; li = w; }
   }
-  Found f;
   f.match = __reduce_min_sync(FULL, m);
   f.empty = __reduce_min_sync(FULL, e);
   const int lmin = __reduce_min_sync(FULL, lv);
@@ -216,7 +245,7 @@ struct Div {
 
 // One ring slot: what event `e` needs that does not depend on the
 // events before it, and its group's fetched mem_state and fit bits.
-struct Slot { int g, base, pidx, info, ms; };
+struct Slot { int g, base, pidx, info; };
 
 // One lane: its inputs, its state in shared memory, its scheme row.
 struct Lane {
@@ -228,6 +257,7 @@ struct Lane {
   int8_t* lct;
   const uint16_t* evict;
   const int32_t *probe, *loc, *lis, *ll;
+  int* queue;                      // [2][QUEUE] requests, then [2] counts
   long long n;
   unsigned n_groups;
   int sets, ways, mw, lpp, n_levels, sample_thresh, enable, cmax;
@@ -236,27 +266,33 @@ struct Lane {
   bool comp, llp, next, ideal, dyn, lct_update, canonical;
 };
 
-// One metadata-cache access, applied (the caller gates it) from the
-// search `f` of set `ms` for `mline`: the reference's `meta_probe`
-// followed by `_sel_state` with apply = true.
-__device__ __forceinline__ void meta_apply(const Lane& L, int ms, int mline,
-                                           const Found& f, bool make_dirty,
-                                           int& mclock, int* st) {
-  int32_t* row = L.mtag + ms * L.mw;
-  int32_t* lrow = L.mlru + ms * L.mw;
-  uint8_t* drow = L.mdirty + ms * L.mw;
-  const bool hit = f.match != NONE;
-  const int way = (int)(hit ? f.match : (f.empty != NONE ? f.empty : f.lru));
-  const bool old_dirty = drow[way] != 0;
-  const bool vic_dirty = !hit && row[way] != 0 && old_dirty;
-  __syncwarp();   // read before any thread writes
-  row[way] = mline + 1;
+// One metadata-cache access (the reference's `meta_probe` followed by
+// `_sel_state` with apply = true; the caller gates it): what it reads
+// from set `ms` after the search `f`, then what it writes.
+struct MetaRead { int way; bool hit, old_dirty, vic_dirty; };
+
+__device__ __forceinline__ MetaRead meta_read(const Lane& L, int ms,
+                                              const Found& f) {
+  MetaRead r;
+  r.hit = f.match != NONE;
+  r.way = (int)(r.hit ? f.match : (f.empty != NONE ? f.empty : f.lru));
+  r.old_dirty = L.mdirty[ms * L.mw + r.way] != 0;
+  r.vic_dirty = !r.hit && L.mtag[ms * L.mw + r.way] != 0 && r.old_dirty;
+  return r;
+}
+
+__device__ __forceinline__ void meta_write(const Lane& L, int ms, int mline,
+                                           const MetaRead& r,
+                                           bool make_dirty, int& mclock,
+                                           int* st) {
+  const int i = ms * L.mw + r.way;
+  L.mtag[i] = mline + 1;
   mclock += 1;
-  lrow[way] = mclock;
-  drow[way] = ((hit && old_dirty) || make_dirty) ? 1 : 0;
-  st[ST_META_READS] += hit ? 0 : 1;
-  st[ST_META_WB] += vic_dirty ? 1 : 0;
-  st[ST_META_HITS] += hit ? 1 : 0;
+  L.mlru[i] = mclock;
+  L.mdirty[i] = ((r.hit && r.old_dirty) || make_dirty) ? 1 : 0;
+  st[ST_META_READS] += r.hit ? 0 : 1;
+  st[ST_META_WB] += r.vic_dirty ? 1 : 0;
+  st[ST_META_HITS] += r.hit ? 1 : 0;
 }
 
 // The trace's address and write flag of event e (0 past the chunk's end).
@@ -294,9 +330,9 @@ __device__ __forceinline__ Slot make_slot(const Lane& L, int addr, int wr,
   s.base = set * L.ways;
   const uint32_t page = (uint32_t)floordiv(addr, L.lpp);
   s.pidx = (int)((page * L.hash_mult) % L.lct_size);
-  s.ms = ok ? L.meta_sets.mod(L.gpm.div(s.g)) : 0;
   const bool sampled = ok && __ldg(L.set_hash + set) < L.sample_thresh;
-  s.info = state_code(st) | (fa ? INFO_FA : 0) | (fc ? INFO_FC : 0)
+  s.info = (state_code(st) << INFO_STATE_SHIFT) | (fa ? INFO_FA : 0)
+           | (fc ? INFO_FC : 0)
            | (fq ? INFO_FQ : 0) | (wr ? INFO_WR : 0)
            | (sampled ? INFO_SAMPLED : 0) | ((addr & 3) << INFO_LANE_SHIFT)
            | (ok ? INFO_OK : 0);
@@ -309,24 +345,45 @@ __device__ __forceinline__ Slot shfl_slot(const Slot& s, int j) {
   o.base = __shfl_sync(FULL, s.base, j);
   o.pidx = __shfl_sync(FULL, s.pidx, j);
   o.info = __shfl_sync(FULL, s.info, j);
-  o.ms = __shfl_sync(FULL, s.ms, j);
   return o;
 }
 
 // A ring slot's state after an eviction wrote `ns` to group vg.
 __device__ __forceinline__ void patch(Slot& s, int vg, int ns) {
-  if (s.g == vg) s.info = (s.info & ~7) | ns;
+  if (s.g == vg) s.info = (s.info & ~INFO_STATE) | (ns << INFO_STATE_SHIFT);
 }
 
-// Every event of the lane, in order; META: the scheme row keeps explicit
-// metadata (its metadata-cache search for the demand miss is made before
-// the event knows it misses, beside the LLC's).  Stops at an event that
-// refuses an input, its flag set in `err`.
+// The two warps of an explicit-metadata lane meet here (named barrier 1;
+// barrier 0 is left to __syncthreads): one batch of metadata-cache
+// requests changes hands, its writes ordered before the reader's reads.
+__device__ __forceinline__ void handoff() {
+  asm volatile("bar.sync 1, 64;" ::: "memory");
+}
+
+// A batch of the metadata queue: its requests and its count word (the
+// count, and FINAL in the last batch).
+constexpr int FINAL = 1 << 16;
+__device__ __forceinline__ int* queue_batch(const Lane& L, int k) {
+  return L.queue + (k & 1) * QUEUE;
+}
+__device__ __forceinline__ int& queue_count(const Lane& L, int k) {
+  return L.queue[2 * QUEUE + (k & 1)];
+}
+
+// Every event of the lane, in order, by the lane's first warp.  META: the
+// scheme row keeps explicit metadata; its metadata-cache accesses (the
+// demand miss's line, and the victim's when its state changes) go in
+// order into the queue, a batch of 32 events at a time, for the second
+// warp (run_meta), since nothing else the step computes reads the
+// metadata cache.  Stops at an event that refuses an input, its flag set
+// in `err`; `qk` and `qc` are then the batch and the count of requests
+// not yet handed over.
 template <bool META>
 __device__ __forceinline__ void run_events(const Lane& L, int* st,
                                            int& clock, int& counter,
-                                           int& mclock, volatile int* err) {
-  const int t = threadIdx.x;
+                                           int& qk, int& qc,
+                                           volatile int* err) {
+  const int t = threadIdx.x & (WARP - 1);
   // the ring: `cur` holds the current batch's slots; the next batch's
   // addresses are in (n_addr, n_wr) and its group loads in flight in
   // (n_st, n_fa, n_fc, n_fq); n_patch is what an eviction of this batch
@@ -344,6 +401,7 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
     const int n_g = n_addr >> 2;
     int n_patch = -1;
     const int len = (int)(L.n - b < WARP ? L.n - b : WARP);
+    int* q = META ? queue_batch(L, qk) : nullptr;
     Slot e = shfl_slot(cur, 0);
     for (int j = 0; j < len; ++j) {
       // the next event's slot, shuffled now so that its latency hides
@@ -361,13 +419,10 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
 
       // the set's tag search: first match, first empty, first LRU min
       const Found f = set_search(L.tag + base, L.lru + base, L.ways, g + 1);
-      Found fm;
-      if (META) fm = set_search(L.mtag + e.ms * L.mw, L.mlru + e.ms * L.mw,
-                                L.mw, L.gpm.div(g) + 1);
       // the miss path's lookups, made before the event knows it misses
       // (indices clamped into the tables; a state or level outside them
       // is refused below, before any of these is used)
-      const int sg = info & 7;
+      const int sg = (info & INFO_STATE) >> INFO_STATE_SHIFT;
       const int sgc = (sg < MEM_STATES ? sg : 0) * GROUP_LANES;
       const int pred_raw = L.lct[pidx];
       const int predc = (unsigned)pred_raw < (unsigned)L.n_levels ? pred_raw
@@ -375,6 +430,7 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       const int probe_v = L.probe[(sgc + lanei) * L.n_levels + predc];
       const int lis_v = L.lis[sgc + L.loc[sgc + lanei]];
       const int level = L.ll[sgc + lanei];
+
       // the update way: the tag's way on a tag hit, else the victim (the
       // first empty way, else the first LRU minimum); every read of the
       // LLC arrays is at it
@@ -400,22 +456,17 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       const bool dyn_on = counter >= L.enable;
       const bool pf_bit = hit && (v_pf & lane_bit) != 0;
       const bool evicting = miss && !tag_hit && row_v != 0;
-      if (evicting && ((unsigned)vg >= L.n_groups
-                       || (unsigned)v_valid >= LANE_MASKS
-                       || (unsigned)v_dirty >= LANE_MASKS)) {
-        if (t == 0) err[ERR_CARRY] = 1;
-        return;
-      }
 
       // the demand group's state from the ring, the victim's from the
-      // shadow (vg only when evicting: on an empty victim way it is -1)
+      // shadow (vg only when evicting: on an empty victim way it is -1);
+      // a carry value outside the tables is refused here, in one place
       const int st_g = miss ? sg : 0, pred = miss ? pred_raw : 0;
-      int vst = 0, vfit = 0;
-      if (evicting) {
-        vst = L.canonical ? (sh & 7) : v_mem;
-        vfit = sh >> 3;
-      }
-      if ((unsigned)st_g >= MEM_STATES || (unsigned)vst >= MEM_STATES
+      const int vst = evicting ? (L.canonical ? sh >> INFO_STATE_SHIFT
+                                              : v_mem) : 0;
+      if ((evicting && ((unsigned)vg >= L.n_groups
+                        || (unsigned)v_valid >= LANE_MASKS
+                        || (unsigned)v_dirty >= LANE_MASKS))
+          || (unsigned)st_g >= MEM_STATES || (unsigned)vst >= MEM_STATES
           || (unsigned)pred >= (unsigned)L.n_levels) {
         if (t == 0) err[ERR_CARRY] = 1;
         return;
@@ -433,11 +484,12 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       if (evicting) {
         const int ev_en = L.dyn ? ((sampled || dyn_on) ? 1 : 0)
                                 : (L.comp ? 1 : 0);
-        // (vfit & 1, 2, 4) are pair_ab, pair_cd, quad: the reference's
-        // index ((ev_en * 5 + vst) * 2 + fa) * 2 + fc) * 2 + fq
-        const int fits = ((vfit & 1) << 2) | (vfit & 2) | ((vfit >> 2) & 1);
-        const int eidx = (((ev_en * MEM_STATES + vst) * 8 + fits)
-                          * LANE_MASKS + v_valid) * LANE_MASKS + v_dirty;
+        // the reference's index (((((ev_en * 5 + vst) * 2 + fa) * 2 + fc)
+        // * 2 + fq) * 16 + valid) * 16 + dirty; the shadow's low six bits
+        // are vst * 8 + fits (the fallback's vst replaces its state)
+        const int sfit = (vst << INFO_STATE_SHIFT) | (sh & 7);
+        const int eidx = ((ev_en * MEM_STATES * 8 + sfit) * LANE_MASKS
+                          + v_valid) * LANE_MASKS + v_dirty;
         const int ev = L.evict[eidx];
         constexpr int M = (1 << EVICT_BITS) - 1;
         wb_d = ev & M;
@@ -447,11 +499,18 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       }
       if (L.ideal) { wb_c = 0; ilw = 0; }
 
-      // stats
+      // explicit metadata cache: the demand miss's access (group g), then
+      // the victim's dirty update (~vg) when its state changes
+      if (META) {
+        if (miss) q[qc++] = g;
+        if (evicting && ns != vst) q[qc++] = ~vg;
+      }
+
+      // stats (demand reads and next-line extra accesses are counted from
+      // the misses when the lane ends)
       st[ST_LLC_HITS] += hit ? 1 : 0;
       st[ST_LLC_MISSES] += miss ? 1 : 0;
       st[ST_PF_USED] += (hit && pf_bit) ? 1 : 0;
-      st[ST_DEMAND_READS] += miss ? 1 : 0;
       st[ST_READ_PROBES] += miss ? probes : 0;
       st[ST_WB_DIRTY] += wb_d;
       st[ST_WB_CLEAN] += wb_c;
@@ -459,7 +518,6 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       const bool need_pred = L.llp && miss && lanei > 0;
       st[ST_PRED_TOTAL] += need_pred ? 1 : 0;
       st[ST_PRED_HIT] += (need_pred && probes == 1) ? 1 : 0;
-      st[ST_PF_EXTRA_ACCESS] += (L.next && miss) ? 1 : 0;
 
       // dynamic cost/benefit counter
       if (L.dyn) {
@@ -468,18 +526,6 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
         const int benefit = (hit && pf_bit && sampled) ? 1 : 0;
         int c = counter + benefit - cost;
         counter = c < 0 ? 0 : (c > L.cmax ? L.cmax : c);
-      }
-
-      // explicit metadata cache: demand miss first, then the victim's
-      // dirty update against the state the first probe left
-      if (META && miss)
-        meta_apply(L, e.ms, L.gpm.div(g), fm, false, mclock, st);
-      if (META && evicting && ns != vst) {
-        const int vmline = L.gpm.div(vg);
-        const int vms = L.meta_sets.mod(vmline);
-        const Found fv = set_search(L.mtag + vms * L.mw, L.mlru + vms * L.mw,
-                                    L.mw, vmline + 1);
-        meta_apply(L, vms, vmline, fv, true, mclock, st);
       }
 
       // LCT update (frozen when FLAG_LCT_UPDATE is off: cram-nollp)
@@ -513,19 +559,53 @@ __device__ __forceinline__ void run_events(const Lane& L, int* st,
       }
       e = nx;
     }
+    if (META) {
+      queue_count(L, qk) = qc;
+      handoff();
+      ++qk;
+      qc = 0;
+    }
     // the next batch becomes current, its state patched where this batch
     // evicted its group
     cur = make_slot(L, n_addr, n_wr, n_st, n_fa, n_fc, n_fq);
-    if (n_patch >= 0) cur.info = (cur.info & ~7) | n_patch;
+    if (n_patch >= 0)
+      cur.info = (cur.info & ~INFO_STATE) | (n_patch << INFO_STATE_SHIFT);
     n_addr = nn_addr;
     n_wr = nn_wr;
   }
 }
 
-__global__ void __launch_bounds__(WARP)
+// The metadata cache of an explicit-metadata lane, by its second warp:
+// each batch of requests the first warp hands over, in order (a group g
+// is the demand miss's line, ~vg the victim's dirty update), until the
+// batch marked FINAL.
+__device__ __forceinline__ void run_meta(const Lane& L, int* st,
+                                         int& mclock) {
+  for (int k = 0;; ++k) {
+    handoff();
+    const int* q = queue_batch(L, k);
+    const int word = queue_count(L, k);
+    const int n = word & (FINAL - 1);
+    for (int r = 0; r < n; ++r) {
+      const int req = q[r];
+      const bool victim = req < 0;
+      const int mline = L.gpm.div(victim ? ~req : req);
+      const int ms = L.meta_sets.mod(mline);
+      const Found f = set_search(L.mtag + ms * L.mw, L.mlru + ms * L.mw,
+                                 L.mw, mline + 1);
+      const MetaRead m = meta_read(L, ms, f);
+      __syncwarp();   // read before any thread writes
+      meta_write(L, ms, mline, m, victim, mclock, st);
+    }
+    if (word & FINAL) return;
+  }
+}
+
+__global__ void __launch_bounds__(2 * WARP)
 engine_scan_kernel(const EngineArgs a, volatile int* err) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t = threadIdx.x;
+  const int t = threadIdx.x & (WARP - 1);
+  const bool meta_warp = threadIdx.x >= WARP;
   const long long lane = blockIdx.x;
   const int si = (int)(lane / a.n_workloads);
   const int wi = (int)(lane % a.n_workloads);
@@ -553,15 +633,55 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
   int32_t* s_ll = s_lis + up16(4LL * SLOT_TABLE) / 4;
   L.evict = s_evict; L.probe = s_probe; L.loc = s_loc; L.lis = s_lis;
   L.ll = s_ll;
+  L.queue = s_ll + up16(4LL * SLOT_TABLE) / 4;
 
+  const int32_t* fl = a.flags + si * N_FLAGS;
+  const int32_t* pr = a.params + si * N_PARAMS;
+  const bool f_meta = fl[FLAG_META] > 0;
+  const int lct_param = pr[PARAM_LCT_SIZE];
+  const int meta_sets = pr[PARAM_META_SETS];
+  const bool params_ok = lct_param >= 1 && lct_param <= n_lct
+                         && meta_sets >= 1 && meta_sets <= a.meta_sets;
+  L.mw = (int)a.meta_ways;
+  L.gpm.set((int)a.groups_per_meta);
+  L.meta_sets.set(meta_sets);
+
+  if (meta_warp) {
+    // the second warp: an explicit-metadata lane's metadata cache
+    if (!f_meta) return;
+    int32_t* g_mtag = a.mtag + lane * mm;
+    int32_t* g_mlru = a.mlru + lane * mm;
+    uint8_t* g_mdirty = a.mdirty + lane * mm;
+    for (int i = t; i < mm; i += WARP) {
+      L.mtag[i] = g_mtag[i]; L.mlru[i] = g_mlru[i];
+      L.mdirty[i] = g_mdirty[i];
+    }
+    int mclock = a.mclock[lane];
+    int st[N_STATS];
+    for (int k = ST_META_READS; k <= ST_META_HITS; ++k)
+      st[k] = a.stats[lane * N_STATS + k];
+    __syncwarp();
+    run_meta(L, st, mclock);
+    __syncwarp();
+    for (int i = t; i < mm; i += WARP) {
+      g_mtag[i] = L.mtag[i]; g_mlru[i] = L.mlru[i];
+      g_mdirty[i] = L.mdirty[i];
+    }
+    if (t == 0) {
+      if (a.lane_ns != nullptr) a.lane_ns[2 * lane + 1] = globaltimer();
+      a.mclock[lane] = mclock;
+      for (int k = ST_META_READS; k <= ST_META_HITS; ++k)
+        a.stats[lane * N_STATS + k] = st[k];
+    }
+    return;
+  }
+
+  // the first warp: everything else
   int32_t* g_tag = a.tag + lane * sw;
   int32_t* g_lru = a.lru + lane * sw;
   int32_t* g_valid = a.valid + lane * sw;
   int32_t* g_dirty = a.dirty + lane * sw;
   int32_t* g_pf = a.pf + lane * sw;
-  int32_t* g_mtag = a.mtag + lane * mm;
-  int32_t* g_mlru = a.mlru + lane * mm;
-  uint8_t* g_mdirty = a.mdirty + lane * mm;
   int8_t* g_lct = a.lct + lane * n_lct;
   L.mem = a.mem_state + lane * a.n_groups;
   L.fab = a.pair_ab + wi * a.n_groups;
@@ -580,7 +700,8 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
     const unsigned vg = (unsigned)(tg - 1);
     int sh = 0;
     if (tg != 0 && vg < L.n_groups) {
-      sh = state_code(L.mem[vg]) | (__ldg(L.fab + vg) ? INFO_FA : 0)
+      sh = (state_code(L.mem[vg]) << INFO_STATE_SHIFT)
+           | (__ldg(L.fab + vg) ? INFO_FA : 0)
            | (__ldg(L.fcd + vg) ? INFO_FC : 0)
            | (__ldg(L.fq + vg) ? INFO_FQ : 0);
       const int set = i / (int)a.ways;
@@ -590,9 +711,6 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
     L.shadow[i] = (uint8_t)sh;
   }
   L.canonical = __all_sync(FULL, placed);
-  for (int i = t; i < mm; i += WARP) {
-    L.mtag[i] = g_mtag[i]; L.mlru[i] = g_mlru[i]; L.mdirty[i] = g_mdirty[i];
-  }
   for (int i = t; i < n_lct; i += WARP) L.lct[i] = g_lct[i];
   for (int i = t; i < EVICT_ENTRIES; i += WARP) s_evict[i] = __ldg(a.evict + i);
   for (int i = t; i < SLOT_TABLE * n_levels; i += WARP)
@@ -604,57 +722,55 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
   }
   __syncwarp();
 
-  const int32_t* fl = a.flags + si * N_FLAGS;
-  const int32_t* pr = a.params + si * N_PARAMS;
   L.comp = fl[FLAG_COMP] > 0; L.llp = fl[FLAG_LLP] > 0;
   L.next = fl[FLAG_NEXTLINE] > 0; L.ideal = fl[FLAG_IDEAL] > 0;
   L.dyn = fl[FLAG_DYNAMIC] > 0; L.lct_update = fl[FLAG_LCT_UPDATE] > 0;
-  const bool f_meta = fl[FLAG_META] > 0;
-  const int lct_param = pr[PARAM_LCT_SIZE];
-  const int meta_sets = pr[PARAM_META_SETS];
-  const bool params_ok = lct_param >= 1 && lct_param <= n_lct
-                         && meta_sets >= 1 && meta_sets <= a.meta_sets;
   if (!params_ok && t == 0) err[ERR_PARAMS] = 1;
   L.addrs = a.addrs + wi * a.addr_stride;
   L.is_write = a.is_write + wi * a.write_stride;
   L.set_hash = a.set_hash;
   L.n = params_ok ? a.n_events : 0;
-  L.sets = (int)a.sets; L.ways = (int)a.ways; L.mw = (int)a.meta_ways;
+  L.sets = (int)a.sets; L.ways = (int)a.ways;
   L.lpp = (int)a.lines_per_page; L.n_levels = n_levels;
   L.sample_thresh = pr[PARAM_SAMPLE_THRESH];
   L.enable = (int)a.enable_threshold; L.cmax = (int)a.counter_max;
   L.hash_mult = (uint32_t)a.hash_mult; L.lct_size = (uint32_t)lct_param;
-  L.gpm.set((int)a.groups_per_meta);
-  L.meta_sets.set(meta_sets);
 
-  int mclock = a.mclock[lane], counter = a.counter[lane];
-  int clock = a.clock[lane];
+  int counter = a.counter[lane], clock = a.clock[lane];
   int st[N_STATS];
 #pragma unroll
   for (int k = 0; k < N_STATS; ++k) st[k] = a.stats[lane * N_STATS + k];
   const long long t_start = globaltimer();
+  const int misses0 = st[ST_LLC_MISSES];
+  int qk = 0, qc = 0;
   if (L.n > 0) {
-    if (f_meta) run_events<true>(L, st, clock, counter, mclock, err);
-    else run_events<false>(L, st, clock, counter, mclock, err);
+    if (f_meta) run_events<true>(L, st, clock, counter, qk, qc, err);
+    else run_events<false>(L, st, clock, counter, qk, qc, err);
   }
+  if (f_meta) {
+    // the last batch of requests (perhaps empty), marked FINAL
+    queue_count(L, qk) = qc | FINAL;
+    handoff();
+  }
+  const int misses = st[ST_LLC_MISSES] - misses0;
+  st[ST_DEMAND_READS] += misses;
+  st[ST_PF_EXTRA_ACCESS] += L.next ? misses : 0;
   if (t == 0) {
     if (a.lane_ns != nullptr) {
       a.lane_ns[2 * lane] = t_start;
-      a.lane_ns[2 * lane + 1] = globaltimer();
+      if (!f_meta) a.lane_ns[2 * lane + 1] = globaltimer();
     }
-    a.mclock[lane] = mclock;
     a.counter[lane] = counter;
     a.clock[lane] = clock;
 #pragma unroll
-    for (int k = 0; k < N_STATS; ++k) a.stats[lane * N_STATS + k] = st[k];
+    for (int k = 0; k < N_STATS; ++k)
+      if (!f_meta || k < ST_META_READS || k > ST_META_HITS)
+        a.stats[lane * N_STATS + k] = st[k];
   }
   __syncwarp();
   for (int i = t; i < sw; i += WARP) {
     g_tag[i] = L.tag[i]; g_lru[i] = L.lru[i]; g_valid[i] = L.valid[i];
     g_dirty[i] = L.dirty[i]; g_pf[i] = L.pf[i];
-  }
-  for (int i = t; i < mm; i += WARP) {
-    g_mtag[i] = L.mtag[i]; g_mlru[i] = L.mlru[i]; g_mdirty[i] = L.mdirty[i];
   }
   for (int i = t; i < n_lct; i += WARP) g_lct[i] = L.lct[i];
 }
@@ -697,7 +813,7 @@ extern "C" int cram_engine_scan(const EngineArgs* args, long long smem,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  engine_scan_kernel<<<(unsigned)lanes, WARP, (size_t)smem,
+  engine_scan_kernel<<<(unsigned)lanes, 2 * WARP, (size_t)smem,
                        (cudaStream_t)stream>>>(a, dev_err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -12,7 +12,7 @@ chunk is applied in order, in every lane.
     the reference's ops in the reference's order (no host sync).  The CPU
     tests use it, and `chip_smoke.py` holds the kernel against it.
   * `engine_scan_cuda` — the CUDA kernel `csrc/engine_scan.cu`: one
-    launch per chunk, one CTA per lane.
+    launch per chunk, one CTA of two warps per lane.
   * `engine_scan` — dispatches on the trace's device: a CPU tensor runs
     the plain version, a CUDA tensor launches the kernel or raises.
 
@@ -60,6 +60,7 @@ LANE_MASKS = 16             # valid / dirty / pf masks of a group
 EVICT_ENTRIES = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS
 EVICT_COLUMNS = TABLE_NAMES[:4]     # packed into one word an entry
 EVICT_BITS = 3
+META_QUEUE = 64             # metadata-cache requests a batch of 32 events
 _PACKED: list = []          # (columns, their versions, packed): recent packs
 # what E1 refuses as it runs, by the negative code it returns (ERR_* in
 # csrc/engine_scan.cu)
@@ -322,15 +323,17 @@ def smem_bytes(sets: int, ways: int, meta_sets: int, meta_ways: int,
     source), each region rounded up to 16 bytes: the lane's state (the
     five LLC arrays, the metadata cache's tag and LRU arrays as int32, its
     dirty bits and the LCT as bytes), the shadow (a byte an LLC way), the
-    packed eviction table (16 bits an entry) and PROBE (5 x 4 x n_levels),
-    LOC, LANES_IN_SLOT and LANE_LEVEL (5 x 4 each) as int32."""
+    packed eviction table (16 bits an entry), PROBE (5 x 4 x n_levels),
+    LOC, LANES_IN_SLOT and LANE_LEVEL (5 x 4 each) as int32, and the
+    metadata-cache queue (two batches of 64 int32 requests, two counts)."""
     def up(n):
         return (n + 15) // 16 * 16
     slot_table = MEM_STATES * 4
     return (5 * up(4 * sets * ways) + 2 * up(4 * meta_sets * meta_ways)
             + up(meta_sets * meta_ways) + up(lct_entries)
             + up(sets * ways) + up(2 * EVICT_ENTRIES)
-            + up(4 * slot_table * n_levels) + 3 * up(4 * slot_table))
+            + up(4 * slot_table * n_levels) + 3 * up(4 * slot_table)
+            + up(4 * 2 * META_QUEUE) + up(4 * 2))
 
 
 def pack_evict_table(tables: dict):

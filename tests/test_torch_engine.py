@@ -167,10 +167,11 @@ def test_cuda_source_matches_the_python_layouts():
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     env = {}
     for name in ("MEM_STATES", "LANE_MASKS", "EVICT_ENTRIES", "EVICT_BITS",
-                 "GROUP_LANES", "SLOT_TABLE"):
+                 "GROUP_LANES", "SLOT_TABLE", "WARP", "QUEUE"):
         env[name] = eval(consts[name], dict(env))
     for name in ("MEM_STATES", "LANE_MASKS", "EVICT_ENTRIES", "EVICT_BITS"):
         assert env[name] == getattr(es, name), name
+    assert env["QUEUE"] == es.META_QUEUE
     assert env["SLOT_TABLE"] == es.MEM_STATES * env["GROUP_LANES"]
     body = src.split("struct EngineArgs {", 1)[1].split("};", 1)[0]
     body = re.sub(r"//[^\n]*", "", body)
@@ -192,14 +193,14 @@ def test_cuda_source_matches_the_python_layouts():
 
 
 def test_smem_bytes():
-    """The lane's state, the shadow and the tables (eviction table packed
-    to 16 bits an entry; PROBE, LOC, LANES_IN_SLOT, LANE_LEVEL int32),
-    each region rounded up to 16 bytes: 68,064 B at the defaults, so 3
-    CTAs fit on an SM."""
-    tables = 40_960 + 240 + 3 * 80
+    """The lane's state, the shadow, the tables (eviction table packed to
+    16 bits an entry; PROBE, LOC, LANES_IN_SLOT, LANE_LEVEL int32) and the
+    metadata-cache queue (2 x 64 requests, 2 counts), each region rounded
+    up to 16 bytes: 68,592 B at the defaults, so 3 CTAs fit on an SM."""
+    tables = 40_960 + 240 + 3 * 80 + 512 + 16
     assert es.smem_bytes(128, 8, 64, 8, 512, 3) == 25_600 + 1024 + tables
-    assert es.smem_bytes(128, 8, 64, 8, 512, 3) == 68_064
-    assert 3 * (68_064 + 1024) <= 228 * 1024
+    assert es.smem_bytes(128, 8, 64, 8, 512, 3) == 68_592
+    assert 3 * (68_592 + 1024) <= 228 * 1024
     assert es.smem_bytes(64, 4, 32, 8, 512, 3) == (5120 + 2048 + 256 + 512
                                                    + 256 + tables)
     assert es.smem_bytes(5, 3, 3, 3, 7, 3) == (5 * 64 + 2 * 48 + 16 + 16
