@@ -114,10 +114,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      the sweep's first 2,000 events beside its plain version ("timing
      [engine]"), and each lane's own time in one more launch of the
      sweep, from the device clock at its first and last event, with the
-     five slowest lanes and the slowest of each row ("engine lanes").  Every timing row carries `kernels_per_call`: the
-     device operations one call of the wrapper puts on the card after a
-     warm-up, counted from torch.profiler's record of the CUDA calls that
-     enqueue them; the group pack and E1 must be exactly one.
+     five slowest lanes and the slowest of each row ("engine lanes").
+     Every timing row carries `kernels_per_call`: the device operations
+     one call of the wrapper puts on the card after a warm-up, counted
+     from torch.profiler's record of the CUDA calls that enqueue them;
+     the group pack and E1 must be exactly one.
 
 Phases 3 to 5 drive thirteen paths (launcher pair and quad, the spill
 launcher with auto and with pair, serve attend pair and quad, the small

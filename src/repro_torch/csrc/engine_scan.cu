@@ -267,32 +267,26 @@ struct Lane {
 };
 
 // One metadata-cache access (the reference's `meta_probe` followed by
-// `_sel_state` with apply = true; the caller gates it): what it reads
-// from set `ms` after the search `f`, then what it writes.
-struct MetaRead { int way; bool hit, old_dirty, vic_dirty; };
-
-__device__ __forceinline__ MetaRead meta_read(const Lane& L, int ms,
-                                              const Found& f) {
-  MetaRead r;
-  r.hit = f.match != NONE;
-  r.way = (int)(r.hit ? f.match : (f.empty != NONE ? f.empty : f.lru));
-  r.old_dirty = L.mdirty[ms * L.mw + r.way] != 0;
-  r.vic_dirty = !r.hit && L.mtag[ms * L.mw + r.way] != 0 && r.old_dirty;
-  return r;
-}
-
-__device__ __forceinline__ void meta_write(const Lane& L, int ms, int mline,
-                                           const MetaRead& r,
-                                           bool make_dirty, int& mclock,
-                                           int* st) {
-  const int i = ms * L.mw + r.way;
+// `_sel_state` with apply = true) of line `mline`, a dirty update when
+// `make_dirty`.
+__device__ __forceinline__ void meta_access(const Lane& L, int mline,
+                                            bool make_dirty, int& mclock,
+                                            int* st) {
+  const int base = L.meta_sets.mod(mline) * L.mw;
+  const Found f = set_search(L.mtag + base, L.mlru + base, L.mw, mline + 1);
+  const bool hit = f.match != NONE;
+  const int i = base + (int)(hit ? f.match
+                             : (f.empty != NONE ? f.empty : f.lru));
+  const bool old_dirty = L.mdirty[i] != 0;
+  const bool vic_dirty = !hit && L.mtag[i] != 0 && old_dirty;
+  __syncwarp();   // read before any thread writes
   L.mtag[i] = mline + 1;
   mclock += 1;
   L.mlru[i] = mclock;
-  L.mdirty[i] = ((r.hit && r.old_dirty) || make_dirty) ? 1 : 0;
-  st[ST_META_READS] += r.hit ? 0 : 1;
-  st[ST_META_WB] += r.vic_dirty ? 1 : 0;
-  st[ST_META_HITS] += r.hit ? 1 : 0;
+  L.mdirty[i] = ((hit && old_dirty) || make_dirty) ? 1 : 0;
+  st[ST_META_READS] += hit ? 0 : 1;
+  st[ST_META_WB] += vic_dirty ? 1 : 0;
+  st[ST_META_HITS] += hit ? 1 : 0;
 }
 
 // The trace's address and write flag of event e (0 past the chunk's end).
@@ -588,14 +582,7 @@ __device__ __forceinline__ void run_meta(const Lane& L, int* st,
     const int n = word & (FINAL - 1);
     for (int r = 0; r < n; ++r) {
       const int req = q[r];
-      const bool victim = req < 0;
-      const int mline = L.gpm.div(victim ? ~req : req);
-      const int ms = L.meta_sets.mod(mline);
-      const Found f = set_search(L.mtag + ms * L.mw, L.mlru + ms * L.mw,
-                                 L.mw, mline + 1);
-      const MetaRead m = meta_read(L, ms, f);
-      __syncwarp();   // read before any thread writes
-      meta_write(L, ms, mline, m, victim, mclock, st);
+      meta_access(L, L.gpm.div(req < 0 ? ~req : req), req < 0, mclock, st);
     }
     if (word & FINAL) return;
   }
