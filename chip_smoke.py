@@ -45,7 +45,15 @@ Phases, each of which makes the script exit non-zero when it fails:
      AutoTuner's per-tier choices and observation windows, and the same
      command with `--kv-policy dynamic --kv-packing pair --spill-packing
      quad`; both must evict and wake, with the ledger's kv-evict /
-     kv-restore spill rows counting the crossings;
+     kv-restore spill rows counting the crossings; then the model zoo's
+     other families through the same launcher at their published width
+     (random weights, batch 4, prompt 32, 32 generated; ZOO_RUNS):
+     olmoe-1b-7b with pair and with quad and the spill tier, zamba2-2.7b
+     (the shared attention block's KV), mamba2-130m (no attention cache:
+     no serve tier, no traffic), and llama-3.2-vision-90b and
+     llama4-maverick-400b-a17b cut to one super-block (5 and 2 layers),
+     each with its walls, decode step device time, busy share and peak
+     device memory ("zoo" lines), the card freed between runs;
   4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
      1 incompressible, 1 alternating), 48 decode steps each followed by an
      attend, every attend held against the plain attention on the same
@@ -98,9 +106,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      4,096 all-compressible tokens, every token valid: 256 flat slots),
      each checked once (K3 within 2e-3 with bytes exact, K6 equal to K3's
      row) and timed the same way, so that their byte bound is well above
-     launch latency; K1/K2 at the prefill window (B = 8, W = 8), and
-     beside every K1/K2 row the device time of one copy_ of the window's
-     bytes; K3 and K6 at phase 2's other head geometries; beside K7's row
+     launch latency; K1/K2 at the prefill window (B = 8, W = 8) and at
+     the zoo's serve windows of olmoe (Hkv 16, D2 256) and zamba2 (Hkv
+     32, D2 160; K2 on a synthetic window of the same shape, since zamba2
+     runs pair only: "timing [zoo-window]"), and beside every K1/K2 row
+     the device time of one copy_ of the window's bytes; K3 and K6 at phase 2's other head geometries; beside K7's row
      the device time of an int32 sum of each line's 16 words over the same
      image (reads it once, writes 4 B a line), and K7 on each Fig. 4
      source's slice of the image ("timing [scan-source]"); the group pack
@@ -120,10 +130,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      from torch.profiler's record of the CUDA calls that enqueue them;
      the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive thirteen paths (launcher pair and quad, the spill
-launcher with auto and with pair, serve attend pair and quad, the small
-serve attend, serve churn pair and quad, page codec pair and quad, scan,
-trace simulator);
+Phases 3 to 5 drive nineteen paths (launcher pair and quad, the spill
+launcher with auto and with pair, the six zoo runs, serve attend pair and
+quad, the small serve attend, serve churn pair and quad, page codec pair
+and quad, scan, trace simulator);
 the launch counters are set to 0 just before each and read just after it,
 and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
@@ -203,6 +213,14 @@ PATHS = {
     "page_codec_quad": ("unpack_quad", "pack_quad_group"),
     "scan": ("compress_scan",),
     "trace_sim": ("engine_scan",),
+    # the model zoo at full width (ZOO_RUNS): each family's first attention
+    # cache through the serve tier; mamba2 has none, so no kernel
+    "zoo_olmoe_pair": ("pack_pair",),
+    "zoo_olmoe_quad_spill": ("pack_quad",),
+    "zoo_zamba2_pair": ("pack_pair",),
+    "zoo_mamba2": (),
+    "zoo_vision_pair": ("pack_pair",),
+    "zoo_maverick_pair": ("pack_pair",),
 }
 
 
@@ -959,6 +977,16 @@ def _timed(torch, walls: dict, outs: dict, name: str, fn):
     return wrapped
 
 
+def weight_bytes(tree) -> int:
+    """Bytes of the tensors a decode step reads: the model's weights in
+    the compute dtype (every expert's, since each has a capacity row)."""
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(weight_bytes(v) for v in tree)
+    return 0 if tree is None else nbytes(tree)
+
+
 def decode_device_ms(torch, model, batch: int, steps: int = 4):
     """Device time of one greedy decode step of `model` from
     torch.profiler (the kernels' own durations), or None when the profiler
@@ -986,17 +1014,20 @@ LAUNCHER_ARGV = ["--arch", "phi4_mini_3_8b", "--no-smoke", "--batch", "4",
 SPILL_ARGV = ["--slots", "2", "--admit-rate", "4", "--spill-pages", "64"]
 
 
-def run_launcher(torch, label: str, extra: list, *,
+def run_launcher(torch, label: str, argv: list, *, config=None,
                  profile: bool = True) -> dict:
-    """The serve launcher at the full phi4-mini-3.8B shape with `extra`
-    flags; returns its report with the wall seconds of model build, model
-    prefill + decode and serve tier under "walls" (and, with `profile`,
-    the device time of one decode step).  With `--slots` below the batch
-    the serve tier must have evicted and woken, and the ledger's
-    kv-evict / kv-restore spill rows must count the crossings."""
+    """The serve launcher with `argv` (and `config`, a depth-cut config,
+    where given); returns its report with the wall seconds of model
+    build, model prefill + decode and serve tier under "walls" (and, with
+    `profile`, the device time of one decode step) and the peak device
+    memory of the run.  Every sequence must be admitted and retired, and
+    with `--slots` below the batch the serve tier must have evicted and
+    woken, and the ledger's kv-evict / kv-restore spill rows must count
+    the crossings.  A model with no attention cache (the ssm family) has
+    no serve tier: its report must say so and book no traffic."""
     from repro_torch.launch import serve
 
-    argv = LAUNCHER_ARGV + extra
+    torch.cuda.reset_peak_memory_stats()
     walls: dict = {}
     outs: dict = {}
     parts = {"build": serve.build, "_timed_decode": serve._timed_decode,
@@ -1006,35 +1037,42 @@ def run_launcher(torch, label: str, extra: list, *,
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            report = serve.main(argv)
+            report = serve.main(argv, config=config)
     finally:
         for name, fn in parts.items():
             setattr(serve, name, fn)
     step_ms = 1e3 * report["batch"] / report["tokens_per_s"]
     model = outs.pop("build")
+    report["weights_read_gb"] = weight_bytes(model._compute) / 1e9
     dev_ms = decode_device_ms(torch, model, report["batch"]) if profile \
         else None
     del model
     report["walls"] = {"model_build_s": walls["build"],
                        "model_prefill_decode_s": walls["_timed_decode"],
-                       "serve_tier_s": walls["_serve_tier"],
+                       "serve_tier_s": walls.get("_serve_tier"),
                        "decode_step_ms": step_ms,
                        "decode_step_device_ms": dev_ms,
                        "decode_device_busy_share": (
                            None if dev_ms is None else dev_ms / step_ms)}
-    st = report["serve_tier"]
-    if not (st["admitted"] == st["retired"] == 4):
-        fail(f"launcher {label}: admitted {st['admitted']} retired "
-             f"{st['retired']}")
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     for key in ("prefill_tokens_per_s", "tokens_per_s"):
         if not math.isfinite(report[key]) or report[key] <= 0:
             fail(f"launcher {label}: {key} = {report[key]}")
+    st = report["serve_tier"]
+    if st is None:
+        if report["traffic"] or not (config and config.family == "ssm"):
+            fail(f"launcher {label}: no serve tier, traffic "
+                 f"{report['traffic']}")
+        return report
+    if not (st["admitted"] == st["retired"] == report["batch"]):
+        fail(f"launcher {label}: admitted {st['admitted']} retired "
+             f"{st['retired']}")
     rows = [row for tc in report["traffic"].values() for ev in tc.values()
             for row in ev.values()]
     if not rows or any(v < 0 for row in rows for v in row.values()):
         fail(f"launcher {label}: missing or negative ledger rows (int32 "
              f"accumulator overflow): {report['traffic']}")
-    if "--slots" in extra:
+    if "--slots" in argv:
         kv = report["traffic"].get("kv", {})
         spilled = {d: kv.get(f"kv-{d}", {}).get("spill", {}).get("count", 0)
                    for d in ("evict", "restore")}
@@ -1047,6 +1085,70 @@ def run_launcher(torch, label: str, extra: list, *,
                  f"{st['evicted']} + spilled_direct {st['spilled_direct']}, "
                  f"woken {st['woken']}")
     return report
+
+
+# the model zoo's families at full width (phase 3): path -> (arch, layers
+# kept (None: the published depth), launcher flags).  Vision and maverick
+# keep one super-block: at full depth 90 B and 400 B parameters do not fit
+# one 80 GB card.
+ZOO_ARGV = ["--no-smoke", "--batch", "4", "--prompt-len", "32", "--gen", "32"]
+ZOO_RUNS = {
+    "zoo_olmoe_pair": ("olmoe_1b_7b", None, ["--kv-packing", "pair"]),
+    "zoo_olmoe_quad_spill": ("olmoe_1b_7b", None, [
+        "--slots", "2", "--admit-rate", "4", "--kv-policy", "dynamic",
+        "--kv-packing", "quad", "--spill-packing", "pair",
+        "--spill-pages", "64"]),
+    "zoo_zamba2_pair": ("zamba2_2_7b", None, ["--kv-packing", "pair"]),
+    "zoo_mamba2": ("mamba2_130m", None, []),
+    "zoo_vision_pair": ("llama_3_2_vision_90b", 5, ["--kv-packing", "pair"]),
+    "zoo_maverick_pair": ("llama4_maverick_400b_a17b", 2,
+                          ["--kv-packing", "pair"]),
+}
+
+
+def run_zoo(torch, path: str, card: str) -> dict:
+    """One zoo path through the launcher, with random weights, at the
+    published width and the depth ZOO_RUNS keeps; prints its line and
+    frees the card."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.models import count_params
+
+    arch, layers, flags = ZOO_RUNS[path]
+    full = configs.get(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    t0 = time.perf_counter()
+    r = run_launcher(torch, path, ["--arch", arch] + ZOO_ARGV + flags,
+                     config=cfg, profile="--slots" not in flags)
+    gc.collect()
+    torch.cuda.empty_cache()
+    depth = (f"{cfg.n_layers} layers" if layers is None else
+             f"{cfg.n_layers} of {full.n_layers} layers (depth cut)")
+    r["zoo"] = {"arch": arch, "n_layers": cfg.n_layers,
+                "published_layers": full.n_layers,
+                "params": count_params(cfg),
+                "param_dtype": str(cfg.param_dtype), "flags": flags}
+    walls, st = r["walls"], r["serve_tier"]
+    tier = "none (no attention cache)" if st is None else ", ".join(
+        f"{k} {st[k]}" for k in ("admitted", "retired", "evicted", "woken",
+                                 "spilled_direct", "serve_steps",
+                                 "hot_packing", "decode_saving"))
+    print(f"zoo {path}: {arch}, {depth}, {r['zoo']['params'] / 1e9:.3f} B "
+          f"params ({r['zoo']['param_dtype']}), peak memory "
+          f"{r['peak_memory_gb']:.2f} GB; weights read a step "
+          f"{r['weights_read_gb']:.3f} GB, bound "
+          f"{r['weights_read_gb'] * 1e12 / HBM_BYTES_PER_S:.3f} ms; "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"(model build {walls['model_build_s']:.2f} s, model prefill + "
+          f"decode {walls['model_prefill_decode_s']:.3f} s, serve tier "
+          f"{walls['serve_tier_s'] or 0:.3f} s); decode step "
+          f"{walls['decode_step_ms']:.2f} ms, of it on the device "
+          f"{walls['decode_step_device_ms']} ms, busy share "
+          f"{walls['decode_device_busy_share']}; decode {r['tokens_per_s']} "
+          f"tokens/s, prefill {r['prefill_tokens_per_s']} tokens/s; serve "
+          f"tier: {tier}; card {card}")
+    return r
 
 
 def attend_stream(rng, n: int, total: int):
@@ -2326,6 +2428,48 @@ def prefill_window_rows(torch, device) -> dict:
     return rows
 
 
+# the serve windows of the zoo's KV geometries: label -> paths, (Hkv, hd)
+ZOO_WINDOWS = {
+    "olmoe": (("zoo_olmoe_pair", "zoo_olmoe_quad_spill"), (16, 128)),
+    "zamba2": (("zoo_zamba2_pair",), (32, 80)),
+}
+
+
+def zoo_window_rows(torch, rec, device) -> dict:
+    """K1 and K2 at the serve windows of olmoe (Hkv 16, D2 256) and zamba2
+    (Hkv 32, D2 160): the window each kernel was launched with most often
+    on the geometry's zoo paths; where no path launched the kernel
+    (zamba2 runs pair only), a synthetic window of the other kernel's
+    (B, W) at that geometry (compressible, incompressible and mixed
+    sequences).  Timed as the main path's kernels are, beside a copy_ of
+    the window's bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    rows = {}
+    for label, (paths, (hkv, hd)) in ZOO_WINDOWS.items():
+        saved = {name: rec.most_frequent(name, paths)
+                 for name in ("pack_pair", "pack_quad")}
+        for lanes, name in ((2, "pack_pair"), (4, "pack_quad")):
+            if saved[name] is not None:
+                args = saved[name][0]
+            else:
+                (other,) = [v for v in saved.values() if v is not None]
+                b, w = other[0][0].shape[:2]
+                kinds = ["compressible", "incompressible", "mixed",
+                         "compressible"] * (-(-b // 4))
+                win = kv_window(torch, rng, b, w, lanes, kinds[:b], device,
+                                hkv=hkv, hd=hd)
+                args = (win, *other[0][1:3])
+            if args[0].shape[-2:] != (hkv, 2 * hd):
+                fail(f"zoo window {label}: {tuple(args[0].shape)} is not "
+                     f"the Hkv {hkv}, D2 {2 * hd} geometry")
+            rows[f"{label} {name}"] = measure(
+                torch, name, timing_spec(torch, name, args, {}))
+    print_rows("zoo-window", rows)
+    return rows
+
+
 def geometry_rows(torch, inputs: dict) -> dict:
     """K3 on phase 2's inputs at each of the reference's other head
     geometries (B = 8 sequences of 8 page groups: 16 pair / 32 quad flat
@@ -2458,7 +2602,7 @@ def main(argv=None) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: thirteen paths, each with the launch counters from 0
+    # phases 3 to 5: nineteen paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -2532,7 +2676,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         reports[label] = r = drive(
             path, lambda lb=label, x=extra: run_launcher(
-                torch, lb, x, profile="--slots" not in x))
+                torch, lb, LAUNCHER_ARGV + x, profile="--slots" not in x))
         walls, st = r["walls"], r["serve_tier"]
         print(f"launcher {label}: {time.perf_counter() - t0:.1f} s "
               f"(model build {walls['model_build_s']:.2f} s, model prefill + "
@@ -2553,6 +2697,10 @@ def main(argv=None) -> int:
             print(f"launcher {label}: policy_choice "
                   f"{json.dumps(st['policy_choice'])}; tier_observations "
                   f"{json.dumps(st['tier_observations'])}")
+    zoo = {path: drive(path, lambda p=path: run_zoo(torch, p, card))
+           for path in ZOO_RUNS}
+    if zoo["zoo_mamba2"]["serve_tier"] is not None:
+        fail("zoo_mamba2: the ssm family has a serve tier")
     phases = {}
     for packing in ("pair", "quad"):
         phases[packing] = drive(
@@ -2606,6 +2754,7 @@ def main(argv=None) -> int:
                                         scan_report["per_source"]),
         "long-context": long_context_rows(torch, device),
         "prefill-window": prefill_window_rows(torch, device),
+        "zoo-window": zoo_window_rows(torch, rec, device),
         "geometry": geometry_rows(torch, geo_inputs),
         "bulk-group": bulk_group_rows(torch, device),
         "engine": engine_rows(torch, device, plain_event_ms)}
@@ -2640,7 +2789,8 @@ def main(argv=None) -> int:
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
-            {"card": card, "launcher": reports, "kernels": kernels,
+            {"card": card, "launcher": reports, "zoo": zoo,
+             "kernels": kernels,
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
              "page_codec": codec, "serve_attend_small": small,

@@ -1,12 +1,27 @@
-"""Architecture configs ported so far (the dense ones the serve launcher
-runs); `get(name)` returns the full-size config."""
+"""The decoder architecture configs (port of `repro.configs`, without
+`whisper_base`, whose encdec family is not ported yet).
+
+Each module exposes CONFIG (full size), selectable with `--arch <id>` in
+the launcher; `get(name)` returns the full config, `get_smoke(name)` the
+reduced same-family config of the CPU tests."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("phi4_mini_3_8b",)
+ARCHS = (
+    "phi4_mini_3_8b",
+    "mistral_large_123b",
+    "qwen3_8b",
+    "nemotron_4_15b",
+    "mamba2_130m",
+    "zamba2_2_7b",
+    "llama4_maverick_400b_a17b",
+    "olmoe_1b_7b",
+    "llama_3_2_vision_90b",
+)
 
+# accept dashed ids too
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
@@ -18,6 +33,17 @@ def canonical(name: str) -> str:
 def get(name: str):
     name = canonical(name)
     if name not in ARCHS:
-        raise NotImplementedError(f"arch {name!r}: not ported yet "
-                                  f"(ported: {', '.join(ARCHS)})")
+        raise NotImplementedError(
+            f"arch {name!r}: not ported (ported: {', '.join(ARCHS)}; "
+            "whisper_base is ROADMAP Queue 1 item 4)")
     return importlib.import_module(f".{name}", __package__).CONFIG
+
+
+def get_smoke(name: str):
+    from ..models import smoke_config
+
+    return smoke_config(get(name))
+
+
+def all_configs():
+    return {a: get(a) for a in ARCHS}

@@ -1,9 +1,10 @@
 """Serving launcher: model decode + continuous-batching CRAM-KV tier
 (port of `repro.launch.serve`).
 
-Runs a dense model end to end — prefill token by token, then greedy step
-decoding with the dense cache — and mirrors one layer's real KV stream
-through the serve tier (`repro_torch.serving.ServeLoop`): a fixed pool of
+Runs a decoder of any ported family (dense, moe, ssm, hybrid, vlm) end
+to end — prefill token by token, then greedy step decoding with the
+stacked cache — and mirrors the first attention block's real layer-0 KV
+stream through the serve tier (`repro_torch.serving.ServeLoop`): a fixed pool of
 `--slots` lanes with slot reuse, staggered admits every `--admit-rate`
 steps (each prompt ingested by one bulk pack), per-step decode appends
 through the fused megastep, and a compressed host spill tier behind the
@@ -60,13 +61,18 @@ def _sync(device: torch.device) -> None:
 
 def _serve_tier(args, cfg, cache, ledger, *, prompt_len, total_tokens,
                 device):
-    """Continuous-batching mirror of layer 0's KV stream: staggered admits
-    (whole prompt in one bulk pack, or straight to the spill tier when the
-    pool is full and the newcomer is the coldest), per-step decode appends
-    in waves of `--slots`, retire at the end of the stream; spill
-    crossings happen whenever live > slots."""
-    kcache = cache["b0"]["attn"]["k"][0]            # (B, T, hkv, hd)
-    vcache = cache["b0"]["attn"]["v"][0]
+    """Continuous-batching mirror of one layer's KV stream: staggered
+    admits (whole prompt in one bulk pack, or straight to the spill tier
+    when the pool is full and the newcomer is the coldest), per-step
+    decode appends in waves of `--slots`, retire at the end of the
+    stream; spill crossings happen whenever live > slots.  The stream is
+    the first super-block's KV of the first position (in sorted `b{j}`
+    order) that holds an attention cache, as the reference picks it
+    (zamba2: the shared block)."""
+    key = next(k for k in sorted(cache) if k.startswith("b")
+               and "attn" in cache[k])
+    kcache = cache[key]["attn"]["k"][0]             # (B, T, hkv, hd)
+    vcache = cache[key]["attn"]["v"][0]
     B = kcache.shape[0]
     P, T = prompt_len, total_tokens
     n_need = -(-T // PAGE)
@@ -178,14 +184,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, params: dict | None = None) -> dict:
+def main(argv=None, *, params: dict | None = None,
+         config: ModelConfig | None = None) -> dict:
     """Run the launcher; `params` (a state dict) replaces the random init,
-    so a caller can run the port on the reference's weights."""
+    so a caller can run the port on the reference's weights; `config`
+    replaces the one `--arch` / `--preset` / `--smoke` would pick (a
+    depth-cut config, say)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    if args.preset:
+    if config is not None:
+        cfg = config
+    elif args.preset:
         cfg = PRESETS[args.preset]
     else:
         cfg = configs.get(args.arch)
@@ -207,8 +218,10 @@ def main(argv=None, *, params: dict | None = None) -> dict:
         serve_step, prompts, cache, gen=G, device=device)
 
     ledger = Ledger("serve")
-    kv_stats = _serve_tier(args, cfg, cache, ledger, prompt_len=P,
-                           total_tokens=P + G - 1, device=device)
+    kv_stats = None
+    if cfg.family in ("dense", "moe", "vlm", "hybrid"):
+        kv_stats = _serve_tier(args, cfg, cache, ledger, prompt_len=P,
+                               total_tokens=P + G - 1, device=device)
     out = {
         "name": cfg.name, "batch": B, "prompt_len": P, "generated": G,
         "prefill_tokens_per_s": round(B * (P - 1)

@@ -1,9 +1,11 @@
-"""The dense decoder of the model zoo (port of the dense part of
-`repro.models`)."""
+"""The decoder families of the model zoo (port of `repro.models`: dense,
+moe, ssm, hybrid and vlm; whisper's encdec is not ported yet)."""
 
 from .common import ModelConfig, smoke_config
-from .transformer import DenseLM, init_cache, init_lm, lm_decode_step
-from .zoo import build
+from .transformer import (DecoderLM, init_cache, init_lm, lm_decode_step,
+                          n_supers, super_block_spec)
+from .zoo import active_params, build, count_params
 
-__all__ = ["ModelConfig", "DenseLM", "build", "init_cache", "init_lm",
-           "lm_decode_step", "smoke_config"]
+__all__ = ["ModelConfig", "DecoderLM", "active_params", "build",
+           "count_params", "init_cache", "init_lm", "lm_decode_step",
+           "n_supers", "smoke_config", "super_block_spec"]

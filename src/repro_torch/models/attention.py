@@ -1,5 +1,5 @@
-"""Blockwise attention in plain torch (port of `repro.models.attention`,
-the decode path).  Scores are materialised one (q_chunk x k_chunk) block
+"""Blockwise attention in plain torch (port of `repro.models.attention`:
+decode self-attention and the uncached cross-attention).  Scores are materialised one (q_chunk x k_chunk) block
 at a time with an online-softmax (max, denom, acc) state, in the
 reference's order of operations and with its -1e30 masking; GQA repeats
 each KV head for its G query heads, chunk by chunk."""
@@ -85,19 +85,50 @@ def chunked_decode_attention(q, k_cache, v_cache, length,
     return out[:, 0]
 
 
+def attention_init(ini, cfg) -> dict:
+    """Projection weights for (GQA) self / cross attention."""
+    d, hd, hq, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": ini.normal((d, hq * hd)), "wk": ini.normal((d, hkv * hd)),
+         "wv": ini.normal((d, hkv * hd)), "wo": ini.normal((hq * hd, d))}
+    if cfg.qk_norm:
+        p["q_norm"] = ini.ones((hd,))
+        p["k_norm"] = ini.ones((hd,))
+    return p
+
+
+def _project(p, cfg, x, kv_src):
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    k = (kv_src @ p["wk"]).reshape(b, t, hkv, hd)
+    v = (kv_src @ p["wv"]).reshape(b, t, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def cross_attention(p, cfg, x, kv_x=None):
+    """The `cross` block's attention: the reference's `attention_apply`
+    with `kv_x`, `causal=False`, `rope=False` and no cache.  K/V come from
+    `kv_x` (B, T, D), the image embeddings, or from x itself when none
+    are given (the reference's launcher passes none).  Returns (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project(p, cfg, x, x if kv_x is None else kv_x)
+    out = blockwise_attention(q, k, v, causal=False,
+                              q_chunk=cfg.attn_q_chunk,
+                              k_chunk=cfg.attn_k_chunk)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
 def attention_apply(p, cfg, x, *, positions, cache, cache_index: int):
     """GQA self-attention for the decode path.  x: (B,S,D); `p` holds the
     projections in x's dtype; cache {k, v}: (B,T,Hkv,hd) is updated in
     place at `cache_index` (the reference returns a new cache).  Returns
     the block output (B,S,D)."""
     b, s, _ = x.shape
-    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+    q, k, v = _project(p, cfg, x, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache["k"][:, cache_index:cache_index + s] = k
@@ -105,4 +136,4 @@ def attention_apply(p, cfg, x, *, positions, cache, cache_index: int):
     out = chunked_decode_attention(
         q[:, 0], cache["k"], cache["v"], length=cache_index + s,
         k_chunk=cfg.attn_k_chunk)[:, None]
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]

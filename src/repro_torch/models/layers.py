@@ -1,5 +1,5 @@
-"""Shared layers of the dense decoder (port of `repro.models.layers`):
-RMS norm, RoPE, the MLP variants and the decode logits."""
+"""Shared layers of the decoder (port of `repro.models.layers`): RMS
+norm, RoPE, the MLP variants and the decode logits."""
 
 from __future__ import annotations
 
@@ -43,6 +43,13 @@ def mlp_apply(p: dict, x, act: str):
     else:
         raise ValueError(f"unknown mlp_act {act!r}")
     return h @ p["w2"]
+
+
+def mlp_init(ini, d_model: int, d_ff: int, act: str) -> dict:
+    p = {"w1": ini.normal((d_model, d_ff)), "w2": ini.normal((d_ff, d_model))}
+    if act == "swiglu":
+        p["w3"] = ini.normal((d_model, d_ff))
+    return p
 
 
 def logits_last(h_last, embed):

@@ -1,4 +1,6 @@
-"""Model construction (port of `repro.models.zoo.build`, dense family)."""
+"""Model construction and analytic parameter counts (port of
+`repro.models.zoo`: `build` for the decoder families, `count_params`,
+`active_params`)."""
 
 from __future__ import annotations
 
@@ -6,22 +8,87 @@ import torch
 
 from ..device import resolve_device
 from .common import ModelConfig
-from .transformer import DenseLM, init_lm
+from .transformer import DecoderLM, init_lm
 
 
 def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
-          params: dict[str, torch.Tensor] | None = None) -> DenseLM:
+          params: dict[str, torch.Tensor] | None = None) -> DecoderLM:
     """The model on `device`: random weights from a `torch.Generator`
     seeded with `seed`, or `params` (a state dict, e.g. from
-    `repro_torch.convert.params_from_jax`)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: not ported yet")
+    `repro_torch.convert.params_from_jax`), which must hold exactly the
+    tensors of `init_lm`'s state dict, at the same shapes."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "family 'encdec' (whisper): not ported yet (ROADMAP Queue 1 "
+            "item 4)")
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_lm(cfg, gen, dev)
     else:
+        want = {k: tuple(v.shape)
+                for k, v in init_lm(cfg, None, "meta").items()}
+        got = {k: tuple(v.shape) for k, v in params.items()}
+        if got != want:
+            bad = sorted(k for k in want.keys() | got.keys()
+                         if want.get(k) != got.get(k))
+            raise ValueError(f"params do not match {cfg.name}'s layout: "
+                             + ", ".join(f"{k}: {got.get(k)} (want "
+                                         f"{want.get(k)})" for k in bad[:8]))
         params = {k: v.to(device=dev, dtype=cfg.param_dtype)
                   for k, v in params.items()}
-    return DenseLM(cfg, params)
+    return DecoderLM(cfg, params)
+
+
+def _mlp(cfg: ModelConfig, d_ff: int) -> int:
+    return cfg.d_model * d_ff * (3 if cfg.mlp_act == "swiglu" else 2)
+
+
+def _attn(cfg: ModelConfig) -> int:
+    d, hd = cfg.d_model, cfg.hd
+    return d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+
+
+def _ssm_layer(cfg: ModelConfig) -> int:
+    d, din = cfg.d_model, cfg.d_inner
+    return (d * din * 2 + 2 * d * cfg.ssm_ngroups * cfg.ssm_state
+            + d * cfg.ssm_heads + din * d)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """The reference's analytic count, formula for formula (the embedding
+    and the matmul weights; norms, conv weights and the SSM's per-head
+    vectors are not counted)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "family 'encdec' (whisper): not ported yet (ROADMAP Queue 1 "
+            "item 4)")
+    v, d = cfg.vocab, cfg.d_model
+    attn, mlp = _attn(cfg), _mlp(cfg, cfg.d_ff)
+    if cfg.family == "ssm":
+        return v * d + cfg.n_layers * _ssm_layer(cfg)
+    if cfg.family == "hybrid":
+        return v * d + cfg.n_layers * _ssm_layer(cfg) + attn + mlp
+    if cfg.family == "moe":
+        e_mlp = cfg.n_experts * mlp + d * cfg.n_experts
+        n_moe = cfg.n_layers // max(cfg.moe_every, 1)
+        return (v * d + cfg.n_layers * attn + (cfg.n_layers - n_moe) * mlp
+                + n_moe * (e_mlp + _mlp(cfg, cfg.shared_expert_ff)))
+    per = attn + mlp
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // max(cfg.cross_attn_every, 1)
+        return v * d + cfg.n_layers * per + n_cross * attn
+    return v * d + cfg.n_layers * per
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Active parameters per token (MoE: routed top-k + shared only)."""
+    if cfg.family != "moe":
+        return count_params(cfg)
+    d, mlp = cfg.d_model, _mlp(cfg, cfg.d_ff)
+    n_moe = cfg.n_layers // max(cfg.moe_every, 1)
+    return (cfg.vocab * d + cfg.n_layers * _attn(cfg)
+            + (cfg.n_layers - n_moe) * mlp
+            + n_moe * (cfg.top_k * mlp + _mlp(cfg, cfg.shared_expert_ff)
+                       + d * cfg.n_experts))
