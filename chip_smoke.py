@@ -110,9 +110,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      the zoo's serve windows of olmoe (Hkv 16, D2 256) and zamba2 (Hkv
      32, D2 160; K2 on a synthetic window of the same shape, since zamba2
      runs pair only: "timing [zoo-window]"), and beside every K1/K2 row
-     the device time of one copy_ of the window's bytes; K3 and K6 at phase 2's other head geometries; beside K7's row
-     the device time of an int32 sum of each line's 16 words over the same
-     image (reads it once, writes 4 B a line), and K7 on each Fig. 4
+     the device time of one copy_ of the window's bytes; K3 and K6 at
+     phase 2's other head geometries; beside K7's row the device time of
+     an int32 sum of each line's 16 words over the same image (reads it
+     once, writes 4 B a line), and K7 on each Fig. 4
      source's slice of the image ("timing [scan-source]"); the group pack
      (K1/K2 on whole page groups) at a bulk shape, the KV of 8 sequences x
      4,096 tokens of one layer at the phi4 KV geometry (2,048 pages, 128
@@ -1059,10 +1060,11 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
         if not math.isfinite(report[key]) or report[key] <= 0:
             fail(f"launcher {label}: {key} = {report[key]}")
     st = report["serve_tier"]
+    ssm = config is not None and config.family == "ssm"
+    if (st is None) != ssm or (ssm and report["traffic"]):
+        fail(f"launcher {label}: serve tier {st}, traffic "
+             f"{report['traffic']}")
     if st is None:
-        if report["traffic"] or not (config and config.family == "ssm"):
-            fail(f"launcher {label}: no serve tier, traffic "
-                 f"{report['traffic']}")
         return report
     if not (st["admitted"] == st["retired"] == report["batch"]):
         fail(f"launcher {label}: admitted {st['admitted']} retired "
@@ -1130,6 +1132,7 @@ def run_zoo(torch, path: str, card: str) -> dict:
                 "params": count_params(cfg),
                 "param_dtype": str(cfg.param_dtype), "flags": flags}
     walls, st = r["walls"], r["serve_tier"]
+    tier_s = walls["serve_tier_s"]
     tier = "none (no attention cache)" if st is None else ", ".join(
         f"{k} {st[k]}" for k in ("admitted", "retired", "evicted", "woken",
                                  "spilled_direct", "serve_steps",
@@ -1142,7 +1145,7 @@ def run_zoo(torch, path: str, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s "
           f"(model build {walls['model_build_s']:.2f} s, model prefill + "
           f"decode {walls['model_prefill_decode_s']:.3f} s, serve tier "
-          f"{walls['serve_tier_s'] or 0:.3f} s); decode step "
+          f"{'none' if tier_s is None else f'{tier_s:.3f} s'}); decode step "
           f"{walls['decode_step_ms']:.2f} ms, of it on the device "
           f"{walls['decode_step_device_ms']} ms, busy share "
           f"{walls['decode_device_busy_share']}; decode {r['tokens_per_s']} "
@@ -2699,8 +2702,6 @@ def main(argv=None) -> int:
                   f"{json.dumps(st['tier_observations'])}")
     zoo = {path: drive(path, lambda p=path: run_zoo(torch, p, card))
            for path in ZOO_RUNS}
-    if zoo["zoo_mamba2"]["serve_tier"] is not None:
-        fail("zoo_mamba2: the ssm family has a serve tier")
     phases = {}
     for packing in ("pair", "quad"):
         phases[packing] = drive(

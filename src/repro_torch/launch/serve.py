@@ -4,11 +4,12 @@
 Runs a decoder of any ported family (dense, moe, ssm, hybrid, vlm) end
 to end — prefill token by token, then greedy step decoding with the
 stacked cache — and mirrors the first attention block's real layer-0 KV
-stream through the serve tier (`repro_torch.serving.ServeLoop`): a fixed pool of
-`--slots` lanes with slot reuse, staggered admits every `--admit-rate`
-steps (each prompt ingested by one bulk pack), per-step decode appends
-through the fused megastep, and a compressed host spill tier behind the
-lanes (`--spill-pages` caps it).  With `--slots` below `--batch`, cold
+stream through the serve tier (`repro_torch.serving.ServeLoop`; none for
+the ssm family, which has no attention): a fixed pool of `--slots` lanes
+with slot reuse, staggered admits every `--admit-rate` steps (each
+prompt ingested by one bulk pack), per-step decode appends through the
+fused megastep, and a compressed host spill tier behind the lanes
+(`--spill-pages` caps it).  With `--slots` below `--batch`, cold
 sequences spill compressed and wake on their next decode step; every
 crossing books one ledger `spill` row.  `--kv-policy auto` lets the
 AutoTuner pick both tiers' packings from the prompts' KV.  The printed

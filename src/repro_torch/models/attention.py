@@ -1,8 +1,9 @@
 """Blockwise attention in plain torch (port of `repro.models.attention`:
-decode self-attention and the uncached cross-attention).  Scores are materialised one (q_chunk x k_chunk) block
-at a time with an online-softmax (max, denom, acc) state, in the
-reference's order of operations and with its -1e30 masking; GQA repeats
-each KV head for its G query heads, chunk by chunk."""
+decode self-attention and the uncached cross-attention).  Scores are
+materialised one (q_chunk x k_chunk) block at a time with an
+online-softmax (max, denom, acc) state, in the reference's order of
+operations and with its -1e30 masking; GQA repeats each KV head for its
+G query heads, chunk by chunk."""
 
 from __future__ import annotations
 

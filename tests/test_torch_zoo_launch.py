@@ -49,3 +49,32 @@ def test_launcher_report_matches_reference(capsys, arch):
     for key, want in st_r.items():
         assert st_t[key] == want, key
     assert got["traffic"]["kv"]
+
+
+def test_serve_step_passes_image_embeds_to_the_vlm_only():
+    """`make_serve_step` hands `image_embeds` to a vlm's decode step (the
+    reference's launch/steps.py:77-88), and a dense model's step ignores
+    it."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build
+
+    rng = np.random.default_rng(4)
+    for arch in ("llama_3_2_vision_90b", "qwen3_8b"):
+        cfg = configs.get_smoke(arch)
+        params = build(cfg, device="cpu", seed=1).state_dict()
+        if cfg.family == "vlm":         # open the cross block's gate
+            params["blocks.4.gate"] = torch.tensor(0.7)
+        model = build(cfg, device="cpu", params=params)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)))
+        img = torch.from_numpy(rng.standard_normal(
+            (2, 16, cfg.d_model)).astype(np.float32))
+        with_img = model.decode_step(tok, model.init_cache(2, 4), 0,
+                                     image_embeds=img)
+        without = model.decode_step(tok, model.init_cache(2, 4), 0)
+        got, _ = make_serve_step(model)(tok, model.init_cache(2, 4), 0,
+                                        image_embeds=img)
+        want = with_img if cfg.family == "vlm" else without
+        assert torch.equal(got[:, 0], torch.argmax(want, -1).int())
+        if cfg.family == "vlm":
+            assert not torch.allclose(with_img, without)
