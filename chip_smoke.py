@@ -45,8 +45,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      AutoTuner's per-tier choices and observation windows, and the same
      command with `--kv-policy dynamic --kv-packing pair --spill-packing
      quad`; both must evict and wake, with the ledger's kv-evict /
-     kv-restore spill rows counting the crossings; then the model zoo's
-     other families through the same launcher at their published width
+     kv-restore spill rows counting the crossings; then each decoder arch
+     at smoke size in float32 on the CPU and on the card, same weights, 4
+     decode steps within 1e-4 with equal greedy tokens and two card runs
+     bit-identical ("zoo parity" lines), and the model zoo's other
+     families through the same launcher at their published width
      (random weights, batch 4, prompt 32, 32 generated; ZOO_RUNS):
      olmoe-1b-7b with pair and with quad and the spill tier, zamba2-2.7b
      (the shared attention block's KV), mamba2-130m (no attention cache:
@@ -1106,6 +1109,73 @@ ZOO_RUNS = {
     "zoo_maverick_pair": ("llama4_maverick_400b_a17b", 2,
                           ["--kv-packing", "pair"]),
 }
+
+
+ZOO_PARITY_STEPS = 4
+
+
+def check_zoo_decode(torch, device) -> dict:
+    """Each decoder arch at smoke size in float32 (the size the CPU tests
+    hold against the reference), on the same random weights on the CPU
+    and on the card: ZOO_PARITY_STEPS decode steps fed the CPU's greedy
+    tokens (the vlm with its cross gates opened, with and without image
+    embeddings), logits within atol = rtol = 1e-4 and the greedy tokens
+    equal, and a second run on the card bit-identical to the first (the
+    MoE's dispatch and combine are deterministic).  Also the MoE
+    router's ties on the card: the lower expert index first.  Returns the
+    largest |difference| by arch."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.models.moe import moe_route
+
+    probs = torch.tensor([[0.1, 0.3, 0.3, 0.3], [0.25] * 4], device=device)
+    if moe_route(probs, 2, 2).eidx.tolist() != [[1, 2], [0, 1]]:
+        fail("zoo: the MoE router broke a tie towards a higher expert")
+    errs = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get_smoke(arch)
+        params = build(cfg, device="cpu", seed=0).state_dict()
+        for name in params:         # open the vlm's cross gates
+            if name.endswith(".gate"):
+                params[name] = torch.tensor(0.7)
+        cpu = build(cfg, device="cpu", params=params)
+        card = build(cfg, device=device, params=params)
+        rng = np.random.default_rng(5)
+        b = 4
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)))
+        kw = [{}]
+        if cfg.family == "vlm":
+            kw.append({"image_embeds": torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))})
+        err = 0.0
+        for k in kw:
+            k_card = {n: t.to(device) for n, t in k.items()}
+            caches = [m.init_cache(b, ZOO_PARITY_STEPS)
+                      for m in (cpu, card, card)]
+            t = tok
+            for i in range(ZOO_PARITY_STEPS):
+                want = cpu.decode_step(t, caches[0], i, **k)
+                got = [card.decode_step(t.to(device), c, i, **k_card)
+                       for c in caches[1:]]
+                if not torch.equal(got[0], got[1]):
+                    fail(f"zoo {arch}: two card runs differ at step {i}")
+                got = got[0].cpu()
+                err = max(err, (got - want).abs().max().item())
+                if not torch.allclose(got, want, atol=1e-4, rtol=1e-4):
+                    fail(f"zoo {arch}: step {i} logits differ from the "
+                         f"CPU's by {err:.3e}")
+                t = torch.argmax(want, -1, keepdim=True)
+                if not torch.equal(torch.argmax(got, -1, keepdim=True), t):
+                    fail(f"zoo {arch}: step {i} greedy tokens differ")
+        errs[arch] = err
+        images = " with and without images" if len(kw) > 1 else ""
+        print(f"zoo parity: {arch} ({cfg.family}, smoke size, float32): "
+              f"{ZOO_PARITY_STEPS} steps{images}, max|diff| {err:.3e} "
+              "against the CPU, greedy tokens equal, two card runs "
+              "bit-identical")
+    return errs
 
 
 def run_zoo(torch, path: str, card: str) -> dict:
@@ -2700,6 +2770,7 @@ def main(argv=None) -> int:
             print(f"launcher {label}: policy_choice "
                   f"{json.dumps(st['policy_choice'])}; tier_observations "
                   f"{json.dumps(st['tier_observations'])}")
+    zoo_parity = check_zoo_decode(torch, device)
     zoo = {path: drive(path, lambda p=path: run_zoo(torch, p, card))
            for path in ZOO_RUNS}
     phases = {}
@@ -2791,6 +2862,7 @@ def main(argv=None) -> int:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
             {"card": card, "launcher": reports, "zoo": zoo,
+             "zoo_parity": zoo_parity,
              "kernels": kernels,
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
