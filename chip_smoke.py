@@ -991,6 +991,18 @@ def weight_bytes(tree) -> int:
     return 0 if tree is None else nbytes(tree)
 
 
+def check_logits(torch, model, batch: int, label: str) -> None:
+    """One decode step of the launcher's model from a fresh cache: the
+    logits must be (batch, vocab) and finite."""
+    tok = torch.zeros((batch, 1), dtype=torch.int64,
+                      device=model.embed.device)
+    logits = model.decode_step(tok, model.init_cache(batch, 1), 0)
+    if (tuple(logits.shape) != (batch, model.config.vocab)
+            or not torch.isfinite(logits).all()):
+        fail(f"launcher {label}: decode logits {tuple(logits.shape)}, "
+             f"finite {bool(torch.isfinite(logits).all())}")
+
+
 def decode_device_ms(torch, model, batch: int, steps: int = 4):
     """Device time of one greedy decode step of `model` from
     torch.profiler (the kernels' own durations), or None when the profiler
@@ -1028,7 +1040,8 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
     with `--slots` below the batch the serve tier must have evicted and
     woken, and the ledger's kv-evict / kv-restore spill rows must count
     the crossings.  A model with no attention cache (the ssm family) has
-    no serve tier: its report must say so and book no traffic."""
+    no serve tier: its report must say so and book no traffic.  One more
+    decode step of the model must give finite (batch, vocab) logits."""
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
@@ -1048,6 +1061,7 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
     step_ms = 1e3 * report["batch"] / report["tokens_per_s"]
     model = outs.pop("build")
     report["weights_read_gb"] = weight_bytes(model._compute) / 1e9
+    check_logits(torch, model, report["batch"], label)
     dev_ms = decode_device_ms(torch, model, report["batch"]) if profile \
         else None
     del model

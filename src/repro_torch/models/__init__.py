@@ -2,10 +2,9 @@
 moe, ssm, hybrid and vlm; whisper's encdec is not ported yet)."""
 
 from .common import ModelConfig, smoke_config
-from .transformer import (DecoderLM, init_cache, init_lm, lm_decode_step,
-                          n_supers, super_block_spec)
+from .transformer import DecoderLM, init_cache, init_lm, lm_decode_step
 from .zoo import active_params, build, count_params
 
 __all__ = ["ModelConfig", "DecoderLM", "active_params", "build",
            "count_params", "init_cache", "init_lm", "lm_decode_step",
-           "n_supers", "smoke_config", "super_block_spec"]
+           "smoke_config"]
