@@ -36,7 +36,25 @@ Phases, each of which makes the script exit non-zero when it fails:
      (64 sets x 4 ways, 32 metadata sets, compress_clean off), in one
      launch and in chunks of 1,000 and of 1,537: every carry tensor equal
      (torch.equal) to the plain version's;
-  3. the serve launcher at the full published phi4-mini-3.8B shape (32
+  3. training, first, while the card is empty: `make_train_step` at the
+     full published phi4-mini-3.8B shape (32 layers, random weights) for
+     3 steps and zamba2-2.7b (54 layers) for 2, batch 4 x 256 tokens, the
+     configs' own microbatches (4) and remat, bf16 compute, float32
+     parameters and moments, one synthetic batch repeated: per step the
+     loss (finite; phi4's falls), gnorm, wall, device time
+     (torch.profiler), busy share, peak memory, the model FLOPs' share of
+     the bf16 peak and the AdamW update's wall beside its 28 B/param byte
+     bound ("train train_phi4" / "train train_zamba2" lines); the README's
+     training example through the launcher (`--preset lm20m --steps 300
+     --batch 8 --ckpt-every 50 --inject-fault 150`, cram checkpoints): 300
+     steps, one restart, the loss fallen, the restored state bit-exact
+     against the state saved at step 150, each kept manifest's raw and
+     stored bytes ("train launcher" lines); each decoder arch at smoke
+     size in float32, 3 train steps on the CPU and twice on the card from
+     the same weights and batches: losses, parameters and a decode step
+     after training within 1e-4, the two card runs bit-identical ("train
+     parity" lines); then
+     the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
      the device time of one decode step from torch.profiler; then the
@@ -134,8 +152,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      from torch.profiler's record of the CUDA calls that enqueue them;
      the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive nineteen paths (launcher pair and quad, the spill
-launcher with auto and with pair, the six zoo runs, serve attend pair and
+Phases 3 to 5 drive twenty-two paths (phi4 and zamba2 training, the
+training launcher, launcher pair and quad, the spill launcher with auto
+and with pair, the six zoo runs, serve attend pair and
 quad, the small serve attend, serve churn pair and quad, page codec pair
 and quad, scan, trace simulator);
 the launch counters are set to 0 just before each and read just after it,
@@ -225,6 +244,11 @@ PATHS = {
     "zoo_mamba2": (),
     "zoo_vision_pair": ("pack_pair",),
     "zoo_maverick_pair": ("pack_pair",),
+    # training (TRAIN_RUNS and the launcher's README example) runs no
+    # kernel of the port: the reference's training path has no pallas_call
+    "train_phi4": (),
+    "train_zamba2": (),
+    "train_launcher": (),
 }
 
 
@@ -1060,7 +1084,7 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
             setattr(serve, name, fn)
     step_ms = 1e3 * report["batch"] / report["tokens_per_s"]
     model = outs.pop("build")
-    report["weights_read_gb"] = weight_bytes(model._compute) / 1e9
+    report["weights_read_gb"] = weight_bytes(model.decode_weights()) / 1e9
     check_logits(torch, model, report["batch"], label)
     dev_ms = decode_device_ms(torch, model, report["batch"]) if profile \
         else None
@@ -1236,6 +1260,307 @@ def run_zoo(torch, path: str, card: str) -> dict:
           f"tokens/s, prefill {r['prefill_tokens_per_s']} tokens/s; serve "
           f"tier: {tier}; card {card}")
     return r
+
+
+# ------------------------------------------------- phase 3: training
+
+BF16_PEAK_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+# full-width training runs: path -> (arch, train steps, layers kept (None:
+# the published depth)); batch TRAIN_BATCH x TRAIN_SEQ tokens, the
+# config's own microbatches and remat, bf16 compute, float32 params and
+# moments
+TRAIN_RUNS = {"train_phi4": ("phi4_mini_3_8b", 3, None),
+              "train_zamba2": ("zamba2_2_7b", 2, None)}
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+# the README's training example (its checkpoint directory is added)
+TRAIN_LAUNCHER_ARGV = ["--preset", "lm20m", "--steps", "300", "--batch",
+                       "8", "--ckpt-every", "50", "--inject-fault", "150"]
+TRAIN_FAULT_STEP = 150
+TRAIN_PARITY_STEPS = 3
+
+
+def _free_card(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _step_device_ms(torch, prof) -> tuple[float | None, dict]:
+    """A profiled step's device time (ms) and its split by kernel kind:
+    {kind: [ms, kernels]}, kinds by the kernel's name."""
+    kinds = (("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+             ("reduction", ("reduce", "softmax", "norm")),
+             ("elementwise", ("elementwise", "vectorized", "unrolled")),
+             ("copy / index", ("copy", "memcpy", "memset", "index",
+                               "gather", "scatter", "cat")))
+    split: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = next((k for k, subs in kinds if any(x in name for x in subs)),
+                    "other")
+        row = split.setdefault(kind, [0.0, 0])
+        row[0] += e.self_device_time_total * 1e-3
+        row[1] += e.count
+    total = sum(v[0] for v in split.values())
+    return (total or None), split
+
+
+def train_full_width(torch, path: str, card: str) -> dict:
+    """TRAIN_RUNS[path]: random weights (a seeded torch.Generator) at the
+    published width, `make_train_step` on one synthetic batch repeated
+    each step; per step the loss, gnorm, wall (ended by a synchronise),
+    device time (torch.profiler, the kernels' own durations), busy share,
+    peak device memory, and the AdamW update's synchronised wall beside
+    its byte bound (28 B a parameter: read param, grad, m, v, write
+    param, m, v, in float32).  The loss must be finite; with three or
+    more steps it must fall.  The card is freed after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build, count_params
+    from repro_torch.optim import adamw
+
+    arch, steps, layers = TRAIN_RUNS[path]
+    full = configs.get(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, device="cuda", seed=0)
+    state = adamw.adamw_init(model, cfg.optimizer_dtype)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    batch = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        family=cfg.family, d_model=cfg.d_model,
+        n_image_tokens=cfg.n_image_tokens)).batch(0)
+    step = adamw.make_train_step(model, lr_peak=1e-2, lr_total=steps)
+    flops = 6 * count_params(cfg) * TRAIN_BATCH * TRAIN_SEQ
+    opt_bound_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    opt_ms: list = []
+    update = adamw._update
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        opt_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    depth = (f"{cfg.n_layers} layers" if layers is None else
+             f"{cfg.n_layers} of {full.n_layers} layers (depth cut)")
+    print(f"train {path}: {arch}, {depth}, {n_params / 1e9:.3f} B params "
+          f"({count_params(cfg) / 1e9:.3f} B counted), batch {TRAIN_BATCH} "
+          f"x seq {TRAIN_SEQ}, microbatches {cfg.microbatches}, remat "
+          f"{cfg.remat}, compute {cfg.dtype}, params {cfg.param_dtype}, "
+          f"moments {cfg.optimizer_dtype}; build {build_s:.2f} s, state "
+          f"{state_gb:.2f} GB; model FLOPs a step 6 N tokens = "
+          f"{flops / 1e12:.2f} TFLOP; card {card}")
+    rows = []
+    adamw._update = timed_update
+    try:
+        for i in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            # the card's activity only: recording the host's ops of a
+            # step (tens of thousands) would add seconds to its wall
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                loss, gnorm = float(m["loss"]), float(m["gnorm"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            dev, split = _step_device_ms(torch, prof)
+            row = {"step": i, "loss": loss, "gnorm": gnorm,
+                   "wall_ms": wall * 1e3, "device_ms": dev,
+                   "busy_share": None if dev is None else dev / (wall * 1e3),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "adamw_ms": opt_ms[-1],
+                   "adamw_share": opt_ms[-1] / (wall * 1e3),
+                   "bf16_peak_share": flops / (wall * BF16_PEAK_FLOPS)}
+            rows.append(row)
+            print(f"train {path}: step {i} loss {loss:.6f} gnorm "
+                  f"{gnorm:.4f}; wall {row['wall_ms']:.1f} ms (under the "
+                  f"profiler), device {dev if dev is None else round(dev, 1)}"
+                  f" ms, busy share {row['busy_share']}; peak memory "
+                  f"{row['peak_memory_gb']:.2f} GB; model FLOPs "
+                  f"{row['bf16_peak_share']:.4f} of the bf16 peak; AdamW "
+                  f"{opt_ms[-1]:.1f} ms ({row['adamw_share']:.3f} of the "
+                  f"step), byte bound {opt_bound_ms:.1f} ms "
+                  f"(28 B x {n_params} params at 3.35 TB/s); card {card}")
+        row["device_split"] = split
+        print(f"train {path}: step {steps - 1} device time by kernel kind, "
+              "ms (kernels): " + ", ".join(
+                  f"{k} {v[0]:.1f} ({v[1]})" for k, v in sorted(
+                      split.items(), key=lambda kv: -kv[1][0])))
+    finally:
+        adamw._update = update
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train {path}: losses {losses}")
+    if steps >= 3 and not losses[-1] < losses[0]:
+        fail(f"train {path}: the loss did not fall: {losses}")
+    del model, state, step, m
+    _free_card(torch)
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "published_layers": full.n_layers, "params": n_params,
+            "counted_params": count_params(cfg), "build_s": build_s,
+            "state_gb": state_gb, "model_tflop": flops / 1e12,
+            "adamw_bound_ms": opt_bound_ms, "steps": rows}
+
+
+def train_launcher_phase(torch, card: str) -> dict:
+    """The README's training example through the launcher on the card
+    (the default `cram` codec): 300 steps, a fault at step 150, one
+    restart from the checkpoint of step 150.  The report must say every
+    step ran, with one restart and the loss fallen; the state the restart
+    restored must equal, bit for bit, the state saved at step 150 (host
+    copies of both); prints each committed manifest's raw and stored
+    bytes and the mean step time."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.runtime import ft
+
+    saved, restored = {}, []
+    save_async, restore_into = ckpt.CheckpointManager.save_async, \
+        ft.restore_into
+
+    def keep_save(mgr, step, tree):
+        if step == TRAIN_FAULT_STEP:
+            saved["state"] = ckpt._host_copy(tree)
+        return save_async(mgr, step, tree)
+
+    def keep_restore(state, rest):
+        out = restore_into(state, rest)
+        restored.append(ckpt._host_copy(out))
+        return out
+
+    ckpt.CheckpointManager.save_async = keep_save
+    ft.restore_into = keep_restore
+    buf = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            report = train.main(TRAIN_LAUNCHER_ARGV + [
+                "--ckpt-dir", tmp, "--json-out", f"{tmp}/report.json"])
+            wall = time.perf_counter() - t0
+            losses = json.loads(pathlib.Path(
+                f"{tmp}/report.json").read_text())["losses"]
+            manifests = {s: ckpt.read_manifest(tmp, s) for s in sorted(
+                int(p.name.split("_")[1])
+                for p in pathlib.Path(tmp).glob("step_*"))}
+    finally:
+        ckpt.CheckpointManager.save_async = save_async
+        ft.restore_into = restore_into
+    steps = int(TRAIN_LAUNCHER_ARGV[TRAIN_LAUNCHER_ARGV.index("--steps") + 1])
+    if report["steps"] != steps or report["restarts"] != 1:
+        fail(f"train launcher: {report}")
+    if not report["loss_last10"] < report["loss_first10"]:
+        fail(f"train launcher: the loss did not fall: {report}")
+    if len(restored) != 1 or "state" not in saved:
+        fail(f"train launcher: {len(restored)} restores, step "
+             f"{TRAIN_FAULT_STEP} saved: {'state' in saved}")
+    want, got = saved["state"], restored[0]
+    for f in ("params", "m", "v"):
+        a, b = getattr(want, f), getattr(got, f)
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k])
+                                           for k in a):
+            fail(f"train launcher: restored {f} differ from the state "
+                 f"saved at step {TRAIN_FAULT_STEP}")
+    for f in ("step", "dyn_counter"):
+        if not torch.equal(getattr(want, f), getattr(got, f)):
+            fail(f"train launcher: restored {f} differs")
+    sizes = {s: {"raw_bytes": sum(x["raw_bytes"] for x in m["leaves"]),
+                 "stored_bytes": sum(x["stored_bytes"] for x in m["leaves"]),
+                 "codecs": sorted({x["codec"] for x in m["leaves"]})}
+             for s, m in manifests.items()}
+    print(f"train launcher: {' '.join(TRAIN_LAUNCHER_ARGV)}: steps "
+          f"{report['steps']}, restarts {report['restarts']}, loss_first10 "
+          f"{report['loss_first10']}, loss_last10 {report['loss_last10']}, "
+          f"straggler_flags {report['straggler_flags']}, mean_step_ms "
+          f"{report['mean_step_ms']}, wall {wall:.1f} s; card {card}")
+    print(f"train launcher: state restored at step {TRAIN_FAULT_STEP} "
+          f"bit-exact against the state saved there "
+          f"({sum(t.numel() for t in want.params.values())} params, "
+          f"moments, step, dyn_counter)")
+    for s, z in sizes.items():
+        print(f"train launcher: checkpoint step {s}: raw {z['raw_bytes']} "
+              f"B, stored {z['stored_bytes']} B "
+              f"({z['stored_bytes'] / z['raw_bytes']:.4f} of raw), codecs "
+              f"{z['codecs']}")
+    return {"report": report, "wall_s": wall, "losses": losses,
+            "checkpoints": sizes}
+
+
+def check_train_parity(torch, device) -> dict:
+    """Each decoder arch at smoke size in float32: TRAIN_PARITY_STEPS
+    train steps on the CPU and twice on the card from the same weights
+    (the vlm's cross gates opened) on the same synthetic batches; the
+    card's losses and final parameters within atol = rtol = 1e-4 of the
+    CPU's, a decode step after training within 1e-4, and the two card
+    runs equal under torch.equal.  Returns the largest |difference| by
+    arch."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init, make_train_step
+
+    errs = {}
+    for arch in configs.ARCHS:
+        cfg = configs.get_smoke(arch)
+        params = build(cfg, device="cpu", seed=0).state_dict()
+        for name in params:
+            if name.endswith(".gate"):
+                params[name] = torch.tensor(0.7)
+        data = SyntheticLM(DataConfig(
+            vocab=cfg.vocab, seq_len=64, global_batch=2, family=cfg.family,
+            d_model=cfg.d_model, n_image_tokens=cfg.n_image_tokens))
+        tok = torch.from_numpy(
+            np.random.default_rng(5).integers(0, cfg.vocab, (2, 1)))
+        runs = []
+        for dev in ("cpu", device, device):
+            model = build(cfg, device=dev,
+                          params={k: v.clone() for k, v in params.items()})
+            state = adamw_init(model)
+            step = make_train_step(model, lr_peak=1e-2)
+            losses = []
+            for i in range(TRAIN_PARITY_STEPS):
+                state, m = step(state, data.batch(i))
+                losses.append(m["loss"].detach().cpu())
+            logits = model.decode_step(tok.to(dev), model.init_cache(2, 1),
+                                       0).cpu()
+            runs.append((torch.stack(losses), {
+                k: p.detach().cpu() for k, p in model.named_parameters()},
+                logits))
+        (l_cpu, p_cpu, d_cpu), (l_a, p_a, d_a), (l_b, p_b, d_b) = runs
+        if not (torch.equal(l_a, l_b) and torch.equal(d_a, d_b)
+                and all(torch.equal(p_a[k], p_b[k]) for k in p_a)):
+            fail(f"train parity {arch}: two card runs differ")
+        pairs = [(l_a, l_cpu), (d_a, d_cpu)] + [(p_a[k], p_cpu[k])
+                                                for k in p_cpu]
+        err = max((a - b).abs().max().item() for a, b in pairs)
+        if not all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                   for a, b in pairs):
+            fail(f"train parity {arch}: the card differs from the CPU by "
+                 f"{err:.3e}")
+        errs[arch] = err
+        print(f"train parity: {arch} ({cfg.family}, smoke size, float32): "
+              f"{TRAIN_PARITY_STEPS} train steps, losses "
+              f"{[round(float(x), 6) for x in l_a]}, max|diff| {err:.3e} "
+              "against the CPU (losses, params, decode logits after "
+              "training), two card runs bit-identical")
+    return errs
 
 
 def attend_stream(rng, n: int, total: int):
@@ -2689,7 +3014,7 @@ def main(argv=None) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: nineteen paths, each with the launch counters from 0
+    # phases 3 to 5: twenty-two paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -2749,6 +3074,15 @@ def main(argv=None) -> int:
                 "per_decode_step": decode / steps if steps else None}
         print(f"launches [{path}]: {by_path[path]}")
         return result
+
+    # phase 3, first: training, while the card is empty
+    t0 = time.perf_counter()
+    training = {path: drive(path, lambda p=path: train_full_width(
+        torch, p, card)) for path in TRAIN_RUNS}
+    training["launcher"] = drive("train_launcher",
+                                 lambda: train_launcher_phase(torch, card))
+    training["parity"] = check_train_parity(torch, device)
+    print(f"training: {time.perf_counter() - t0:.1f} s")
 
     reports = {}
     launchers = {
@@ -2876,6 +3210,7 @@ def main(argv=None) -> int:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(
             {"card": card, "launcher": reports, "zoo": zoo,
+             "training": training,
              "zoo_parity": zoo_parity,
              "kernels": kernels,
              "ptxas": cuda_lib.ptxas_report(),

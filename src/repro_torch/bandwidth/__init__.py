@@ -1,17 +1,20 @@
-"""The traffic ledger, the trace engine's and the KV cache's byte adapters
-and the AutoTuner (port of `repro.bandwidth`; the checkpoint and gradient
-adapters come with the slices that port those consumers).
+"""The traffic ledger, the byte adapters and the AutoTuner (port of
+`repro.bandwidth`; the gradient collective's adapter comes with the slice
+that ports that consumer).
 
   ledger   — typed traffic events with a host accumulator and a device
              accumulator
   adapters — the trace engine's STAT counters as rows (`engine_traffic`,
              `engine_breakdown`); the KV cache's decode, repack and
-             spill-crossing rows
+             spill-crossing rows; checkpoint leaf writes and restores
   autotune — the §VI saturating-counter gate as a policy engine: KV
              packing per tier, checkpoint codec, gradient codec
 """
 
 from .adapters import (
+    checkpoint_leaf_event,
+    checkpoint_restore_event,
+    classify_tensor,
     engine_breakdown,
     engine_traffic,
     kv_decode_event,
@@ -46,6 +49,7 @@ __all__ = [
     "N_EVENTS", "EVENT_NAMES",
     "engine_traffic", "engine_breakdown",
     "kv_decode_event", "kv_repack_event", "kv_spill_event",
+    "classify_tensor", "checkpoint_leaf_event", "checkpoint_restore_event",
     "AutoTuner", "PolicyChoice", "KV_PACKINGS",
     "kv_expected_bytes_per_page", "kv_spill_bytes_per_page",
     "probe_kv_fit_rates",

@@ -1,10 +1,12 @@
-"""Byte accounting as ledger rows (port of the trace-engine and KV parts of
-`repro.bandwidth.adapters`: the engine's STAT counters, decode reads,
-repack writes and spill-tier crossings).  A consumer module never adds
-byte counts itself; it calls one of these adapters."""
+"""Byte accounting as ledger rows (port of `repro.bandwidth.adapters`
+without the gradient collective's row: the engine's STAT counters, decode
+reads, repack writes, spill-tier crossings, checkpoint leaves and the
+wire bytes of a tree).  A consumer module never adds byte counts itself;
+it calls one of these adapters."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..compression.framing import LINE_BYTES
@@ -131,3 +133,66 @@ def kv_spill_event(ledger: Ledger, *, raw: int, compressed: int,
     return ledger.record(EV_SPILL, raw=raw, compressed=compressed, count=1,
                          tensor_class=tensor_class or f"kv-{direction}",
                          consumer="kv")
+
+
+# ----------------------------------------------------------------- checkpoint
+
+
+def classify_tensor(key: str, dtype=None) -> str:
+    """Coarse tensor-class taxonomy for per-class policy decisions."""
+    k = key.lower()
+    if any(s in k for s in ("moment", "adam", "opt_state", "ema", "/mu",
+                            "/nu")):
+        return "moments"
+    if "grad" in k:
+        return "grads"
+    if any(s in k for s in ("scale", "bias", "norm")):
+        return "norms"
+    return "weights"
+
+
+def checkpoint_leaf_event(ledger: Ledger, *, key: str, raw_len: int,
+                          stored_len: int, dtype=None) -> tuple[int, int]:
+    """Book one checkpoint leaf's write; returns the (raw, stored) byte
+    pair the manifest entry stores (read back from the ledger booking, so
+    the manifest and the ledger cannot disagree)."""
+    return ledger.record(EV_WRITE, raw=raw_len, compressed=stored_len,
+                         tensor_class=classify_tensor(key, dtype))
+
+
+def checkpoint_restore_event(ledger: Ledger, *, key: str, raw_len: int,
+                             stored_len: int, dtype=None) -> None:
+    ledger.record(EV_READ, raw=raw_len, compressed=stored_len,
+                  tensor_class=classify_tensor(key, dtype))
+
+
+# ----------------------------------------------------- gradient collective
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(np.prod(np.shape(x))) * np.asarray(x).dtype.itemsize
+
+
+def tree_wire_bytes(tree) -> int:
+    """Raw wire bytes of an uncompressed all-reduce of the tree's leaves
+    (tensors or arrays, each at its own dtype's width)."""
+    return sum(_nbytes(x) for x in _leaves(tree))
+
+
+def int8_wire_bytes(tree) -> int:
+    """Wire bytes of the int8 per-tensor quantized collective: one byte a
+    element plus a 4-byte float32 scale a leaf."""
+    return sum(int(np.prod(tuple(x.shape))) + 4 for x in _leaves(tree))

@@ -88,6 +88,13 @@ class Ledger:
                 self.record(e, raw=raw, compressed=comp, count=cnt,
                             tensor_class=tensor_class, consumer=consumer)
 
+    def merge(self, other: "Ledger") -> "Ledger":
+        """Add every row of `other` into this ledger (consumers kept)."""
+        for (cons, tc, e), (raw, comp, cnt) in other._rows.items():
+            self.record(e, raw=raw, compressed=comp, count=cnt,
+                        tensor_class=tc, consumer=cons)
+        return self
+
     # -------------------------------------------------------------- queries
     def _select(self, event=None, consumer=None, tensor_class=None):
         e = None if event is None else event_id(event)
@@ -109,11 +116,24 @@ class Ledger:
             cnt += n
         return {"raw_bytes": raw, "compressed_bytes": comp, "count": cnt}
 
+    def raw_bytes(self, event=None, **kw) -> int:
+        return self.total(event, **kw)["raw_bytes"]
+
+    def compressed_bytes(self, event=None, **kw) -> int:
+        return self.total(event, **kw)["compressed_bytes"]
+
     def saving(self, event=None, **kw) -> float:
         """1 - compressed/raw over the selected rows (the paper's bandwidth
         win; negative when compression *cost* bytes — the §VI signal)."""
         t = self.total(event, **kw)
         return 1.0 - t["compressed_bytes"] / max(t["raw_bytes"], 1)
+
+    def consumers(self) -> tuple[str, ...]:
+        return tuple(sorted({c for c, _, _ in self._rows}))
+
+    def tensor_classes(self, consumer=None) -> tuple[str, ...]:
+        return tuple(sorted({tc for c, tc, _ in self._rows
+                             if consumer is None or c == consumer}))
 
     def as_dict(self) -> dict:
         """{consumer: {tensor_class: {event: {raw, compressed, count}}}} —
@@ -124,6 +144,9 @@ class Ledger:
                 "raw_bytes": raw, "compressed_bytes": comp, "count": cnt,
             }
         return out
+
+    def __len__(self) -> int:
+        return len(self._rows)
 
     def __repr__(self) -> str:
         t = self.total()

@@ -10,4 +10,5 @@ CONFIG = ModelConfig(
     d_ff=8192, vocab=202_048, mlp_act="swiglu",
     n_experts=128, top_k=1, moe_every=2, shared_expert_ff=8192,
     optimizer_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+    microbatches=8,
 )

@@ -37,20 +37,7 @@ from ..device import resolve_device
 from ..models import ModelConfig, build, smoke_config
 from ..serving import ServeLoop
 from .steps import make_serve_step
-
-PRESETS = {
-    # the reference's train presets (repro.launch.train.PRESETS)
-    "lm20m": ModelConfig(
-        name="lm20m", family="dense", n_layers=4, d_model=384, n_heads=6,
-        n_kv_heads=6, head_dim=64, d_ff=1024, vocab=8192, max_seq=256,
-        attn_q_chunk=128, attn_k_chunk=128, dtype=torch.float32,
-        param_dtype=torch.float32),
-    "lm2m": ModelConfig(
-        name="lm2m", family="dense", n_layers=2, d_model=128, n_heads=4,
-        n_kv_heads=4, head_dim=32, d_ff=256, vocab=2048, max_seq=128,
-        attn_q_chunk=64, attn_k_chunk=64, dtype=torch.float32,
-        param_dtype=torch.float32),
-}
+from .train import PRESETS
 
 PAGE = 16   # serve-tier tokens per KV page
 

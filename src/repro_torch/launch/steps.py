@@ -1,8 +1,26 @@
-"""The serve step (port of `repro.launch.steps.make_serve_step`)."""
+"""Step functions of the launchers (port of `repro.launch.steps`: the
+train step, the prefill step and the serve step)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..models.layers import logits_last
+from ..optim.adamw import make_train_step
+
+__all__ = ["make_prefill_step", "make_serve_step", "make_train_step"]
+
+
+def make_prefill_step(model):
+    """-> prefill_step(batch) -> (B, V) float32 logits at the last
+    position of the prompt (the next token's), from `model.forward`."""
+
+    @torch.no_grad()
+    def prefill_step(batch):
+        h = model.forward(batch)
+        return logits_last(h[:, -1], model.embed.to(h.dtype))
+
+    return prefill_step
 
 
 def make_serve_step(model):

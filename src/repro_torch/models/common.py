@@ -50,8 +50,16 @@ class ModelConfig:
     dtype: Any = torch.bfloat16        # activation / compute dtype
     param_dtype: Any = torch.float32   # parameter storage dtype
     optimizer_dtype: Any = torch.float32  # AdamW moment dtype
+    remat: bool = True       # recompute each super-block in backward
+    microbatches: int = 4    # grad-accumulation steps per train step
+    # the reference's cost-probe and sequence-gather switches, kept for
+    # config parity: loops are Python loops here, and one device gathers
+    # nothing
+    unroll: bool = False
+    attn_gather: bool = False
     attn_q_chunk: int = 512
     attn_k_chunk: int = 1024
+    xent_chunk: int = 512
     max_seq: int = 4096
 
     @property
@@ -83,8 +91,10 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         vocab=512,
         dtype=torch.float32,
         param_dtype=torch.float32,
+        remat=False,
         attn_q_chunk=64,
         attn_k_chunk=64,
+        xent_chunk=64,
         max_seq=128,
     )
     if cfg.family == "moe":

@@ -1,10 +1,12 @@
 """Shared layers of the decoder (port of `repro.models.layers`): RMS
-norm, RoPE, the MLP variants and the decode logits."""
+norm, RoPE, the MLP variants, the chunked cross-entropy and the decode
+logits."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -50,6 +52,44 @@ def mlp_init(ini, d_model: int, d_ff: int, act: str) -> dict:
     if act == "swiglu":
         p["w3"] = ini.normal((d_model, d_ff))
     return p
+
+
+def _xent_chunk(hc, yc, mc, wt):
+    """One chunk's summed NLL and label count, float32."""
+    logits = (hc @ wt.T).to(torch.float32)              # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(h, embed, labels, chunk: int = 512,
+                         label_mask=None):
+    """Mean cross-entropy with logits never held at full (B, S, V).
+
+    h: (B, S, D) final hidden states; embed: (V, D) tied output embedding
+    (cast to h's dtype here, as the reference does); labels: (B, S) int.
+    Each chunk of `chunk` positions (and the trailing remainder) computes
+    its logits -> logsumexp -> NLL under `checkpoint`, so its (B, c, V)
+    logits are recomputed in backward and never outlive the chunk.  The
+    sums run in float32 in the reference's order: chunk by chunk, then
+    the remainder."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    wt = embed.to(h.dtype)
+    if label_mask is None:
+        label_mask = torch.ones(labels.shape, dtype=torch.float32,
+                                device=h.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if s > n_chunks * chunk:
+        bounds.append((n_chunks * chunk, s))
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo, hi in bounds:
+        sl = (slice(None), slice(lo, hi))
+        nll, n = checkpoint(_xent_chunk, h[sl], labels[sl], label_mask[sl],
+                            wt, use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def logits_last(h_last, embed):

@@ -8,12 +8,13 @@ expert's contribution, as in the reference: at decode T is the batch, so
 olmoe-1b-7b at batch 4 has C = 1 and two tokens that pick one expert in a
 step keep only the first one's.
 
-Every step is deterministic on the card: the top-k breaks ties by the
-lower expert index (as `jax.lax.top_k` does; `torch.topk` promises no
-order for ties), the dispatch writes each kept row once (dropped rows go
-to a spare row that is cut off), and the combine gathers each token's k
-contributions and sums them (the reference's scatter-add would be an
-atomic `index_add_`, summed in no fixed order).
+Every step is deterministic on the card, backward included: the top-k
+breaks ties by the lower expert index (as `jax.lax.top_k` does;
+`torch.topk` promises no order for ties), the dispatch writes each kept
+row once (dropped rows go to a spare row that is cut off), and the
+combine gathers each token's k contributions and sums them (the
+reference's scatter-add would be an atomic `index_add_`, summed in no
+fixed order).
 """
 
 from __future__ import annotations
@@ -87,10 +88,14 @@ def moe_apply(p, cfg, x):
     first.index_add_(0, r.eidx[:, 0], torch.ones(t, device=x.device))
     aux = e * torch.sum(first / t * probs.mean(0))
 
-    tok = r.order // k
     spare = e * cap
     buf = x.new_zeros((spare + 1, d))
-    buf[torch.where(r.keep, r.dest, spare)] = xf[tok]
+    # row i * k + c of the repeat is token i's c-th choice, so this is
+    # xf[order // k] through a permutation: its gradient sums each
+    # token's k rows in a fixed order (a gather of repeated rows would
+    # scatter-add them, in no fixed order on several threads)
+    buf[torch.where(r.keep, r.dest, spare)] = \
+        xf.repeat_interleave(k, dim=0)[r.order]
     buf = buf[:spare].reshape(e, cap, d)
     h1 = torch.bmm(buf, p["w1"])
     if cfg.mlp_act == "swiglu":

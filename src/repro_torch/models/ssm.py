@@ -1,6 +1,10 @@
-"""Mamba2 (SSD) block, the recurrent decode step (port of the decode side
-of `repro.models.ssm`; its chunked `ssm_apply` comes with the training
-path).
+"""Mamba2 (SSD) block (port of `repro.models.ssm`): the chunked SSD
+forward over a whole sequence (training and prefill) and the recurrent
+decode step.
+
+Within a chunk of c tokens the output is a masked (c x c) product (the
+attention-like dual form); across chunks the state h (B, H, N, P) is
+carried by a Python loop (the reference's `lax.scan`).
 
 The state h (B, H, N, P) is float32; the projections and the causal conv
 run in the compute dtype.  The conv states are stored in float32 and read
@@ -40,16 +44,21 @@ def ssm_init(ini, cfg) -> dict:
     }
 
 
-def _causal_conv(x, w, state):
+def _causal_conv(x, w, state=None):
     """Depthwise causal conv.  x: (B, S, C) compute dtype; w: (K, C) in
-    x's dtype; state: (B, K-1, C) trailing context, overwritten in place
-    with the new context.  Returns y (B, S, C)."""
+    x's dtype; state: (B, K-1, C) trailing context (decode), overwritten
+    in place with the new context, or None: zeros before the sequence.
+    Returns y (B, S, C)."""
     k, s = w.shape[0], x.shape[1]
-    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    if state is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
     y = xp[:, 0:s] * w[0]
     for i in range(1, k):
         y = y + xp[:, i:i + s] * w[i]
-    if k > 1:
+    if state is not None and k > 1:
         state.copy_(xp[:, -(k - 1):])
     return y
 
@@ -62,6 +71,59 @@ def _project(p, cfg, x):
     dt = (x @ p["wdt"]).to(torch.float32) + p["dt_bias"].to(torch.float32)
     dt = torch.logaddexp(dt, dt.new_zeros(()))
     return z, xin, b_, c_, dt
+
+
+def ssm_apply(p, cfg, x):
+    """Chunked SSD forward.  x: (B, S, D) -> (B, S, D); `p` holds the
+    projections and conv weights in x's dtype.  S must be a multiple of
+    the chunk min(ssm_chunk, S)."""
+    bsz, s, _ = x.shape
+    nh, n, g, hp = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups,
+                    cfg.ssm_headdim)
+    c = min(cfg.ssm_chunk, s)
+    assert s % c == 0, (s, c)
+    nc, hpg = s // c, nh // g
+    f32 = torch.float32
+    z, xin, b_, c_, dt = _project(p, cfg, x)
+    xin = F.silu(_causal_conv(xin, p["conv_x"]))
+    b_ = F.silu(_causal_conv(b_, p["conv_B"]))
+    c_ = F.silu(_causal_conv(c_, p["conv_C"]))
+
+    a_neg = -torch.exp(p["A_log"].to(f32))                  # (H,)
+    xh = xin.reshape(bsz, nc, c, nh, hp).to(f32)
+    bh = b_.reshape(bsz, nc, c, g, n).to(f32)
+    ch = c_.reshape(bsz, nc, c, g, n).to(f32)
+    dts = dt.reshape(bsz, nc, c, nh)
+    cum = torch.cumsum(dts * a_neg, dim=2)                  # within-chunk
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    h = x.new_zeros((bsz, nh, n, hp), dtype=f32)
+    ys = []
+    for i in range(nc):
+        xc, bc, cc = xh[:, i], bh[:, i], ch[:, i]
+        cumc, dtc = cum[:, i], dts[:, i]
+        # intra-chunk: w[i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, i >= j
+        cb = torch.repeat_interleave(
+            torch.einsum("bign,bjgn->bijg", cc, bc), hpg, dim=-1)
+        decay = torch.exp(cumc[:, :, None, :] - cumc[:, None, :, :])
+        w = torch.where(mask[None, :, :, None], cb * decay, 0.0)
+        y_intra = torch.einsum("bijh,bjhp->bihp", w * dtc[:, None, :, :],
+                               xc)
+        # inter-chunk: the carried state's contribution
+        c_heads = torch.repeat_interleave(cc, hpg, dim=2)  # (B, c, H, N)
+        y_inter = (torch.einsum("bchn,bhnp->bchp", c_heads, h)
+                   * torch.exp(cumc)[..., None])
+        # h' = exp(sum a) h + sum_j exp(cum_last - cum_j) dt_j B_j x_j
+        tail = torch.exp(cumc[:, -1:, :] - cumc)            # (B, c, H)
+        b_heads = torch.repeat_interleave(bc, hpg, dim=2)
+        dstate = torch.einsum("bchn,bchp->bhnp",
+                              b_heads * (tail * dtc)[..., None], xc)
+        h = h * torch.exp(cumc[:, -1, :])[..., None, None] + dstate
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, nh, hp)
+    y = y + xh.reshape(bsz, s, nh, hp) * p["D"].to(f32)[:, None]
+    y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return y @ p["out"]
 
 
 def ssm_init_cache(cfg, batch: int, device, lead=()) -> dict:

@@ -1,5 +1,6 @@
 """Decoder-only LM of the dense / moe / ssm / hybrid / vlm families (port
-of `repro.models.transformer`, the decode path).
+of `repro.models.transformer`: the forward and loss of training, and the
+decode step).
 
 The layer stack is `n_supers` repetitions of a super-block (a short list
 of block kinds), as in the reference:
@@ -17,10 +18,14 @@ The reference stacks every position's parameters on a leading
 (n_supers,) axis and scans it with `lax.scan`; here each layer is one
 module (`blocks.{i}`, i = super * per + position, where `per` counts the
 positions other than "shared"; the shared block is `shared`) and the scan
-is a Python loop.  Each matmul weight is used in the compute `dtype`, as
-the reference's `w.astype(x.dtype)` does, through a copy cast once at load
-time (the cast is deterministic, so the copy has the same bits; where
-`param_dtype` is the compute dtype there is no copy).
+is a Python loop.  Parameters are trainable `nn.Parameter`s in
+`param_dtype`.  Training casts each matmul weight to the compute `dtype`
+at its use, as the reference's `w.astype(x.dtype)` does, so gradients
+land in the `param_dtype` masters; with `cfg.remat` each super-block is
+recomputed in backward (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint`).  The decode step reads a compute-dtype copy of the
+weights, cast when it is first needed and cast again after any in-place
+change of a parameter (an optimizer step, a restore); training drops it.
 
 The decode cache has the reference's stacked layout: `b{j}` for each
 super-block position j, every leaf with a leading (n_supers,) axis, and
@@ -29,15 +34,21 @@ super-block position j, every leaf with a leading (n_supers,) axis, and
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attention_apply, attention_init, cross_attention
 from .common import Initializer, ModelConfig
-from .layers import logits_last, mlp_apply, mlp_init, rms_norm
+from .layers import (chunked_softmax_xent, logits_last, mlp_apply, mlp_init,
+                     rms_norm)
 from .moe import moe_apply, moe_init
-from .ssm import ssm_decode_step, ssm_init, ssm_init_cache
+from .ssm import ssm_apply, ssm_decode_step, ssm_init, ssm_init_cache
+from .threefry import ReferenceInitializer
 
 # weights used in the compute dtype (the reference's `.astype(x.dtype)`);
 # norms, the SSM's A_log / D / dt_bias and the cross gate keep param_dtype
@@ -99,7 +110,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None,
     `generator` (a generator of that device) with the reference's scales
     (normal / sqrt(fan_in), the embedding and router at 0.02, norms at
     one, the SSM's constants and the cross gate at the reference's
-    values).  On the "meta" device: the shapes only."""
+    values), one layer at a time.  On the "meta" device: the shapes
+    only."""
     ini = Initializer(generator, resolve_device(device), cfg.param_dtype)
     spec = super_block_spec(cfg)
     per = len([k for k in spec if k != "shared"])
@@ -110,6 +122,33 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None,
             if kind != "shared":
                 params.update(_prefixed(f"blocks.{s * per + j}",
                                         _block_init(ini, cfg, kind)))
+    if "shared" in spec:
+        params.update(_prefixed("shared", _block_init(ini, cfg, "dense")))
+    return params
+
+
+def init_lm_reference(cfg: ModelConfig, seed: int,
+                      device="cuda") -> dict[str, torch.Tensor]:
+    """The reference's initial parameters for `jax.random.key(seed)`
+    (`repro.models.transformer.init_lm`) as the port's state dict, drawn
+    in torch on `device` by `threefry.ReferenceInitializer` in the
+    reference's order: the embedding, then each super-block position's
+    parameters for all super-blocks at once (one draw with a leading
+    (n_supers,) axis, unbound here into the layers), then the shared
+    block."""
+    ini = ReferenceInitializer(seed, resolve_device(device),
+                               cfg.param_dtype)
+    spec = super_block_spec(cfg)
+    per = len([k for k in spec if k != "shared"])
+    params = {"embed": ini.normal((cfg.vocab, cfg.d_model), scale=0.02),
+              "final_ln": ini.ones((cfg.d_model,))}
+    for j, kind in enumerate(spec):
+        if kind == "shared":
+            continue
+        stacked = _block_init(ini.stacked(n_supers(cfg)), cfg, kind)
+        for name, t in stacked.items():
+            for s, layer in enumerate(t.unbind(0)):
+                params[f"blocks.{s * per + j}.{name}"] = layer
     if "shared" in spec:
         params.update(_prefixed("shared", _block_init(ini, cfg, "dense")))
     return params
@@ -138,9 +177,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 
 
 class ParamTree(nn.Module):
-    """Frozen parameters from a flat state dict: a key "a.b" becomes the
-    parameter `b` of the submodule `a`, so the state dict's names are the
-    flat keys."""
+    """Trainable parameters from a flat state dict: a key "a.b" becomes
+    the parameter `b` of the submodule `a`, so the state dict's names are
+    the flat keys."""
 
     def __init__(self, params: dict[str, torch.Tensor]):
         super().__init__()
@@ -150,18 +189,16 @@ class ParamTree(nn.Module):
             if rest:
                 groups.setdefault(head, {})[rest] = t
             else:
-                self.register_parameter(
-                    head, nn.Parameter(t, requires_grad=False))
+                self.register_parameter(head, nn.Parameter(t))
         for head, sub in groups.items():
             self.add_module(head, ParamTree(sub))
 
-    def compute(self, dtype) -> dict:
+    def weights(self, dtype) -> dict:
         """The nested dict of this tree's tensors, COMPUTE_WEIGHTS cast to
-        `dtype`."""
-        out = {name: (p.detach().to(dtype) if name in COMPUTE_WEIGHTS
-                      else p.detach())
+        `dtype` (under autograd: the cast is part of the graph)."""
+        out = {name: (p.to(dtype) if name in COMPUTE_WEIGHTS else p)
                for name, p in self.named_parameters(recurse=False)}
-        out.update({name: m.compute(dtype)
+        out.update({name: m.weights(dtype)
                     for name, m in self.named_children()})
         return out
 
@@ -173,50 +210,136 @@ def _subtree(params: dict, prefix: str) -> dict:
 
 class DecoderLM(nn.Module):
     """The decoder: embedding (tied with the output head), one ParamTree
-    per layer (`blocks`), the hybrid's `shared` block and a final norm."""
+    per layer (`blocks`), the hybrid's `shared` block and a final norm.
+    The counterpart of the reference's `Model`: `loss(batch)`,
+    `forward(batch)`, `init_cache`, `decode_step`, with the weights held
+    by the module instead of passed in."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor]):
         super().__init__()
         self.config = cfg
         self.spec = super_block_spec(cfg)
         self.per = len([k for k in self.spec if k != "shared"])
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.final_ln = nn.Parameter(params["final_ln"], requires_grad=False)
+        self.embed = nn.Parameter(params["embed"])
+        self.final_ln = nn.Parameter(params["final_ln"])
         self.blocks = nn.ModuleList([
             ParamTree(_subtree(params, f"blocks.{i}."))
             for i in range(cfg.n_layers)])
         if "shared" in self.spec:
             self.shared = ParamTree(_subtree(params, "shared."))
-        dt = cfg.dtype
-        self._compute = {
-            "embed": self.embed.detach().to(dt),
-            "blocks": [blk.compute(dt) for blk in self.blocks],
-            "shared": self.shared.compute(dt) if "shared" in self.spec
-            else None}
+        self._decode = None             # (parameter versions, weights)
+
+    def decode_weights(self) -> dict:
+        """The weights the decode step reads, in the compute dtype (the
+        parameters themselves where `param_dtype` is the compute dtype):
+        cast once and kept until a parameter changes in place."""
+        versions = tuple(p._version for p in self.parameters())
+        if self._decode is None or self._decode[0] != versions:
+            self._decode = None
+            dt = self.config.dtype
+            with torch.no_grad():
+                self._decode = (versions, {
+                    "embed": self.embed.detach().to(dt),
+                    "blocks": [blk.weights(dt) for blk in self.blocks],
+                    "shared": (self.shared.weights(dt)
+                               if "shared" in self.spec else None)})
+        return self._decode[1]
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return init_cache(self.config, batch, max_len, self.embed.device)
 
-    def _block(self, kind, w, x, cache, s, positions, index, image_embeds):
+    def _block(self, kind, w, x, *, positions, image_embeds, cache=None,
+               s=0, index=0):
+        """One block; returns (x, aux loss or None).  With `cache` (the
+        super-block position's stacked cache, read at super-block `s`):
+        the decode path at position `index`."""
         cfg = self.config
         if kind == "ssm":
+            h = rms_norm(x, w["ln1"])
+            if cache is None:
+                return x + ssm_apply(w["ssm"], cfg, h), None
             state = {k: v[s] for k, v in cache["ssm"].items()}
-            return x + ssm_decode_step(w["ssm"], cfg, rms_norm(x, w["ln1"]),
-                                       state)
+            return x + ssm_decode_step(w["ssm"], cfg, h, state), None
         if kind == "cross":
             h = cross_attention(w["xattn"], cfg, rms_norm(x, w["ln1"]),
                                 kv_x=image_embeds)
             x = x + torch.tanh(w["gate"]).to(x.dtype) * h
             return x + mlp_apply(w["mlp"], rms_norm(x, w["ln2"]),
-                                 cfg.mlp_act)
-        kv = cache["attn"]
-        x = x + attention_apply(
-            w["attn"], cfg, rms_norm(x, w["ln1"]), positions=positions,
-            cache={"k": kv["k"][s], "v": kv["v"][s]}, cache_index=index)
+                                 cfg.mlp_act), None
+        kv = None
+        if cache is not None:
+            kv = {"k": cache["attn"]["k"][s], "v": cache["attn"]["v"][s]}
+        x = x + attention_apply(w["attn"], cfg, rms_norm(x, w["ln1"]),
+                                positions=positions, cache=kv,
+                                cache_index=index)
         h2 = rms_norm(x, w["ln2"])
         if kind == "moe":
-            return x + moe_apply(w["moe"], cfg, h2)[0]
-        return x + mlp_apply(w["mlp"], h2, cfg.mlp_act)
+            y, aux = moe_apply(w["moe"], cfg, h2)
+            return x + y, aux
+        return x + mlp_apply(w["mlp"], h2, cfg.mlp_act), None
+
+    def _layer_weights(self, s: int, j: int, kind: str):
+        if kind == "shared":
+            return self.shared, "dense"
+        return self.blocks[s * self.per + j], kind
+
+    def _super(self, s: int, x, aux, *, positions, image_embeds):
+        """Super-block `s` of the training forward: (x, aux) -> (x, aux)."""
+        for j, kind in enumerate(self.spec):
+            tree, kind = self._layer_weights(s, j, kind)
+            x, a = self._block(kind, tree.weights(x.dtype), x,
+                               positions=positions,
+                               image_embeds=image_embeds)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _inputs(self, batch: dict):
+        dev = self.embed.device
+        out = {"tokens": torch.as_tensor(batch["tokens"], device=dev).long()}
+        if "labels" in batch:
+            out["labels"] = torch.as_tensor(batch["labels"],
+                                            device=dev).long()
+        if batch.get("image_embeds") is not None:
+            out["image_embeds"] = torch.as_tensor(batch["image_embeds"],
+                                                  device=dev)
+        return out
+
+    def hidden(self, tokens, image_embeds=None):
+        """tokens (B, S) -> final hidden states (B, S, D) in the compute
+        dtype and the MoE aux loss (float32 scalar).  `image_embeds`
+        (B, n_image, D) reach the vlm's cross blocks as given (float32
+        K/V under a bf16 config, as the reference promotes them)."""
+        cfg = self.config
+        if torch.is_grad_enabled():
+            self._decode = None
+        # F.embedding: its gradient sums a repeated token's rows in a
+        # fixed order (indexing's would scatter-add them)
+        x = F.embedding(tokens, self.embed.to(cfg.dtype))
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for s in range(n_supers(cfg)):
+            body = functools.partial(self._super, s, positions=positions,
+                                     image_embeds=image_embeds)
+            x, aux = (checkpoint(body, x, aux, use_reentrant=False) if remat
+                      else body(x, aux))
+        return rms_norm(x, self.final_ln), aux
+
+    def forward(self, batch: dict):
+        """{tokens, [image_embeds]} -> final hidden states (B, S, D)."""
+        b = self._inputs(batch)
+        return self.hidden(b["tokens"], b.get("image_embeds"))[0]
+
+    def loss(self, batch: dict):
+        """{tokens (B,S), labels (B,S), [image_embeds]} (numpy or tensors)
+        -> scalar loss: the mean NLL (chunked over the sequence) plus 0.01
+        times the MoE aux loss."""
+        b = self._inputs(batch)
+        h, aux = self.hidden(b["tokens"], b.get("image_embeds"))
+        nll = chunked_softmax_xent(h, self.embed, b["labels"],
+                                   chunk=self.config.xent_chunk)
+        return nll + 0.01 * aux
 
     @torch.no_grad()
     def decode_step(self, token, cache: dict, index: int,
@@ -227,7 +350,8 @@ class DecoderLM(nn.Module):
         reference's launcher).  Updates `cache` in place and returns
         logits (B, V) float32."""
         cfg = self.config
-        emb = self._compute["embed"]
+        wts = self.decode_weights()
+        emb = wts["embed"]
         x = emb[token]                                   # (B, 1, D)
         positions = torch.full((1, 1), index, dtype=torch.int64,
                                device=x.device)
@@ -236,13 +360,24 @@ class DecoderLM(nn.Module):
         for s in range(n_supers(cfg)):
             for j, kind in enumerate(self.spec):
                 if kind == "shared":
-                    w, kind = self._compute["shared"], "dense"
+                    w, kind = wts["shared"], "dense"
                 else:
-                    w = self._compute["blocks"][s * self.per + j]
-                x = self._block(kind, w, x, cache[f"b{j}"], s, positions,
-                                index, image_embeds)
+                    w = wts["blocks"][s * self.per + j]
+                x, _ = self._block(kind, w, x, positions=positions,
+                                   image_embeds=image_embeds,
+                                   cache=cache[f"b{j}"], s=s, index=index)
         x = rms_norm(x, self.final_ln)
         return logits_last(x[:, 0], emb)
+
+
+def lm_forward(model: DecoderLM, tokens, image_embeds=None):
+    """Functional alias of `DecoderLM.hidden`: (h, aux)."""
+    return model.hidden(tokens, image_embeds)
+
+
+def lm_loss(model: DecoderLM, batch: dict):
+    """Functional alias of `DecoderLM.loss`."""
+    return model.loss(batch)
 
 
 def lm_decode_step(model: DecoderLM, token, cache: dict, index: int,

@@ -1,6 +1,9 @@
 """Model construction and analytic parameter counts (port of
 `repro.models.zoo`: `build` for the decoder families, `count_params`,
-`active_params`)."""
+`active_params`).  The reference's `Model` bundles the config with
+`init`, `loss`, `forward`, `init_cache` and `decode_step`; here `build`
+returns a `DecoderLM`, which holds its weights and has `loss(batch)`,
+`forward(batch)`, `init_cache` and `decode_step`."""
 
 from __future__ import annotations
 
@@ -15,8 +18,9 @@ def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
           params: dict[str, torch.Tensor] | None = None) -> DecoderLM:
     """The model on `device`: random weights from a `torch.Generator`
     seeded with `seed`, or `params` (a state dict, e.g. from
-    `repro_torch.convert.params_from_jax`), which must hold exactly the
-    tensors of `init_lm`'s state dict, at the same shapes."""
+    `repro_torch.convert.params_from_jax` or `init_lm_reference`), which
+    must hold exactly the tensors of `init_lm`'s state dict, at the same
+    shapes."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             "family 'encdec' (whisper): not ported yet (ROADMAP Queue 1 "
