@@ -53,7 +53,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      size in float32, 3 train steps on the CPU and twice on the card from
      the same weights and batches: losses, parameters and a decode step
      after training within 1e-4, the two card runs bit-identical ("train
-     parity" lines); then
+     parity" lines); whisper-base (the encdec family) at its published
+     width and depth through the train launcher, 3 steps at batch 8 x
+     `--seq 448` (per step loss, wall, device time, busy share, peak
+     memory: "whisper train" lines), and whisper at smoke size in float32,
+     one train step, the encoder, `prefill_cross` and 4 decode steps on
+     the CPU and twice on the card within 1e-4, greedy tokens equal, the
+     card runs bit-identical ("whisper parity"); then
      the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -74,7 +80,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      no serve tier, no traffic), and llama-3.2-vision-90b and
      llama4-maverick-400b-a17b cut to one super-block (5 and 2 layers),
      each with its walls, decode step device time, busy share and peak
-     device memory ("zoo" lines), the card freed between runs;
+     device memory ("zoo" lines), the card freed between runs; then
+     whisper-base at its published width and depth through the same
+     launcher (batch 4, prompt 32, 32 generated; no serve tier and no
+     traffic, as in the reference: "whisper serve" line);
   4. the serve tier alone: 200-token prompts in 8 slots (6 compressible,
      1 incompressible, 1 alternating), 48 decode steps each followed by an
      attend, every attend held against the plain attention on the same
@@ -111,7 +120,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      paper's sweep (`sweep_workloads`, 27 x 10 at 200,000 events) in one
      launch, equal to the same sweep in chunks of 50,000, with each
      scheme's geomean and lowest speedup, mean LLP accuracy and metadata
-     share of accesses ("trace sim:" lines);
+     share of accesses ("trace sim:" lines); then, outside the paths, the
+     launch audit's ten entries (`repro_torch.analysis.launch_audit`) on
+     the card, each recorded call under
+     `torch.cuda.set_sync_debug_mode("error")`: its LAUNCHES equal to the
+     kernel calls of `tests/golden/torch_launch_audit.json`, its hard
+     invariants held, its aten op count printed beside the device
+     operations torch.profiler records for it ("audit" lines);
   6. every kernel launch of phases 3 to 5, held against the plain version
      on a copy of the inputs that launch was given (K7 in chunks of 2^20
      lines over every line; E1 over the first 256 events of each launch,
@@ -152,11 +167,11 @@ Phases, each of which makes the script exit non-zero when it fails:
      from torch.profiler's record of the CUDA calls that enqueue them;
      the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive twenty-two paths (phi4 and zamba2 training, the
-training launcher, launcher pair and quad, the spill launcher with auto
-and with pair, the six zoo runs, serve attend pair and
-quad, the small serve attend, serve churn pair and quad, page codec pair
-and quad, scan, trace simulator);
+Phases 3 to 5 drive twenty-four paths (phi4 and zamba2 training, the
+training launcher, whisper's training, launcher pair and quad, the spill
+launcher with auto and with pair, the six zoo runs, whisper's serving,
+serve attend pair and quad, the small serve attend, serve churn pair and
+quad, page codec pair and quad, scan, trace simulator);
 the launch counters are set to 0 just before each and read just after it,
 and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
@@ -249,6 +264,10 @@ PATHS = {
     "train_phi4": (),
     "train_zamba2": (),
     "train_launcher": (),
+    # whisper-base on both launchers: no kernel, as in the reference (its
+    # serve launcher runs no serve tier for the encdec family)
+    "whisper_train": (),
+    "whisper_serve": (),
 }
 
 
@@ -742,11 +761,19 @@ def delta_pages(torch, rng, lanes, lead, page, hkv, d2, device):
             for x in pages]
 
 
+def page_codec(lanes: int):
+    """The registry's page codec of a `lanes`-page group (its pack_pages /
+    unpack_pages are the group pack's plain versions)."""
+    from repro_torch.compression import get_codec
+
+    return get_codec("int8-delta" if lanes == 2 else "int4-delta")
+
+
 def check_page_codecs(torch, rng, device) -> dict:
     """The page codecs' group pack (K1/K2) and unpack (K4/K5) against
-    `pagepack`, bit-exact, at three shapes; pack -> unpack the identity on
-    every fitting group.  Returns the largest |difference| by kernel."""
-    from repro_torch.compression import pagepack
+    the registry's plain versions (`compression.pagepack`), bit-exact, at
+    three shapes; pack -> unpack the identity on every fitting group.
+    Returns the largest |difference| by kernel."""
     from repro_torch.kernels import bdi_pack
 
     errs = {}
@@ -754,9 +781,8 @@ def check_page_codecs(torch, rng, device) -> dict:
     shapes = (((), PAGE, N_KV, d2), ((6,), PAGE, N_KV, d2),
               ((2, 3), 5, 3, 16))
     for lanes in (2, 4):
-        plain_pack = pagepack.pack_pair if lanes == 2 else pagepack.pack_quad
-        plain_unpack = (pagepack.unpack_pair if lanes == 2
-                        else pagepack.unpack_quad)
+        plain_pack = page_codec(lanes).pack_pages
+        plain_unpack = page_codec(lanes).unpack_pages
         for lead, page, hkv, dd in shapes:
             pages = delta_pages(torch, rng, lanes, lead, page, hkv, dd, device)
             packed, base, ok = bdi_pack.pack_pages_cuda(pages)
@@ -921,11 +947,14 @@ def check_scan(torch, rng, device) -> dict:
     image."""
     import numpy as np
 
+    from repro_torch.compression.framing import DEFAULT_MARKER_KEY
     from repro_torch.compression.marker import LineStatus
     from repro_torch.kernels import compress_scan as cs
 
-    for n, key, plant in ((1, 0x5EED, False), (301, 0xDEADBEEF, True),
-                          (1024, 0x5EED, True), (2 ** 20, 0x1234ABCD, True),
+    for n, key, plant in ((1, DEFAULT_MARKER_KEY, False),
+                          (301, 0xDEADBEEF, True),
+                          (1024, DEFAULT_MARKER_KEY, True),
+                          (2 ** 20, 0x1234ABCD, True),
                           (2 ** 20, 0xDEADBEEF, None)):
         if plant is None:
             lines, want = boundary_image(rng, n, key), {}
@@ -1007,9 +1036,12 @@ def _timed(torch, walls: dict, outs: dict, name: str, fn):
 
 def weight_bytes(tree) -> int:
     """Bytes of the tensors a decode step reads: the model's weights in
-    the compute dtype (every expert's, since each has a capacity row)."""
+    the compute dtype (every expert's, since each has a capacity row;
+    whisper's decoder positions, of which a step reads one row, left
+    out)."""
     if isinstance(tree, dict):
-        return sum(weight_bytes(v) for v in tree.values())
+        return sum(weight_bytes(v) for k, v in tree.items()
+                   if k != "pos_dec")
     if isinstance(tree, list):
         return sum(weight_bytes(v) for v in tree)
     return 0 if tree is None else nbytes(tree)
@@ -1065,7 +1097,8 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
     woken, and the ledger's kv-evict / kv-restore spill rows must count
     the crossings.  A model with no attention cache (the ssm family) has
     no serve tier: its report must say so and book no traffic.  One more
-    decode step of the model must give finite (batch, vocab) logits."""
+    decode step of the model must give finite (batch, vocab) logits.
+    Whisper has no serve tier either, as under the reference's launcher."""
     from repro_torch.launch import serve
 
     torch.cuda.reset_peak_memory_stats()
@@ -1101,7 +1134,9 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
         if not math.isfinite(report[key]) or report[key] <= 0:
             fail(f"launcher {label}: {key} = {report[key]}")
     st = report["serve_tier"]
-    ssm = config is not None and config.family == "ssm"
+    # no serve tier: the ssm family (no attention cache) and whisper (as in
+    # the reference's launcher)
+    ssm = config is not None and config.family in ("ssm", "encdec")
     if (st is None) != ssm or (ssm and report["traffic"]):
         fail(f"launcher {label}: serve tier {st}, traffic "
              f"{report['traffic']}")
@@ -1174,6 +1209,8 @@ def check_zoo_decode(torch, device) -> dict:
     errs = {}
     for arch in configs.ARCHS:
         cfg = configs.get_smoke(arch)
+        if cfg.family == "encdec":      # check_whisper_parity
+            continue
         params = build(cfg, device="cpu", seed=0).state_dict()
         for name in params:         # open the vlm's cross gates
             if name.endswith(".gate"):
@@ -1519,6 +1556,8 @@ def check_train_parity(torch, device) -> dict:
     errs = {}
     for arch in configs.ARCHS:
         cfg = configs.get_smoke(arch)
+        if cfg.family == "encdec":      # check_whisper_parity
+            continue
         params = build(cfg, device="cpu", seed=0).state_dict()
         for name in params:
             if name.endswith(".gate"):
@@ -1561,6 +1600,278 @@ def check_train_parity(torch, device) -> dict:
               "against the CPU (losses, params, decode logits after "
               "training), two card runs bit-identical")
     return errs
+
+
+# --------------------------------------- whisper-base, the encdec family
+
+WHISPER = "whisper_base"
+WHISPER_PARITY_STEPS = 4
+WHISPER_ENC_LEN = 32
+# the train launcher at Whisper's decoder context (448 tokens); its final
+# checkpoint (1.05 GB of float32 state) in the raw codec, which writes it
+# in seconds where the cram codec's host encoder takes tens of them
+WHISPER_TRAIN_ARGV = ["--arch", WHISPER, "--steps", "3", "--batch", "8",
+                      "--seq", "448", "--ckpt-every", "50", "--codec", "raw"]
+
+
+def check_whisper_parity(torch, device) -> float:
+    """Whisper at smoke size in float32 (2 + 2 layers), on the same
+    weights on the CPU and twice on the card: one train step on a
+    synthetic batch with frames, then the encoder over frames,
+    `prefill_cross` and WHISPER_PARITY_STEPS greedy decode steps fed the
+    CPU's tokens; loss, parameters, encoder output, cross K/V and logits
+    within atol = rtol = 1e-4, greedy tokens equal, the two card runs
+    bit-identical.  Returns the largest |difference|."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.models.whisper import init_whisper
+    from repro_torch.optim import adamw_init, make_train_step
+
+    cfg = configs.get_smoke(WHISPER)
+    params = init_whisper(cfg, 0, "cpu")
+    batch = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=2, family=cfg.family,
+        d_model=cfg.d_model)).batch(0)
+    frames = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, WHISPER_ENC_LEN, cfg.d_model)).astype(np.float32))
+    runs, feed = [], None            # feed: the CPU's input tokens
+    for dev in ("cpu", device, device):
+        model = build(cfg, device=dev,
+                      params={k: v.clone() for k, v in params.items()})
+        state = adamw_init(model)
+        state, m = make_train_step(model, lr_peak=1e-2)(state, batch)
+        enc = model.encode(frames.to(dev))
+        cache = model.prefill_cross(enc, model.init_cache(
+            4, WHISPER_PARITY_STEPS, enc_len=WHISPER_ENC_LEN))
+        tok = torch.zeros((4, 1), dtype=torch.int64)
+        inputs, logits, greedy = [], [], []
+        for i in range(WHISPER_PARITY_STEPS):
+            inputs.append(tok if feed is None else feed[i])
+            out = model.decode_step(inputs[-1].to(dev), cache, i).cpu()
+            logits.append(out)
+            greedy.append(torch.argmax(out, -1, keepdim=True))
+            tok = greedy[-1]
+        feed = feed or inputs
+        runs.append({"loss": m["loss"].detach().cpu()[None],
+                     "enc": enc.detach().cpu(),
+                     "xk": cache["xk"].cpu(), "xv": cache["xv"].cpu(),
+                     "logits": torch.stack(logits),
+                     "greedy": torch.stack(greedy),
+                     **{k: p.detach().cpu()
+                        for k, p in model.named_parameters()}})
+    cpu, a, b = runs
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        fail("whisper parity: two card runs differ")
+    if not torch.equal(a["greedy"], cpu["greedy"]):
+        fail("whisper parity: greedy tokens differ from the CPU's")
+    err = max((a[k] - cpu[k]).abs().max().item() for k in cpu
+              if k != "greedy")
+    if not all(torch.allclose(a[k], cpu[k], atol=1e-4, rtol=1e-4)
+               for k in cpu if k != "greedy"):
+        fail(f"whisper parity: the card differs from the CPU by {err:.3e}")
+    print(f"whisper parity: {WHISPER} (encdec, smoke size, float32, "
+          f"{cfg.enc_layers} + {cfg.dec_layers} layers): one train step "
+          f"(loss {float(a['loss']):.6f}), encoder over {WHISPER_ENC_LEN} "
+          f"frames, prefill_cross and {WHISPER_PARITY_STEPS} decode steps, "
+          f"max|diff| {err:.3e} against the CPU (loss, params, encoder "
+          "output, cross K/V, logits), greedy tokens equal, two card runs "
+          "bit-identical")
+    return err
+
+
+def whisper_train_phase(torch, card: str) -> dict:
+    """The train launcher on whisper-base at its published width and
+    depth (6 + 6 layers, random weights: the reference's draws for
+    `--seed 0`) for 3 steps at batch 8 x `--seq 448` (the decoder's
+    context; the pipeline's frames are 448 x 512), the config's
+    microbatches (4) and remat, bf16 compute, a raw checkpoint at the
+    end: per step the loss, wall, device time
+    (torch.profiler, the kernels' own durations; the launcher's step
+    times include the profiler's start and stop), busy share and peak
+    device memory, and the final checkpoint's wall and bytes.  Every
+    step must run, and the losses be finite."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+    from repro_torch.models import count_params
+
+    _free_card(torch)
+    rows, profs, saves = [], [], []
+    make_step, save_async = train.make_train_step, \
+        ckpt.CheckpointManager.save_async
+
+    def profiled_steps(model, **kw):
+        step = make_step(model, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            profs.append(prof)
+            rows.append({"loss": loss, "wall_ms": wall,
+                         "peak_memory_gb":
+                             torch.cuda.max_memory_allocated() / 1e9})
+            return state, m
+        return run
+
+    def timed_save(mgr, step, tree):
+        t = time.perf_counter()
+        save_async(mgr, step, tree)
+        mgr.wait()
+        saves.append((step, time.perf_counter() - t))
+
+    train.make_train_step = profiled_steps
+    ckpt.CheckpointManager.save_async = timed_save
+    buf = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            report = train.main(WHISPER_TRAIN_ARGV + ["--ckpt-dir", tmp])
+            wall = time.perf_counter() - t0
+            manifest = ckpt.read_manifest(tmp, saves[-1][0])
+    finally:
+        train.make_train_step = make_step
+        ckpt.CheckpointManager.save_async = save_async
+    for r, prof in zip(rows, profs, strict=True):
+        r["device_ms"], r["device_split"] = _step_device_ms(torch, prof)
+        r["busy_share"] = (None if r["device_ms"] is None
+                           else r["device_ms"] / r["wall_ms"])
+    raw = sum(x["raw_bytes"] for x in manifest["leaves"])
+    stored = sum(x["stored_bytes"] for x in manifest["leaves"])
+    cfg = configs.get(WHISPER)
+    steps = int(WHISPER_TRAIN_ARGV[WHISPER_TRAIN_ARGV.index("--steps") + 1])
+    if report["steps"] != steps or len(rows) != steps or \
+            not all(math.isfinite(r["loss"]) for r in rows):
+        fail(f"whisper train: {report}, {len(rows)} steps profiled")
+    print(f"whisper train: {WHISPER} through the train launcher, "
+          f"{cfg.enc_layers} + {cfg.dec_layers} layers, "
+          f"{count_params(cfg) / 1e6:.1f} M params counted, "
+          f"{' '.join(WHISPER_TRAIN_ARGV)}: microbatches "
+          f"{cfg.microbatches}, remat {cfg.remat}, compute {cfg.dtype}; "
+          f"launcher wall {wall:.1f} s, of it the final checkpoint "
+          f"{saves[-1][1]:.1f} s ({raw} B raw, {stored} B stored, "
+          f"{stored / raw:.4f}); mean_step_ms {report['mean_step_ms']} "
+          f"(with the profiler's start and stop); card {card}")
+    for i, r in enumerate(rows):
+        print(f"whisper train: step {i} loss {r['loss']:.6f}; wall "
+              f"{r['wall_ms']:.1f} ms (under the profiler), device "
+              f"{r['device_ms'] if r['device_ms'] is None else round(r['device_ms'], 1)}"
+              f" ms, busy share {r['busy_share']}; peak memory "
+              f"{r['peak_memory_gb']:.2f} GB; card {card}")
+    print("whisper train: last step's device time by kernel kind, ms "
+          "(kernels): " + ", ".join(
+              f"{k} {v[0]:.1f} ({v[1]})" for k, v in sorted(
+                  rows[-1]["device_split"].items(), key=lambda kv: -kv[1][0])))
+    _free_card(torch)
+    return {"report": report, "wall_s": wall, "steps": rows,
+            "checkpoint": {"step": saves[-1][0], "wall_s": saves[-1][1],
+                           "raw_bytes": raw, "stored_bytes": stored}}
+
+
+def whisper_serve_phase(torch, card: str) -> dict:
+    """The serve launcher on whisper-base at its published width and
+    depth (random weights), batch 4, prompt 32, 32 generated: as the
+    reference's launcher, the decode runs against the zero cross K/V of
+    `init_cache` and there is no serve tier and no traffic.  Prints its
+    walls, the decode step's device time and busy share, and peak
+    memory."""
+    from repro_torch import configs
+    from repro_torch.models import count_params
+
+    cfg = configs.get(WHISPER)
+    t0 = time.perf_counter()
+    r = run_launcher(torch, "whisper_serve", ["--arch", WHISPER] + ZOO_ARGV,
+                     config=cfg)
+    _free_card(torch)
+    walls = r["walls"]
+    print(f"whisper serve: {WHISPER}, {cfg.enc_layers} + {cfg.dec_layers} "
+          f"layers, {count_params(cfg) / 1e6:.1f} M params counted "
+          f"({cfg.param_dtype}), {' '.join(ZOO_ARGV)}: peak memory "
+          f"{r['peak_memory_gb']:.2f} GB; weights read a step "
+          f"{r['weights_read_gb']:.4f} GB, bound "
+          f"{r['weights_read_gb'] * 1e12 / HBM_BYTES_PER_S:.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s (model build "
+          f"{walls['model_build_s']:.2f} s, model prefill + decode "
+          f"{walls['model_prefill_decode_s']:.3f} s); decode step "
+          f"{walls['decode_step_ms']:.2f} ms, of it on the device "
+          f"{walls['decode_step_device_ms']} ms, busy share "
+          f"{walls['decode_device_busy_share']}; decode {r['tokens_per_s']} "
+          f"tokens/s, prefill {r['prefill_tokens_per_s']} tokens/s; "
+          f"serve_tier {r['serve_tier']}, traffic {r['traffic']}; sample "
+          f"{r['sample']}; card {card}")
+    return r
+
+
+def audit_phase(torch, card: str) -> dict:
+    """The launch audit's entries (`repro_torch.analysis.launch_audit`)
+    on the card, each recorded call under
+    `torch.cuda.set_sync_debug_mode("error")`: its LAUNCHES equal to the
+    golden's kernel calls, the device-independent counts and the hard
+    invariants held, and beside its aten op count (outside the kernel
+    wrappers, on the card and in the CPU golden) the device operations
+    torch.profiler records for the call (the CUDA calls that enqueue
+    them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import launch_audit as la
+
+    golden = json.loads(la.GOLDEN_PATH.read_text())
+    recorded = la._recorded
+    device_ops: dict = {}
+
+    def profiled(fn, device, **kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = recorded(fn, device, **kw)
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.key.startswith(ENQUEUE_CALLS))
+        device_ops[current] = device_ops.get(current, 0) + n
+        return out
+
+    report = {}
+    la._recorded = profiled
+    try:
+        for current in la.ENTRIES:
+            report.update(la.audit("cuda", names=[current]))
+    finally:
+        la._recorded = recorded
+    bad = la.hard_violations(report, la.known_syncs(golden))
+    bad += la.compare(report, golden, keys=la.DEVICE_FREE)
+    out = {}
+    for name, e in report.items():
+        want = golden["entries"][name]["pinned"]
+        launched = e["info"].get("launches") or {}
+        if launched != want["kernel_calls"]:
+            bad.append(f"{name}: LAUNCHES {launched}, golden kernel calls "
+                       f"{want['kernel_calls']}")
+        out[name] = {"launches": launched, "pinned": e["pinned"],
+                     "device_ops": device_ops.get(name), "inplace":
+                     e["inplace"], "f64": e["f64"]}
+        print(f"audit {name}: LAUNCHES {launched} (golden kernel calls "
+              f"{want['kernel_calls']}); aten ops outside the kernels "
+              f"{e['pinned'].get('aten_ops')} on the card "
+              f"({want.get('aten_ops')} in the CPU golden), device "
+              f"operations {device_ops.get(name)} (torch.profiler); host "
+              f"syncs {e['pinned']['host_syncs']} (none raised under "
+              f"set_sync_debug_mode('error')); in place {e['inplace']}; "
+              f"f64 {e['f64']}; card {card}")
+    if bad:
+        fail("audit: " + "; ".join(bad))
+    return out
 
 
 def attend_stream(rng, n: int, total: int):
@@ -1916,7 +2227,7 @@ def scan_phase(torch, device) -> dict:
     compress sweep does.  Returns its statistics and wall times."""
     import numpy as np
 
-    from repro_torch.compression import bdi, fpc, get_codec, hybrid
+    from repro_torch.compression import get_codec
     from repro_torch.kernels.compress_scan import classify_image_ref
 
     t0 = time.perf_counter()
@@ -1948,9 +2259,10 @@ def scan_phase(torch, device) -> dict:
         n = image.size // 64
         head = image.reshape(-1, 64)[:4096]
         sl = slice(ofs, ofs + head.shape[0])
-        checks = {"sizes": hybrid.compressed_sizes(head),
-                  "fpc": fpc.fpc_size_bytes(head),
-                  "bdi": bdi.bdi_sizes(head)[0],
+        # the registry's host sizes; bdi's carries its 1-byte mode header
+        checks = {"sizes": get_codec("hybrid").size_fn(head),
+                  "fpc": get_codec("fpc").size_fn(head),
+                  "bdi": get_codec("bdi").size_fn(head) - 1,
                   "status": classify_image_ref(head, first_slot=ofs)}
         for key, want in checks.items():
             if not np.array_equal(host[key][sl], want):
@@ -2455,10 +2767,8 @@ def _close(torch, label, out, ref) -> float:
 
 
 def _check_group_pack(torch, label, args, kw, outs):
-    from repro_torch.compression import pagepack
-
     pages = args[0]
-    plain = pagepack.pack_pair if len(pages) == 2 else pagepack.pack_quad
+    plain = page_codec(len(pages)).pack_pages
     ok, packed, base = plain(*pages)
     for key, g, r in zip(("packed", "base", "ok"), outs, (packed, base, ok),
                          strict=True):
@@ -2468,10 +2778,8 @@ def _check_group_pack(torch, label, args, kw, outs):
 
 
 def _check_unpack(torch, label, args, kw, outs):
-    from repro_torch.compression import pagepack
-
     packed, base, lanes = args
-    plain = pagepack.unpack_pair if lanes == 2 else pagepack.unpack_quad
+    plain = page_codec(lanes).unpack_pages
     for j, (g, r) in enumerate(zip(outs, plain(packed, base), strict=True)):
         if not torch.equal(g, r):
             fail(f"{label}: lane {j} differs from the plain version")
@@ -2604,7 +2912,6 @@ def timing_spec(torch, name, args, kw) -> dict:
     """For kernel `name` on the inputs of one main-path launch: its shape,
     the kernel call, the plain call, the library call (or None) and the
     bound."""
-    from repro_torch.compression import pagepack
     from repro_torch.kernels import bdi_pack
     from repro_torch.kernels import compress_scan as cs
     from repro_torch.kernels import cram_attention as ca
@@ -2635,7 +2942,7 @@ def timing_spec(torch, name, args, kw) -> dict:
                 "bound": attention_bound(torch, one, kw)}
     if name.endswith("_group"):
         pages = args[0]
-        plain = pagepack.pack_pair if len(pages) == 2 else pagepack.pack_quad
+        plain = page_codec(len(pages)).pack_pages
         groups = pages[0].numel() // math.prod(pages[0].shape[-3:])
         moved = (sum(nbytes(x) for x in pages) + nbytes(pages[0])
                  + nbytes(pages[0][..., 0, :, :]) + groups)   # ok: a byte
@@ -2645,7 +2952,7 @@ def timing_spec(torch, name, args, kw) -> dict:
                 "bound": _bound(moved)}
     if name.startswith("unpack"):
         packed, base, lanes = args
-        plain = pagepack.unpack_pair if lanes == 2 else pagepack.unpack_quad
+        plain = page_codec(lanes).unpack_pages
         moved = nbytes(packed) + nbytes(base) + lanes * nbytes(packed)
         return {"shape": packed.shape,
                 "kernel": lambda: bdi_pack.unpack_pages_cuda(packed, base,
@@ -3014,7 +3321,7 @@ def main(argv=None) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: twenty-two paths, each with the launch counters from 0
+    # phases 3 to 5: twenty-four paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -3082,6 +3389,9 @@ def main(argv=None) -> int:
     training["launcher"] = drive("train_launcher",
                                  lambda: train_launcher_phase(torch, card))
     training["parity"] = check_train_parity(torch, device)
+    training["whisper"] = drive("whisper_train",
+                                lambda: whisper_train_phase(torch, card))
+    training["whisper_parity"] = check_whisper_parity(torch, device)
     print(f"training: {time.perf_counter() - t0:.1f} s")
 
     reports = {}
@@ -3121,6 +3431,10 @@ def main(argv=None) -> int:
     zoo_parity = check_zoo_decode(torch, device)
     zoo = {path: drive(path, lambda p=path: run_zoo(torch, p, card))
            for path in ZOO_RUNS}
+    t0 = time.perf_counter()
+    zoo["whisper_serve"] = drive("whisper_serve",
+                                 lambda: whisper_serve_phase(torch, card))
+    print(f"whisper serve path: {time.perf_counter() - t0:.1f} s")
     phases = {}
     for packing in ("pair", "quad"):
         phases[packing] = drive(
@@ -3153,6 +3467,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sim = drive("trace_sim", lambda: trace_sim_phase(torch, device))
     print(f"trace sim path: {time.perf_counter() - t0:.1f} s")
+    # the launch audit holds its own LAUNCHES against its golden; outside
+    # a path, so that no launch copy of this script is in its counts
+    t0 = time.perf_counter()
+    audit = audit_phase(torch, card)
+    print(f"audit: {time.perf_counter() - t0:.1f} s")
 
     # phase 6: every launch of phases 3 to 5 against its plain version
     t0 = time.perf_counter()
@@ -3216,7 +3535,7 @@ def main(argv=None) -> int:
              "ptxas": cuda_lib.ptxas_report(),
              "main_path_checks": main_path, "scan": scan_report,
              "page_codec": codec, "serve_attend_small": small,
-             "serve_churn": churn, "trace_sim": sim,
+             "serve_churn": churn, "trace_sim": sim, "audit": audit,
              "single_vs_batched": {p: ph["single_vs_batched"]
                                    for p, ph in phases.items()},
              "timing": timing}, indent=1))

@@ -168,8 +168,14 @@ def device_record(totals, event, raw, compressed=None, count=1):
     compressed / count may be Python ints or 0-d tensors."""
     e = event_id(event)
     comp = raw if compressed is None else compressed
-    delta = torch.stack([torch.as_tensor(x, device=totals.device).to(
-        torch.int32).reshape(()) for x in (raw, comp, count)])
+
+    def cell(x):    # a Python int is filled on the device, not copied
+        if torch.is_tensor(x):
+            return x.to(totals.device).to(torch.int32).reshape(())
+        return torch.full((), x, dtype=torch.int64,
+                          device=totals.device).to(torch.int32)
+
+    delta = torch.stack([cell(x) for x in (raw, comp, count)])
     totals[e] += delta
     return totals
 

@@ -1,5 +1,5 @@
-"""The decoder architecture configs (port of `repro.configs`, without
-`whisper_base`, whose encdec family is not ported yet).
+"""The architecture configs (port of `repro.configs`): the decoder
+families and whisper-base's encoder-decoder.
 
 Each module exposes CONFIG (full size), selectable with `--arch <id>` in
 the launcher; `get(name)` returns the full config, `get_smoke(name)` the
@@ -14,6 +14,7 @@ ARCHS = (
     "mistral_large_123b",
     "qwen3_8b",
     "nemotron_4_15b",
+    "whisper_base",
     "mamba2_130m",
     "zamba2_2_7b",
     "llama4_maverick_400b_a17b",
@@ -33,9 +34,7 @@ def canonical(name: str) -> str:
 def get(name: str):
     name = canonical(name)
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r}: not ported (ported: {', '.join(ARCHS)}; "
-            "whisper_base is ROADMAP Queue 1 item 4)")
+        raise KeyError(f"unknown arch {name!r} (have: {', '.join(ARCHS)})")
     return importlib.import_module(f".{name}", __package__).CONFIG
 
 

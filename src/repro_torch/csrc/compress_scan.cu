@@ -71,9 +71,14 @@
 
 namespace {
 
-constexpr uint32_t M2_MULT = 0x9E3779B1u;  // framing.M2_MULT
-constexpr uint32_t M4_MULT = 0x85EBCA6Bu;  // framing.M4_MULT
-constexpr uint32_t IL_MULT = 0x27D4EB2Fu;  // framing.IL_MULT
+// compression.framing's multipliers, passed by kernels/cuda_lib.py as
+// -DCRAM_<name>=<value>u (framing_defines), so that no copy can drift
+#if !defined(CRAM_M2_MULT) || !defined(CRAM_M4_MULT) || !defined(CRAM_IL_MULT)
+#error "build through repro_torch.kernels.cuda_lib, which passes framing's multipliers"
+#endif
+constexpr uint32_t M2_MULT = CRAM_M2_MULT;
+constexpr uint32_t M4_MULT = CRAM_M4_MULT;
+constexpr uint32_t IL_MULT = CRAM_IL_MULT;
 constexpr int LINE_BYTES = 64;
 constexpr int HEADER_BYTES = 1;
 // compression.marker.LineStatus

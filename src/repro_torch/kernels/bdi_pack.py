@@ -154,6 +154,8 @@ def pack_window_cuda(win, marker_lanes, enabled):
     return slots, over, strips, lay, fit
 
 
+@cuda_lib.kernel_wrapper(
+    lambda win, *a: "pack_pair" if win.shape[2] == 2 else "pack_quad")
 def pack_window(win, marker_lanes, enabled):
     """Lay a gathered window: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
@@ -230,6 +232,7 @@ def unpack_pages_cuda(packed, base, lanes: int):
     return tuple(out.unbind(0))
 
 
+@cuda_lib.kernel_wrapper("pack_pair_group")
 def pack_pair(page_a, page_b):
     """Pair pack (K1, the int8-delta codec's device pack): -> (packed,
     base, ok)."""
@@ -239,6 +242,7 @@ def pack_pair(page_a, page_b):
     return pack_pages_cuda((page_a, page_b))
 
 
+@cuda_lib.kernel_wrapper("pack_quad_group")
 def pack_quad(page_a, page_b, page_c, page_d):
     """Quad pack (K2, the int4-delta codec's device pack): -> (packed,
     base, ok)."""
@@ -248,6 +252,7 @@ def pack_quad(page_a, page_b, page_c, page_d):
     return pack_pages_cuda((page_a, page_b, page_c, page_d))
 
 
+@cuda_lib.kernel_wrapper("unpack_pair")
 def unpack_pair(packed, base):
     """K4: inverse of pack_pair -> (page_a, page_b)."""
     if packed.device.type == "cpu":
@@ -255,6 +260,7 @@ def unpack_pair(packed, base):
     return unpack_pages_cuda(packed, base, 2)
 
 
+@cuda_lib.kernel_wrapper("unpack_quad")
 def unpack_quad(packed, base):
     """K5: inverse of pack_quad -> (page_a, page_b, page_c, page_d)."""
     if packed.device.type == "cpu":

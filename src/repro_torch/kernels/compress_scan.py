@@ -240,6 +240,7 @@ def compress_scan_cuda(lines, *, key: int = DEFAULT_MARKER_KEY) -> dict:
                     strict=True))
 
 
+@cuda_lib.kernel_wrapper("compress_scan")
 def compress_scan(lines, *, key: int = DEFAULT_MARKER_KEY) -> dict:
     """Scan a memory image in one kernel pass.
 

@@ -213,6 +213,9 @@ def cram_decode_attention_batched_cuda(q, slots, strips, markers, valid,
     return out, byts
 
 
+@cuda_lib.kernel_wrapper(
+    lambda *a, lanes=2, **kw: ("decode_attention_pair" if lanes == 2
+                               else "decode_attention_quad"))
 def cram_decode_attention_batched(q, slots, strips, markers, valid,
                                   predictor, *, lanes: int = 2,
                                   block_groups: int | None = None,
@@ -275,6 +278,9 @@ def cram_decode_attention_cuda(q, slots, strips, markers, valid, *,
     return out
 
 
+@cuda_lib.kernel_wrapper(
+    lambda *a, lanes=2, **kw: ("decode_single_pair" if lanes == 2
+                               else "decode_single_quad"))
 def cram_decode_attention(q, slots, strips, markers, valid, *,
                           lanes: int = 2):
     """Single-sequence fused decode.

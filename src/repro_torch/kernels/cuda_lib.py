@@ -12,11 +12,17 @@ Each C entry point returns `cudaGetLastError()`; `check()` raises on a
 non-zero code.  Pointers and the stream travel as `c_void_p`.  The
 compiles run with `-Xptxas -v`; `ptxas_report()` gives each kernel's
 registers and spills from the build of the library in use.
+
+`kernel_wrapper` marks each kernel's dispatching wrapper (the function
+that runs the plain version on a CPU tensor and launches the kernel on a
+CUDA tensor), so that the launch audit (`repro_torch.analysis.
+launch_audit`) sees every call of it, on either device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -28,6 +34,9 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
+# compression.framing's marker multipliers, which the sources take as
+# CRAM_<name> defines instead of retyping them
+FRAMING_DEFINES = ("M2_MULT", "M4_MULT", "IL_MULT")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _U = ctypes.c_longlong, ctypes.c_uint32
@@ -60,6 +69,37 @@ SIGNATURES = {
 
 _state: dict = {"lib": None, "build_seconds": None}
 
+# observers of the kernel wrappers' calls (the launch audit's recorder);
+# empty outside an audit
+OBSERVERS: list = []
+
+
+def kernel_wrapper(launch_key, *, waits: bool = False):
+    """Decorate a kernel's dispatching wrapper: while OBSERVERS is not
+    empty, each observer's `enter(name, waits)` / `exit(name)` bracket the
+    call, `name = launch_key(*args, **kw)` being the kernel's key in its
+    module's LAUNCHES (a constant string stands for itself).  `waits`
+    says that the kernel's host entry waits for its launch to finish (a
+    host sync on the card that torch cannot see)."""
+    key = (launch_key if callable(launch_key)
+           else lambda *a, **kw: launch_key)
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if not OBSERVERS:
+                return fn(*args, **kw)
+            name = key(*args, **kw)
+            for obs in OBSERVERS:
+                obs.enter(name, waits)
+            try:
+                return fn(*args, **kw)
+            finally:
+                for obs in OBSERVERS:
+                    obs.exit(name)
+        return call
+    return deco
+
 
 def build_dir() -> pathlib.Path:
     """`build/kernels/` at the root of the checkout."""
@@ -76,14 +116,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def framing_defines() -> tuple[str, ...]:
+    """`-DCRAM_<name>=<value>u` for each of FRAMING_DEFINES, the values
+    read from `compression.framing`."""
+    from ..compression import framing
+
+    return tuple(f"-DCRAM_{name}={getattr(framing, name):#x}u"
+                 for name in FRAMING_DEFINES)
+
+
 def build() -> pathlib.Path:
     """Compile every source in parallel and link the shared library."""
     sources = sorted(CSRC.glob("*.cu"))
+    defines = framing_defines()
     digest = hashlib.sha256()
     for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + defines).encode())
     tag = digest.hexdigest()[:16]
     out_dir = build_dir()
     lib_path = out_dir / f"libcram_kernels_{tag}.so"
@@ -94,8 +144,8 @@ def build() -> pathlib.Path:
     nvcc = _nvcc()
     objs = [out_dir / f"{src.stem}_{tag}.o" for src in sources]
     procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
-                 str(obj)],
+                [nvcc, *NVCC_FLAGS, *defines, "-Xptxas", "-v", "-c",
+                 str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs, strict=True)]
     failures, logs = [], []

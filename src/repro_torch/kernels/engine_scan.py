@@ -463,6 +463,8 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
     return carry
 
 
+# the host entry waits for the launch, to report a refused input
+@cuda_lib.kernel_wrapper("engine_scan", waits=True)
 def engine_scan(carry, flags, params, addrs, is_write, pair_ab, pair_cd,
                 quad, tables: dict, consts: dict):
     """Advance every lane's carry over the chunk's events, in place.  A

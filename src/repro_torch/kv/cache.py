@@ -216,13 +216,17 @@ class CRAMKVCache:
         bsz, t = kv.shape[:2]
         assert bsz == self.batch
         assert self.tokens + t <= self.max_pages * self.page, "cache full"
-        self.state["pages"][:, self.tokens:self.tokens + t] = kv
+        self._scatter_tokens(kv)
         span = self.group_lanes * self.page
         lo = self.tokens // span
         hi = (self.tokens + t - 1) // span
         self._dirty[lo:hi + 1] = True
         self._uncounted[lo:hi + 1] = True
         self.tokens += t
+
+    def _scatter_tokens(self, kv) -> None:
+        """Write kv (B, T, Hkv, D2) at the cache's position, in place."""
+        self.state["pages"][:, self.tokens:self.tokens + kv.shape[1]] = kv
 
     @property
     def n_pages(self) -> int:
@@ -253,8 +257,11 @@ class CRAMKVCache:
             self.n_kv, self.d2)
 
     def _tensor(self, x, dtype=None):
-        return torch.as_tensor(np.asarray(x), device=self.device,
-                               dtype=dtype)
+        """Host array -> tensor on the cache's device.  The copy to a card
+        does not wait for it: the host bytes are staged at the call, so
+        the decode step never blocks on the card's queue."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(
+            self.device, non_blocking=True)
 
     # ------------------------------------------------------------- packing
     def enabled(self) -> np.ndarray:
@@ -384,7 +391,7 @@ class CRAMKVCache:
         st["pred_hits"] += ((~mis) & live).sum(1).to(torch.int32)
         st["pred_misses"] += (mis & live).sum(1).to(torch.int32)
         kv_read_device(st["traffic"], raw_seq, cram_seq)
-        st["predictor"] = observe_layout(st["packed_mask"])
+        st["predictor"].copy_(observe_layout(st["packed_mask"]))
         raw_t, cram_t = raw_seq.sum(), cram_seq.sum()
         return {"raw_bytes": raw_t, "cram_bytes": cram_t,
                 "raw_per_seq": raw_seq, "cram_per_seq": cram_seq,

@@ -1,19 +1,21 @@
 """Serving launcher: model decode + continuous-batching CRAM-KV tier
 (port of `repro.launch.serve`).
 
-Runs a decoder of any ported family (dense, moe, ssm, hybrid, vlm) end
+Runs a model of any family (dense, moe, ssm, hybrid, vlm, encdec) end
 to end — prefill token by token, then greedy step decoding with the
 stacked cache — and mirrors the first attention block's real layer-0 KV
 stream through the serve tier (`repro_torch.serving.ServeLoop`; none for
-the ssm family, which has no attention): a fixed pool of `--slots` lanes
-with slot reuse, staggered admits every `--admit-rate` steps (each
-prompt ingested by one bulk pack), per-step decode appends through the
-fused megastep, and a compressed host spill tier behind the lanes
-(`--spill-pages` caps it).  With `--slots` below `--batch`, cold
-sequences spill compressed and wake on their next decode step; every
-crossing books one ledger `spill` row.  `--kv-policy auto` lets the
-AutoTuner pick both tiers' packings from the prompts' KV.  The printed
-report has the reference's keys.
+the ssm family, which has no attention, nor, as in the reference, for
+whisper's encdec, which decodes against the zero cross K/V of
+`init_cache(B, max_len)`: the launcher has no frames to encode): a
+fixed pool of `--slots` lanes with slot reuse, staggered admits every
+`--admit-rate` steps (each prompt ingested by one bulk pack), per-step
+decode appends through the fused megastep, and a compressed host spill
+tier behind the lanes (`--spill-pages` caps it).  With `--slots` below
+`--batch`, cold sequences spill compressed and wake on their next decode
+step; every crossing books one ledger `spill` row.  `--kv-policy auto`
+lets the AutoTuner pick both tiers' packings from the prompts' KV.  The
+printed report has the reference's keys.
 
   python -m repro_torch.launch.serve --arch phi4_mini_3_8b --no-smoke \
       --batch 4 --slots 2 --admit-rate 4 --kv-policy auto --spill-pages 64

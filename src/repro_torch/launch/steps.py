@@ -1,5 +1,8 @@
 """Step functions of the launchers (port of `repro.launch.steps`: the
-train step, the prefill step and the serve step)."""
+train step, the prefill step and the serve step), for every family: the
+model (`DecoderLM` or whisper's `Whisper`) holds its weights, and its
+`forward` / `decode_step` take the family's inputs (whisper's prefill
+batch carries `frames`)."""
 
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ __all__ = ["make_prefill_step", "make_serve_step", "make_train_step"]
 
 def make_prefill_step(model):
     """-> prefill_step(batch) -> (B, V) float32 logits at the last
-    position of the prompt (the next token's), from `model.forward`."""
+    position of the prompt (the next token's), from `model.forward`
+    (whisper: the decoder over the encoded `frames`)."""
 
     @torch.no_grad()
     def prefill_step(batch):
@@ -28,7 +32,8 @@ def make_serve_step(model):
     (next_token (B, 1) int32, cache): one greedy decode step.  The model
     holds its weights, so there is no params argument; the cache is
     updated in place.  `image_embeds` reaches the model for the vlm
-    family only, as in the reference."""
+    family only, as in the reference; whisper's step attends the cross
+    K/V its cache holds."""
     vlm = model.config.family == "vlm"
 
     def serve_step(token, cache, index: int, image_embeds=None):

@@ -5,9 +5,10 @@ pipeline, AdamW with global-norm clipping and the cosine schedule,
 remat and microbatching as the config sets them, the fault-tolerant
 checkpoint / restart loop with straggler flags, and CRAM-compressed
 checkpoints in the reference's format.  The initial weights are the
-reference's for `jax.random.key(--seed)` (`init_lm_reference`) and the
-batches the reference's for `--seed`, so a run's losses follow the
-reference launcher's step by step.  The printed report has the
+reference's for `jax.random.key(--seed)` (`init_lm_reference`, and
+`init_whisper` for whisper-base, which trains on the pipeline's
+`frames`) and the batches the reference's for `--seed`, so a run's
+losses follow the reference launcher's step by step.  The printed report has the
 reference's keys.
 
   python -m repro_torch.launch.train --preset lm20m --steps 300 \
@@ -35,6 +36,7 @@ from ..data import DataConfig, make_batch_iterator
 from ..device import resolve_device
 from ..models import ModelConfig, build, count_params, smoke_config
 from ..models.transformer import init_lm_reference
+from ..models.whisper import init_whisper
 from ..optim.adamw import adamw_init, make_train_step
 from ..runtime.ft import LoopConfig, SimulatedFault, run_with_restarts
 
@@ -96,9 +98,11 @@ def main(argv=None) -> dict:
                       n_image_tokens=cfg.n_image_tokens)
     live = {}
 
+    init = init_whisper if cfg.family == "encdec" else init_lm_reference
+
     def make_state():
-        live["model"] = build(cfg, device=device, params=init_lm_reference(
-            cfg, args.seed, device))
+        live["model"] = build(cfg, device=device,
+                              params=init(cfg, args.seed, device))
         return adamw_init(live["model"], cfg.optimizer_dtype)
 
     def make_step_fn():

@@ -1,12 +1,14 @@
-"""The decoder families of the model zoo (port of `repro.models`: dense,
-moe, ssm, hybrid and vlm, their training forward and loss and their
-decode step; whisper's encdec is not ported yet)."""
+"""The model zoo (port of `repro.models`): the decoder families (dense,
+moe, ssm, hybrid, vlm) and whisper's encoder-decoder (encdec), their
+training forward and loss and their decode step."""
 
 from .common import ModelConfig, smoke_config
 from .transformer import (DecoderLM, init_cache, init_lm, init_lm_reference,
                           lm_decode_step, lm_forward, lm_loss)
+from .whisper import Whisper, init_whisper
 from .zoo import active_params, build, count_params
 
-__all__ = ["ModelConfig", "DecoderLM", "active_params", "build",
+__all__ = ["ModelConfig", "DecoderLM", "Whisper", "active_params", "build",
            "count_params", "init_cache", "init_lm", "init_lm_reference",
-           "lm_decode_step", "lm_forward", "lm_loss", "smoke_config"]
+           "init_whisper", "lm_decode_step", "lm_forward", "lm_loss",
+           "smoke_config"]

@@ -137,10 +137,12 @@ def _project(p, cfg, x, kv_src):
 
 
 def cross_attention(p, cfg, x, kv_x=None):
-    """The `cross` block's attention: the reference's `attention_apply`
-    with `kv_x`, `causal=False`, `rope=False` and no cache.  K/V come from
-    `kv_x` (B, T, D), the image embeddings, or from x itself when none
-    are given (the reference's launcher passes none).  Returns (B, S, D)."""
+    """The reference's `attention_apply` with `causal=False`, `rope=False`
+    and no cache: the vlm's `cross` block and whisper's cross-attention,
+    K/V from `kv_x` (B, T, D) (the image embeddings, the encoder's
+    output), and whisper's encoder self-attention, K/V from x itself (as
+    the vlm's block when the reference's launcher passes no images).
+    Returns (B, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project(p, cfg, x, x if kv_x is None else kv_x)
     out = blockwise_attention(q, k, v, causal=False,
@@ -150,19 +152,22 @@ def cross_attention(p, cfg, x, kv_x=None):
 
 
 def attention_apply(p, cfg, x, *, positions=None, cache=None,
-                    cache_index: int = 0):
+                    cache_index: int = 0, rope: bool = True):
     """GQA self-attention.  x: (B,S,D); `p` holds the projections in x's
-    dtype; positions (1, S) default to 0..S-1.  Without a cache: causal
-    blockwise attention over the sequence (training and prefill).  With
-    a cache {k, v}: (B,T,Hkv,hd), the decode path: the cache is updated
-    in place at `cache_index` (the reference returns a new cache) and the
-    query attends its valid prefix.  Returns the block output (B,S,D)."""
+    dtype; positions (1, S) default to 0..S-1; `rope=False` leaves q and
+    k unrotated (whisper's decoder, whose positions are learned).
+    Without a cache: causal blockwise attention over the sequence
+    (training and prefill).  With a cache {k, v}: (B,T,Hkv,hd), the
+    decode path: the cache is updated in place at `cache_index` (the
+    reference returns a new cache) and the query attends its valid
+    prefix.  Returns the block output (B,S,D)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project(p, cfg, x, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
         out = blockwise_attention(q, k, v, causal=True,
                                   q_chunk=cfg.attn_q_chunk,

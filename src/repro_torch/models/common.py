@@ -43,6 +43,9 @@ class ModelConfig:
     ssm_chunk: int = 128
     # --- hybrid (zamba2): shared attention block every k ssm layers ---
     attn_every: int = 0
+    # --- enc-dec (whisper) ---
+    enc_layers: int = 0
+    dec_layers: int = 0
     # --- vlm ---
     cross_attn_every: int = 0   # a cross-attn layer every k-th layer
     n_image_tokens: int = 0
@@ -79,9 +82,9 @@ class ModelConfig:
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
-    """Reduce a decoder config to CPU-smoke size, keeping the family and
-    every structural feature (GQA ratio, MoE, hybrid pattern...), as the
-    reference does (its `encdec` reduction comes with whisper's port)."""
+    """Reduce a config to CPU-smoke size, keeping the family and every
+    structural feature (GQA ratio, MoE, hybrid pattern, encoder and
+    decoder stacks...), as the reference does."""
     kw: dict[str, Any] = dict(
         d_model=128,
         n_heads=4,
@@ -109,6 +112,8 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_layers=2 * max(cfg.attn_every, 1),
                   ssm_state=min(cfg.ssm_state, 32), ssm_headdim=32,
                   ssm_chunk=32, attn_every=max(cfg.attn_every, 1))
+    elif cfg.family == "encdec":
+        kw.update(enc_layers=2, dec_layers=2, n_layers=2)
     elif cfg.family == "vlm":
         kw.update(n_layers=2 * max(cfg.cross_attn_every, 1),
                   cross_attn_every=max(cfg.cross_attn_every, 1),

@@ -1,6 +1,6 @@
-"""Shared layers of the decoder (port of `repro.models.layers`): RMS
-norm, RoPE, the MLP variants, the chunked cross-entropy and the decode
-logits."""
+"""Shared layers of the models (port of `repro.models.layers`): RMS norm,
+layer norm with bias, RoPE, sinusoidal positions, the MLP variants, the
+chunked cross-entropy and the decode logits."""
 
 from __future__ import annotations
 
@@ -14,6 +14,18 @@ def rms_norm(x, weight, eps: float = 1e-6):
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * weight.to(torch.float32)).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with bias (whisper), computed in float32 and returned in
+    x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device):
@@ -31,6 +43,19 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device="cpu"):
+    """(seq, dim) float32: sin at the even columns, cos at the odd, as the
+    reference computes them in float32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    log_base = torch.log(torch.tensor(10000.0, device=device))
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-log_base / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def mlp_apply(p: dict, x, act: str):

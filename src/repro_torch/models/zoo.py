@@ -1,9 +1,9 @@
 """Model construction and analytic parameter counts (port of
-`repro.models.zoo`: `build` for the decoder families, `count_params`,
-`active_params`).  The reference's `Model` bundles the config with
-`init`, `loss`, `forward`, `init_cache` and `decode_step`; here `build`
-returns a `DecoderLM`, which holds its weights and has `loss(batch)`,
-`forward(batch)`, `init_cache` and `decode_step`."""
+`repro.models.zoo`: `build`, `count_params`, `active_params`).  The
+reference's `Model` bundles the config with `init`, `loss`, `forward`,
+`init_cache` and `decode_step`; here `build` returns a `DecoderLM` (the
+decoder families) or a `Whisper` (encdec), which holds its weights and
+has `loss(batch)`, `forward(batch)`, `init_cache` and `decode_step`."""
 
 from __future__ import annotations
 
@@ -12,27 +12,31 @@ import torch
 from ..device import resolve_device
 from .common import ModelConfig
 from .transformer import DecoderLM, init_lm
+from .whisper import Whisper, init_whisper, whisper_shapes
 
 
 def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
-          params: dict[str, torch.Tensor] | None = None) -> DecoderLM:
-    """The model on `device`: random weights from a `torch.Generator`
-    seeded with `seed`, or `params` (a state dict, e.g. from
+          params: dict[str, torch.Tensor] | None = None
+          ) -> DecoderLM | Whisper:
+    """The model on `device`: random weights from `seed` (a decoder's
+    from a seeded `torch.Generator`, whisper's the reference's draws for
+    `jax.random.key(seed)`), or `params` (a state dict, e.g. from
     `repro_torch.convert.params_from_jax` or `init_lm_reference`), which
-    must hold exactly the tensors of `init_lm`'s state dict, at the same
+    must hold exactly the tensors of the family's init, at the same
     shapes."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "family 'encdec' (whisper): not ported yet (ROADMAP Queue 1 "
-            "item 4)")
     dev = resolve_device(device)
+    encdec = cfg.family == "encdec"
     if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        params = init_lm(cfg, gen, dev)
+        if encdec:
+            params = init_whisper(cfg, seed, dev)
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = init_lm(cfg, gen, dev)
     else:
-        want = {k: tuple(v.shape)
-                for k, v in init_lm(cfg, None, "meta").items()}
+        want = (whisper_shapes(cfg) if encdec else
+                {k: tuple(v.shape)
+                 for k, v in init_lm(cfg, None, "meta").items()})
         got = {k: tuple(v.shape) for k, v in params.items()}
         if got != want:
             bad = sorted(k for k in want.keys() | got.keys()
@@ -42,7 +46,7 @@ def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
                                          f"{want.get(k)})" for k in bad[:8]))
         params = {k: v.to(device=dev, dtype=cfg.param_dtype)
                   for k, v in params.items()}
-    return DecoderLM(cfg, params)
+    return Whisper(cfg, params) if encdec else DecoderLM(cfg, params)
 
 
 def _mlp(cfg: ModelConfig, d_ff: int) -> int:
@@ -63,13 +67,12 @@ def _ssm_layer(cfg: ModelConfig) -> int:
 def count_params(cfg: ModelConfig) -> int:
     """The reference's analytic count, formula for formula (the embedding
     and the matmul weights; norms, conv weights and the SSM's per-head
-    vectors are not counted)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "family 'encdec' (whisper): not ported yet (ROADMAP Queue 1 "
-            "item 4)")
+    vectors, and whisper's decoder positions, are not counted)."""
     v, d = cfg.vocab, cfg.d_model
     attn, mlp = _attn(cfg), _mlp(cfg, cfg.d_ff)
+    if cfg.family == "encdec":
+        return (v * d + cfg.enc_layers * (attn + mlp)
+                + cfg.dec_layers * (2 * attn + mlp))
     if cfg.family == "ssm":
         return v * d + cfg.n_layers * _ssm_layer(cfg)
     if cfg.family == "hybrid":

@@ -267,17 +267,8 @@ class SlotKVCache(CRAMKVCache):
         columns) and book the step's read and repack traffic on the device
         accumulators.  Bit-identical to append_active -> migration_quantum
         -> repack -> account_step under the frozen gate."""
-        slot_ids = np.asarray(slot_ids, np.int64)
-        assert slot_ids.size > 0, "megastep needs at least one active slot"
-        kv = kv_bits(k, v, self.device)
-        s, t = kv.shape[:2]
-        assert s == slot_ids.size
-        self._check_slot_ids(slot_ids, t)
-        self._scatter_active(slot_ids, kv)
-        for sl in slot_ids:
-            self._mark_dirty(int(sl), int(self.tokens_b[sl]), t)
-        self.tokens_b[slot_ids] += t
-        self.tokens = int(self.tokens_b.max())
+        assert len(slot_ids) > 0, "megastep needs at least one active slot"
+        self.append_active(slot_ids, k, v)
         if budget:
             self.migration_quantum(budget)
         idx = np.nonzero(self._dirty_b.any(0))[0]
@@ -300,23 +291,16 @@ class SlotKVCache(CRAMKVCache):
         Bit-identical to append_slot -> repack under the frozen gate.  The
         reference pads the prompt to a power of two with zero rows that land
         on never-written zero rows; the port writes the T rows alone."""
-        kv = kv_bits(k, v, self.device)
-        assert kv.dim() == 3, "prefill_slot takes one sequence (T, n_kv, d)"
-        t = int(kv.shape[0])
+        t = k.shape[0]
         assert t > 0, "prefill_slot needs a non-empty prompt"
-        start = int(self.tokens_b[slot])
-        assert start + t <= self.max_pages * self.page, "slot full"
-        self.state["pages"][slot, start:start + t] = kv
-        self._mark_dirty(slot, start, t)
-        self.tokens_b[slot] += t
-        self.tokens = int(self.tokens_b.max())
+        self.append_slot(slot, k, v)
         if budget:
             self.migration_quantum(budget)
         idx = np.nonzero(self._dirty_b.any(0))[0]
         self._lay_window(idx, fresh_pages=True)
         st = self.state
         st["predictor"][slot] = st["packed_mask"][slot]
-        return {"tokens": t, "groups": int(idx.size)}
+        return {"tokens": t, "groups": idx.size}
 
     # ------------------------------------------------------ slot lifecycle
     def reset_slot(self, slot: int):
