@@ -59,7 +59,20 @@ Phases, each of which makes the script exit non-zero when it fails:
      memory: "whisper train" lines), and whisper at smoke size in float32,
      one train step, the encoder, `prefill_cross` and 4 decode steps on
      the CPU and twice on the card within 1e-4, greedy tokens equal, the
-     card runs bit-identical ("whisper parity"); then
+     card runs bit-identical ("whisper parity"); then the multi-device
+     runtime's collective paths in a world of one rank under NCCL (the
+     machine has one card, and NCCL refuses two ranks on one card): the
+     compressed-gradient DP step at phi4-mini-3.8B's full width, 2 steps
+     of each of `off`, `static` and `dynamic` at batch 2 x 512, four
+     leaves' updates torch.equal to p - lr * g by hand (g quantized with
+     the error feedback where the gate is on), the ledger's wire bytes
+     equal to the tree's raw / int8 bytes, with loss, gate, rel_err,
+     counter, wall and peak memory ("multi-device dp" lines); GPipe over
+     32 layers of tanh(x @ W) at d 3,072 with 4 microbatches of 2 x 512,
+     outputs and gradients torch.equal to the layers in sequence
+     ("multi-device gpipe"); the train launcher's lm20m checkpoint
+     restored and resharded onto the `shrink_mesh` grid, every local
+     shard equal to its leaf ("multi-device elastic"); then
      the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -120,7 +133,14 @@ Phases, each of which makes the script exit non-zero when it fails:
      paper's sweep (`sweep_workloads`, 27 x 10 at 200,000 events) in one
      launch, equal to the same sweep in chunks of 50,000, with each
      scheme's geomean and lowest speedup, mean LLP accuracy and metadata
-     share of accesses ("trace sim:" lines); then, outside the paths, the
+     share of accesses ("trace sim:" lines); then the multi-device
+     runtime's shardings on the one card, over device lists that name it
+     several times: the sharded attend at the serve-attend geometry, pair
+     and quad, in 2 and 4 slot shards (one K3 launch a shard, torch.equal
+     to `shard=False`), and the paper sweep in 3 workload shards (one E1
+     launch a shard, every stat equal to the one-launch sweep, each
+     shard's device time: "multi-device shard" lines); then, outside the
+     paths, the
      launch audit's ten entries (`repro_torch.analysis.launch_audit`) on
      the card, each recorded call under
      `torch.cuda.set_sync_debug_mode("error")`: its LAUNCHES equal to the
@@ -167,11 +187,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      from torch.profiler's record of the CUDA calls that enqueue them;
      the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive twenty-four paths (phi4 and zamba2 training, the
-training launcher, whisper's training, launcher pair and quad, the spill
-launcher with auto and with pair, the six zoo runs, whisper's serving,
-serve attend pair and quad, the small serve attend, serve churn pair and
-quad, page codec pair and quad, scan, trace simulator);
+Phases 3 to 5 drive twenty-nine paths (phi4 and zamba2 training, the
+training launcher, whisper's training, the DP step, GPipe, elastic
+re-meshing, launcher pair and quad, the spill launcher with auto and with
+pair, the six zoo runs, whisper's serving, serve attend pair and quad, the
+small serve attend, serve churn pair and quad, page codec pair and quad,
+scan, trace simulator, the sharded attend, the sharded sweep);
 the launch counters are set to 0 just before each and read just after it,
 and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
@@ -187,9 +208,11 @@ import io
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -268,6 +291,15 @@ PATHS = {
     # serve launcher runs no serve tier for the encdec family)
     "whisper_train": (),
     "whisper_serve": (),
+    # the multi-device runtime: the sharded attend and the sharded sweep
+    # launch one K3 / E1 a shard; the DP step, GPipe and elastic
+    # re-meshing run no kernel of the port (the reference's have no
+    # pallas_call)
+    "multi_shard_attend": ("decode_attention_pair", "decode_attention_quad"),
+    "multi_shard_sweep": ("engine_scan",),
+    "multi_dp": (),
+    "multi_gpipe": (),
+    "multi_elastic": (),
 }
 
 
@@ -1452,16 +1484,15 @@ def train_full_width(torch, path: str, card: str) -> dict:
             "adamw_bound_ms": opt_bound_ms, "steps": rows}
 
 
-def train_launcher_phase(torch, card: str) -> dict:
+def train_launcher_phase(torch, card: str, ckpt_dir: str) -> dict:
     """The README's training example through the launcher on the card
-    (the default `cram` codec): 300 steps, a fault at step 150, one
-    restart from the checkpoint of step 150.  The report must say every
-    step ran, with one restart and the loss fallen; the state the restart
-    restored must equal, bit for bit, the state saved at step 150 (host
-    copies of both); prints each committed manifest's raw and stored
-    bytes and the mean step time."""
-    import tempfile
-
+    (the default `cram` codec), checkpointing into `ckpt_dir` (which the
+    multi-device phase restores from): 300 steps, a fault at step 150,
+    one restart from the checkpoint of step 150.  The report must say
+    every step ran, with one restart and the loss fallen; the state the
+    restart restored must equal, bit for bit, the state saved at step 150
+    (host copies of both); prints each committed manifest's raw and
+    stored bytes and the mean step time."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.launch import train
     from repro_torch.runtime import ft
@@ -1484,8 +1515,8 @@ def train_launcher_phase(torch, card: str) -> dict:
     ft.restore_into = keep_restore
     buf = io.StringIO()
     try:
-        with tempfile.TemporaryDirectory() as tmp, \
-                contextlib.redirect_stdout(buf):
+        tmp = ckpt_dir
+        with contextlib.redirect_stdout(buf):
             t0 = time.perf_counter()
             report = train.main(TRAIN_LAUNCHER_ARGV + [
                 "--ckpt-dir", tmp, "--json-out", f"{tmp}/report.json"])
@@ -2162,21 +2193,14 @@ def serve_small_phase(torch, device, steps: int = 8) -> dict:
             worst = max(worst, _close(
                 torch, f"serve attend small {packing} step {step}", got, ref))
         qs = {i: q[i] for i in range(4)}
-        if torch.cuda.device_count() == 1:
-            sharded = loop.attend(qs, shard=True)
-            single = loop.attend(qs, shard=False)
-            if not all(torch.equal(sharded[i], single[i]) for i in range(4)):
-                fail(f"serve attend small {packing}: shard=True on one card "
-                     "differs from shard=False")
-            shard_note = "shard=True equal to shard=False on the one card"
-        else:
-            try:
-                loop.attend(qs, shard=True)
-            except NotImplementedError:
-                shard_note = "shard=True across cards raises (not ported)"
-            else:
-                fail("serve attend small: shard=True across "
-                     f"{torch.cuda.device_count()} cards did not raise")
+        n_cards = torch.cuda.device_count()
+        sharded = loop.attend(qs, shard=True)
+        single = loop.attend(qs, shard=False)
+        if not all(torch.equal(sharded[i], single[i]) for i in range(4)):
+            fail(f"serve attend small {packing}: shard=True over {n_cards} "
+                 "card(s) differs from shard=False")
+        shard_note = (f"shard=True over {n_cards} card(s) equal to "
+                      "shard=False")
         print(f"serve attend small {packing}: page {SMALL_PAGE}, Hkv "
               f"{SMALL_HKV}, Hq {SMALL_HQ}, head_dim {SMALL_HD}, {steps} "
               f"steps, every attend within {ATOL} of the plain attention; "
@@ -2457,9 +2481,14 @@ def trace_sim_phase(torch, device) -> dict:
     seed 1) in one launch and `simulate("dynamic", chunk_size=5000)` per
     workload; the full suite (27 workloads x 10 rows, 20,000 events, seed
     0) in one launch against the committed JAX fixture; the paper's sweep
-    (27 x 10 at 200,000 events) through `sweep_workloads` in one launch,
-    equal to the same sweep in chunks of 50,000."""
+    (27 x 10 at 200,000 events) through `sweep` in one launch,
+    equal to the same sweep in chunks of 50,000 on every stat (the
+    summaries `sweep_workloads` gives, from its traces and one-launch
+    stats, which the multi-device phase's sharded sweep reuses)."""
+    import numpy as np
+
     from repro_torch.core import batchsim, memsim, schemes
+    from repro_torch.core.traces import all_workload_names
 
     golden = json.loads((ROOT / SIM_GOLDEN).read_text())
     names = tuple(golden["stats"]["cram"])
@@ -2496,16 +2525,19 @@ def trace_sim_phase(torch, device) -> dict:
           f"{pin['reference_commit'][:7]})")
 
     rows = schemes.names()
+    names = all_workload_names()
+    sim_rows = batchsim.with_baseline(rows)
     t0 = time.perf_counter()
-    paper = launched("paper sweep", 1, lambda: batchsim.sweep_workloads(
-        schemes=rows, n_events=SIM_PAPER_EVENTS, seed=0, device=device))
+    _, fs, *trace = batchsim.stack_workloads(names, SIM_PAPER_EVENTS, 0)
+    stats = launched("paper sweep", 1, lambda: batchsim.sweep(
+        sim_rows, *trace, device=device))
+    paper = batchsim.summarize_sweep(names, fs, rows, sim_rows, stats)
     wall = time.perf_counter() - t0
     chunked = launched(
         "paper sweep in chunks", SIM_PAPER_EVENTS // SIM_PAPER_CHUNK,
-        lambda: batchsim.sweep_workloads(
-            schemes=rows, n_events=SIM_PAPER_EVENTS, seed=0,
-            chunk_size=SIM_PAPER_CHUNK, device=device))
-    if chunked != paper:
+        lambda: batchsim.sweep(sim_rows, *trace, chunk_size=SIM_PAPER_CHUNK,
+                               device=device))
+    if not np.array_equal(chunked, stats):
         fail("paper sweep: chunks of 50000 differ from one launch")
     summary = paper_summary(paper)
     print(f"trace sim: paper sweep ({len(rows)} rows x {len(paper)} "
@@ -2520,7 +2552,324 @@ def trace_sim_phase(torch, device) -> dict:
     for bad in [s for s, r in summary.items()
                 if not math.isfinite(r["geomean_speedup"])]:
         fail(f"paper sweep: {bad} has a non-finite speedup")
-    return {"paper": summary, "paper_wall_s": wall}
+    return {"paper": summary, "paper_wall_s": wall,
+            "paper_inputs": (sim_rows, trace, stats)}
+
+
+# ------------------------------------------------------- multi-device phase
+# The driver's machine holds one card and NCCL refuses two ranks on one
+# card: the shardings that need no collective run over device lists that
+# name the card several times, and the collective paths (DP step, GPipe,
+# elastic re-meshing) in a world of one rank under NCCL.
+
+SHARD_ATTEND_SPLITS = (2, 4)    # device lists of the sharded attend
+SHARD_SWEEP_SPLIT = 3           # the paper sweep's 27 workloads in 3 shards
+DP_ARCH, DP_BATCH, DP_SEQ, DP_STEPS, DP_LR = "phi4_mini_3_8b", 2, 512, 2, 1e-4
+DP_POLICIES = ("off", "static", "dynamic")
+# leaves whose update is held against p - lr * g by hand (the tied
+# embedding, two layers' weights, a norm)
+DP_CHECK = ("embed", "blocks.0.attn.wq", "blocks.31.mlp.w2", "final_ln")
+GP_LAYERS, GP_D, GP_MICRO, GP_MB, GP_SEQ = 32, 3072, 4, 2, 512
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(torch):
+    """A process group of one rank under NCCL on card 0, over a free
+    localhost port; destroyed on exit."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_attend_phase(torch, loops: dict, device, card: str) -> dict:
+    """The sharded attend at the serve-attend geometry (phi4 KV: 8 slots,
+    page 16, 8 KV heads, D2 256; the serve-attend paths' final caches),
+    pair and quad, over device lists naming the card 2 and 4 times: one
+    K3 launch a shard, every output torch.equal to `shard=False`."""
+    import numpy as np
+
+    from repro_torch.kernels import cram_attention as ca
+    from repro_torch.serving import shard_kv_attend
+
+    rng = np.random.default_rng(17)
+    out = {}
+    for packing, loop in loops.items():
+        key = f"decode_attention_{packing}"
+        slots = loop.n_slots
+        q = torch.from_numpy(rng.standard_normal(
+            (slots, N_HEADS, HEAD_DIM)).astype(np.float32)).to(device)
+        single = shard_kv_attend(loop.cache, q, shard=False)
+        row = {"single_ms": call_ms(torch, lambda: shard_kv_attend(
+            loop.cache, q, shard=False), reps=5, warmup=1)}
+        for k in SHARD_ATTEND_SPLITS:
+            devs = [device] * k
+            before = ca.LAUNCHES[key]
+            got = shard_kv_attend(loop.cache, q, devices=devs)
+            torch.cuda.synchronize()
+            if ca.LAUNCHES[key] - before != k:
+                fail(f"shard attend {packing} x{k}: "
+                     f"{ca.LAUNCHES[key] - before} K3 launches, expected {k}")
+            if not torch.equal(got, single):
+                fail(f"shard attend {packing} x{k}: differs from shard=False "
+                     f"by {(got - single).abs().max().item():.3e}")
+            row[f"x{k}_ms"] = call_ms(torch, lambda d=devs: shard_kv_attend(
+                loop.cache, q, devices=d), reps=5, warmup=1)
+        print(f"multi-device shard attend {packing}: {slots} slots, page "
+              f"{PAGE}, {N_KV} KV heads, D2 {2 * HEAD_DIM}: "
+              + ", ".join(f"{k} shards {k} K3 launches torch.equal to "
+                          f"shard=False, {row[f'x{k}_ms']:.3f} ms a call"
+                          for k in SHARD_ATTEND_SPLITS)
+              + f"; one launch {row['single_ms']:.3f} ms (CUDA events around "
+              f"one eager call, median of 5); card {card}")
+        out[packing] = row
+    return out
+
+
+def shard_sweep_phase(torch, device, paper_inputs, card: str) -> dict:
+    """The paper sweep (27 workloads x 10 rows, 200,000 events: the trace
+    sim path's traces) with its workload axis in SHARD_SWEEP_SPLIT shards
+    on the card: one E1 launch a shard, every stat equal to the one-launch
+    sweep of the trace sim path."""
+    import numpy as np
+
+    from repro_torch.core import batchsim
+
+    rows, trace, want = paper_inputs
+    devs = [device] * SHARD_SWEEP_SPLIT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = launched("sharded paper sweep", SHARD_SWEEP_SPLIT,
+                   lambda: batchsim.sweep(rows, *trace, device=device,
+                                          devices=devs))
+    wall = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        bad = int((got != want).any(-1).sum())
+        fail(f"sharded paper sweep: {bad} lanes differ from one launch")
+    return {"shards": SHARD_SWEEP_SPLIT, "wall_s": wall,
+            "lanes": int(got.shape[0] * got.shape[1])}
+
+
+def shard_sweep_times(torch, device, paper_inputs) -> list:
+    """Each shard of the sharded paper sweep once more, alone, its trace
+    already on the card: device time (CUDA events) of its fresh carry and
+    E1 launch.  Outside the path."""
+    from repro_torch.core import schemes
+    from repro_torch.core.engine import (SimConfig, launch_trace,
+                                         raise_refused, trace_tensors)
+
+    rows, trace, _ = paper_inputs
+    cfg = SimConfig()
+    flags = torch.as_tensor(schemes.flags_matrix(rows), device=device)
+    params = torch.as_tensor(schemes.params_matrix(rows, cfg), device=device)
+    per = len(trace[0]) // SHARD_SWEEP_SPLIT
+    times = []
+    for i in range(SHARD_SWEEP_SPLIT):
+        part = trace_tensors(cfg, *(x[i * per:(i + 1) * per] for x in trace),
+                             device)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        _, err = launch_trace(cfg, flags, params, *part, device=device)
+        ev1.record()
+        ev1.synchronize()
+        raise_refused([err])
+        times.append(ev0.elapsed_time(ev1))
+    return times
+
+
+def dp_phase(torch, device, card: str) -> dict:
+    """The compressed-gradient DP step at phi4-mini-3.8B's full width
+    (random weights from seed 0, float32 parameters) in the world of one
+    rank: DP_STEPS steps of each policy at batch DP_BATCH x DP_SEQ, each
+    from the same weights' current values.  Each step's update of the
+    DP_CHECK leaves must be torch.equal to p - lr * g by hand, g being the
+    gradient autograd left on the leaf (a post-accumulate hook's copy),
+    quantized with the error feedback of the step before where the gate
+    was on; the ledger's wire bytes must equal `tree_wire_bytes` /
+    `int8_wire_bytes` of phi4's tree for each step's gate.  Prints loss,
+    gate, rel_err, counter and wall a step, and the peak memory."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.bandwidth import Ledger
+    from repro_torch.bandwidth.adapters import int8_wire_bytes, tree_wire_bytes
+    from repro_torch.compression.gate import COUNTER_INIT, ENABLE_THRESHOLD
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import grad_compress as gc
+
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(DP_ARCH)
+    model = build(cfg, device=device, seed=0)
+    params = dict(model.named_parameters())
+    err = {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+           for k, p in params.items()}
+    mesh = make_host_mesh(device_type=device.type)
+    rng = np.random.default_rng(23)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (DP_BATCH, DP_SEQ)).astype(np.int32)).to(device)
+        for k in ("tokens", "labels")}
+    raw, int8 = tree_wire_bytes(params), int8_wire_bytes(params)
+    grads = {}
+    hooks = [params[k].register_post_accumulate_grad_hook(
+        lambda p, k=k: grads.__setitem__(k, p.grad.detach().clone()))
+        for k in DP_CHECK]
+    out = {}
+    try:
+        for policy in DP_POLICIES:
+            for e in err.values():
+                e.zero_()
+            counter = torch.tensor(COUNTER_INIT, dtype=torch.int32,
+                                   device=device)
+            led = Ledger()
+            step = gc.make_dp_compressed_step(model, mesh, lr=DP_LR,
+                                              policy=policy, ledger=led)
+            rows, sent = [], 0
+            for i in range(DP_STEPS):
+                before = {k: params[k].detach().clone() for k in DP_CHECK}
+                err0 = {k: err[k].clone() for k in DP_CHECK}
+                on = policy == "static" or (
+                    policy == "dynamic" and int(counter) >= ENABLE_THRESHOLD)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, counter, loss = step(params, err, counter, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if step.last["enabled"] != on:
+                    fail(f"dp {policy} step {i}: gate {step.last['enabled']},"
+                         f" expected {on}")
+                for k in DP_CHECK:
+                    g = grads[k]
+                    if on:
+                        q, scale = gc.quantize_int8(g.float() + err0[k])
+                        g = gc.dequantize(q, scale).to(g.dtype)
+                    want = (before[k].float() - DP_LR * g.float()).to(
+                        before[k].dtype)
+                    if not torch.equal(params[k].detach(), want):
+                        fail(f"dp {policy} step {i}: {k} is not p - lr * g "
+                             "by hand")
+                sent += int8 if on else raw
+                rel = step.last["rel_err"]
+                rows.append({"loss": float(loss), "enabled": on,
+                             "rel_err": None if rel is None else float(rel),
+                             "counter": int(counter), "wall_s": wall})
+                if not math.isfinite(rows[-1]["loss"]):
+                    fail(f"dp {policy} step {i}: non-finite loss")
+            t = led.total("write", consumer="grad")
+            if (t["raw_bytes"], t["compressed_bytes"]) != (raw * DP_STEPS,
+                                                           sent):
+                fail(f"dp {policy}: ledger {t}, expected raw "
+                     f"{raw * DP_STEPS}, sent {sent}")
+            out[policy] = {"steps": rows, "ledger_raw": t["raw_bytes"],
+                           "ledger_sent": t["compressed_bytes"]}
+            print(f"multi-device dp {policy}: {DP_ARCH} full width, batch "
+                  f"{DP_BATCH} x {DP_SEQ}, " + "; ".join(
+                      f"step {i}: loss {r['loss']:.4f}, gate "
+                      f"{'on' if r['enabled'] else 'off'}, rel_err "
+                      f"{r['rel_err'] if r['rel_err'] is None else round(r['rel_err'], 5)}, "
+                      f"counter {r['counter']}, wall {r['wall_s']:.3f} s"
+                      for i, r in enumerate(rows))
+                  + f"; ledger raw {t['raw_bytes']} B, sent "
+                  f"{t['compressed_bytes']} B; updates of {len(DP_CHECK)} "
+                  f"leaves torch.equal to p - lr * g by hand; card {card}")
+    finally:
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"multi-device dp: tree {raw} B raw, {int8} B as int8; peak "
+          f"memory {peak:.2f} GB; card {card}")
+    return {"policies": out, "tree_bytes": raw, "int8_bytes": int8,
+            "peak_gb": peak}
+
+
+def gpipe_phase(torch, device, card: str) -> dict:
+    """`gpipe_apply` over GP_LAYERS layers of tanh(x @ W) at d GP_D
+    (float32 weights, N(0, 1 / d)), GP_MICRO microbatches of GP_MB x
+    GP_SEQ, one stage in the world of one rank: the outputs and every W's
+    gradient (of the sum of the squared outputs) torch.equal to the
+    layers applied to each microbatch in sequence under autograd."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime.pipeline import gpipe_apply, split_stages
+
+    _free_card(torch)
+    mesh = init_device_mesh(device.type, (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device=device).manual_seed(29)
+    w = (torch.randn((GP_LAYERS, GP_D, GP_D), generator=gen, device=device)
+         / math.sqrt(GP_D)).requires_grad_()
+    x = torch.randn((GP_MICRO, GP_MB, GP_SEQ, GP_D), generator=gen,
+                    device=device)
+
+    def stage_fn(ws, h):
+        for i in range(ws.shape[0]):
+            h = torch.tanh(h @ ws[i])
+        return h
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gpipe_apply(split_stages(w, 1), x, mesh=mesh, stage_fn=stage_fn)
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    w2 = w.detach().clone().requires_grad_()
+    seq = torch.stack([stage_fn(w2, x[m]) for m in range(GP_MICRO)])
+    (seq ** 2).sum().backward()
+    if not torch.equal(out, seq):
+        fail(f"gpipe: outputs differ from the layers in sequence by "
+             f"{(out - seq).abs().max().item():.3e}")
+    if not torch.equal(w.grad, w2.grad):
+        fail(f"gpipe: gradients differ from sequential autograd by "
+             f"{(w.grad - w2.grad).abs().max().item():.3e}")
+    print(f"multi-device gpipe: {GP_LAYERS} layers of tanh(x @ W) at d "
+          f"{GP_D}, {GP_MICRO} microbatches of {GP_MB} x {GP_SEQ}, one "
+          f"stage: outputs and every gradient torch.equal to the layers in "
+          f"sequence; forward + backward {wall:.3f} s wall; card {card}")
+    return {"wall_s": wall}
+
+
+def elastic_phase(torch, device, ckpt_dir: str, card: str) -> dict:
+    """The lm20m checkpoint the train launcher path wrote, restored and
+    placed by `reshard_tree` on the grid `shrink_mesh` leaves when no rank
+    failed, built in the world of one rank: every local shard torch.equal
+    to its full leaf."""
+    from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import build, param_axes
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.elastic import reshard_tree, shrink_mesh
+
+    cfg = PRESETS["lm20m"]
+    step = latest_step(ckpt_dir)
+    if step is None:
+        fail(f"elastic: no committed checkpoint in {ckpt_dir}")
+    t0 = time.perf_counter()
+    like = adamw_init(build(cfg, device="cpu"))
+    state, _ = load_checkpoint(ckpt_dir, step, like)
+    grid = shrink_mesh(set())
+    placed = reshard_tree(state.params, param_axes(cfg),
+                          grid.build(device.type))
+    wall = time.perf_counter() - t0
+    for k, leaf in state.params.items():
+        local = placed[k].to_local()
+        if not torch.equal(local.cpu(), leaf):
+            fail(f"elastic: the local shard of {k} differs from its leaf")
+    print(f"multi-device elastic: lm20m checkpoint of step {step} restored "
+          f"and resharded onto a {grid.shape} grid: {len(placed)} leaves, "
+          f"every local shard torch.equal to its leaf; {wall:.2f} s wall; "
+          f"card {card}")
+    return {"step": step, "leaves": len(placed), "wall_s": wall}
 
 
 def _check_engine_scan(torch, label, args, kw, outs):
@@ -2535,12 +2884,12 @@ def _check_engine_scan(torch, label, args, kw, outs):
     trace = (a[:, :k], w[:, :k], pab, pcd, pq)
     want = es.engine_scan_plain(clone_carry(carry), flags, params, *trace,
                                 tables, consts)
-    got = es.engine_scan_cuda(clone_carry(carry), flags, params, *trace,
-                              tables, consts)
-    torch.cuda.synchronize()
+    got, err = es.engine_scan_cuda(clone_carry(carry), flags, params,
+                                   *trace, tables, consts)
+    es.raise_refused([err])
     carry_equal(torch, label, got, want)
     if k == a.shape[1]:
-        carry_equal(torch, label, outs, want)
+        carry_equal(torch, label, outs[0], want)
     return 0.0, (tuple(carry[0].shape[:2]), a.shape[1]), \
         f"bit-exact on every carry tensor over the first {k} events"
 
@@ -2599,10 +2948,11 @@ def engine_lanes(torch, cfg, inputs, rows, names, events: int) -> dict:
     carry = build_engine(cfg).init_state(params, n_w, device=a.device)
     ns = torch.zeros((flags.shape[0] * n_w, 2), dtype=torch.int64,
                      device=a.device)
-    es.engine_scan_cuda(carry, flags, params, a[:, :events], w[:, :events],
-                        pab, pcd, pq, device_tables(cfg, a.device),
-                        engine_consts(cfg), lane_ns=ns)
-    torch.cuda.synchronize()
+    _, err = es.engine_scan_cuda(carry, flags, params, a[:, :events],
+                                 w[:, :events], pab, pcd, pq,
+                                 device_tables(cfg, a.device),
+                                 engine_consts(cfg), lane_ns=ns)
+    es.raise_refused([err])
     t = ns.cpu().double()
     us = ((t[:, 1] - t[:, 0]) / 1e3 / events).tolist()
     miss = (carry[-1].reshape(-1, es.N_STATS)[:, es.ST_LLC_MISSES].cpu()
@@ -2638,6 +2988,7 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
     from repro_torch.core import schemes
     from repro_torch.core.engine import SimConfig, build_engine
     from repro_torch.core.traces import all_workload_names
+    from repro_torch.kernels.engine_scan import ERR_KINDS, raise_refused
 
     cfg = SimConfig()
     inputs, host_s = sim_inputs(torch, cfg, schemes.names(),
@@ -2656,12 +3007,14 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
         times = []
         for _ in range(3):
             carry = eng.init_state(pr, trace[0].shape[0], device=device)
+            err = torch.zeros(ERR_KINDS, dtype=torch.int32, device=device)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
-            eng.run_chunk(carry, fl, pr, *trace)
+            eng.run_chunk(carry, fl, pr, *trace, err=err)
             ev1.record()
             ev1.synchronize()
+            raise_refused([err])
             times.append(ev0.elapsed_time(ev1))
         return statistics.median(times), carry
 
@@ -2683,9 +3036,11 @@ def engine_rows(torch, device, plain_event_ms: float) -> dict:
     prefix_plain_ms = (time.perf_counter() - t0) * 1e3
     carry_equal(torch, "E1 on the paper sweep's first events", got, want)
     carry = eng.init_state(params, a.shape[0], device=device)
+    err = torch.zeros(ERR_KINDS, dtype=torch.int32, device=device)
     kpc = kernels_per_call(torch, lambda: eng.run_chunk(
         carry, flags, params, a[:, :SIM_PREFIX_EVENTS],
-        w[:, :SIM_PREFIX_EVENTS], pab, pcd, pq))
+        w[:, :SIM_PREFIX_EVENTS], pab, pcd, pq, err=err))
+    raise_refused([err])
     if kpc != 1:
         fail(f"engine scan: {kpc} device operations a call, expected one")
     lanes = flags.shape[0] * a.shape[0]
@@ -3282,6 +3637,17 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        return _main(torch, t_start, ckpt_dir, report_path)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _main(torch, t_start, ckpt_dir, report_path) -> int:
+    """The phases (see the module docstring); `ckpt_dir` holds the train
+    launcher path's checkpoints."""
     import numpy as np
 
     from repro_torch.kernels import bdi_pack, cuda_lib
@@ -3289,7 +3655,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels import cram_attention as ca
     from repro_torch.kernels import engine_scan as es
 
-    t_start = time.perf_counter()
     card = gpu_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -3321,7 +3686,7 @@ def main(argv=None) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: twenty-four paths, each with the launch counters from 0
+    # phases 3 to 5: twenty-nine paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -3387,12 +3752,27 @@ def main(argv=None) -> int:
     training = {path: drive(path, lambda p=path: train_full_width(
         torch, p, card)) for path in TRAIN_RUNS}
     training["launcher"] = drive("train_launcher",
-                                 lambda: train_launcher_phase(torch, card))
+                                 lambda: train_launcher_phase(
+                                     torch, card, ckpt_dir))
     training["parity"] = check_train_parity(torch, device)
     training["whisper"] = drive("whisper_train",
                                 lambda: whisper_train_phase(torch, card))
     training["whisper_parity"] = check_whisper_parity(torch, device)
     print(f"training: {time.perf_counter() - t0:.1f} s")
+
+    # the multi-device runtime's collective paths, in a world of one rank
+    # under NCCL, while the card is still nearly empty
+    t0 = time.perf_counter()
+    multi = {}
+    with nccl_world_of_one(torch):
+        multi["dp"] = drive("multi_dp", lambda: dp_phase(torch, device,
+                                                         card))
+        multi["gpipe"] = drive("multi_gpipe",
+                               lambda: gpipe_phase(torch, device, card))
+        multi["elastic"] = drive("multi_elastic", lambda: elastic_phase(
+            torch, device, ckpt_dir, card))
+    _free_card(torch)
+    print(f"multi-device collectives: {time.perf_counter() - t0:.1f} s")
 
     reports = {}
     launchers = {
@@ -3467,6 +3847,28 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sim = drive("trace_sim", lambda: trace_sim_phase(torch, device))
     print(f"trace sim path: {time.perf_counter() - t0:.1f} s")
+    # the multi-device runtime's shardings on the one card: device lists
+    # naming it several times
+    t0 = time.perf_counter()
+    multi["shard_attend"] = drive(
+        "multi_shard_attend", lambda: shard_attend_phase(
+            torch, {p: ph["loop"] for p, ph in phases.items()}, device,
+            card))
+    paper_inputs = sim.pop("paper_inputs")
+    multi["shard_sweep"] = ss = drive(
+        "multi_shard_sweep",
+        lambda: shard_sweep_phase(torch, device, paper_inputs, card))
+    ss["shard_ms"] = shard_sweep_times(torch, device, paper_inputs)
+    del paper_inputs
+    print(f"multi-device shard sweep: paper sweep {ss['lanes']} lanes x "
+          f"{SIM_PAPER_EVENTS} events in {ss['shards']} shards: "
+          f"{by_path['multi_shard_sweep']['engine_scan']['launches']} E1 "
+          f"launches, every stat equal to the one-launch sweep; "
+          f"{ss['wall_s']:.3f} s wall (synchronised, summaries excluded); "
+          f"each shard alone: " + ", ".join(f"{t:.3f} ms"
+                                           for t in ss["shard_ms"])
+          + f" (device time, CUDA events); card {card}")
+    print(f"multi-device shardings: {time.perf_counter() - t0:.1f} s")
     # the launch audit holds its own LAUNCHES against its golden; outside
     # a path, so that no launch copy of this script is in its counts
     t0 = time.perf_counter()
@@ -3536,6 +3938,7 @@ def main(argv=None) -> int:
              "main_path_checks": main_path, "scan": scan_report,
              "page_codec": codec, "serve_attend_small": small,
              "serve_churn": churn, "trace_sim": sim, "audit": audit,
+             "multi_device": multi,
              "single_vs_batched": {p: ph["single_vs_batched"]
                                    for p, ph in phases.items()},
              "timing": timing}, indent=1))

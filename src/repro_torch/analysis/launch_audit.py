@@ -12,9 +12,8 @@ the audit pins:
     card each is one count in its module's LAUNCHES;
   * `host_syncs`: ops that make the host wait for the device
     (`aten._local_scalar_dense`, ops whose output size depends on the
-    data, any copy to the host) outside the wrappers, and the calls of a
-    wrapper whose host entry waits for its launch — the counterpart of
-    the host callbacks;
+    data, any copy to the host) outside the wrappers — the counterpart
+    of the host callbacks;
   * `aten_ops`: the aten ops outside the wrappers, the eager launches a
     card sees besides the kernels (a wrapper's ops are its plain version
     on the CPU and are not counted);
@@ -96,11 +95,9 @@ def _recorder():
             self.f64 = False
             self.depth = 0
 
-        def enter(self, name, waits=False):
+        def enter(self, name):
             if self.depth == 0:
                 self.kernel_calls[name] += 1
-                if waits:
-                    self.syncs[f"{name} (its host entry waits)"] += 1
             self.depth += 1
 
         def exit(self, name):

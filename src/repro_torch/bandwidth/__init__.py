@@ -17,6 +17,7 @@ from .adapters import (
     classify_tensor,
     engine_breakdown,
     engine_traffic,
+    grad_wire_event,
     kv_decode_event,
     kv_repack_event,
     kv_spill_event,
@@ -50,6 +51,7 @@ __all__ = [
     "engine_traffic", "engine_breakdown",
     "kv_decode_event", "kv_repack_event", "kv_spill_event",
     "classify_tensor", "checkpoint_leaf_event", "checkpoint_restore_event",
+    "grad_wire_event",
     "AutoTuner", "PolicyChoice", "KV_PACKINGS",
     "kv_expected_bytes_per_page", "kv_spill_bytes_per_page",
     "probe_kv_fit_rates",

@@ -1,7 +1,6 @@
-"""Byte accounting as ledger rows (port of `repro.bandwidth.adapters`
-without the gradient collective's row: the engine's STAT counters, decode
-reads, repack writes, spill-tier crossings, checkpoint leaves and the
-wire bytes of a tree).  A consumer module never adds byte counts itself;
+"""Byte accounting as ledger rows (port of `repro.bandwidth.adapters`: the
+engine's STAT counters, decode reads, repack writes, spill-tier crossings,
+checkpoint leaves and the gradient collective's wire bytes).  A consumer module never adds byte counts itself;
 it calls one of these adapters."""
 
 from __future__ import annotations
@@ -196,3 +195,13 @@ def int8_wire_bytes(tree) -> int:
     """Wire bytes of the int8 per-tensor quantized collective: one byte a
     element plus a 4-byte float32 scale a leaf."""
     return sum(int(np.prod(tuple(x.shape))) + 4 for x in _leaves(tree))
+
+
+def grad_wire_event(ledger: Ledger, tree, *, enabled: bool,
+                    steps: int = 1, tensor_class: str = "grads") -> None:
+    """Book `steps` collective rounds: raw = uncompressed wire bytes,
+    compressed = int8 bytes when the gate was enabled, raw otherwise."""
+    raw = tree_wire_bytes(tree) * steps
+    comp = (int8_wire_bytes(tree) if enabled else tree_wire_bytes(tree))
+    ledger.record(EV_WRITE, raw=raw, compressed=comp * steps, count=steps,
+                  tensor_class=tensor_class, consumer="grad")

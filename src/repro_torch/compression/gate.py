@@ -3,9 +3,9 @@
 gates compression; it starts enabled with a margin.  The KV cache keeps
 one counter per sequence on the device; the AutoTuner keeps one per
 decision key on the host (`counter_step` / `counter_enabled`); the trace
-engine keeps one per simulated lane, and the functional model
-(`core/cram.py`) a `DynamicController` over set-sampled LLC events
-(`is_sampled_set`)."""
+engine keeps one per simulated lane, the functional model (`core/cram.py`)
+a `DynamicController` over set-sampled LLC events (`is_sampled_set`), and
+the compressed-gradient DP step one for the wire (`wire_counter_step`)."""
 
 from __future__ import annotations
 
@@ -58,3 +58,21 @@ def counter_step(counter, cost, benefit, xp):
 def counter_enabled(counter):
     """The counter's MSB: compression is on."""
     return counter >= ENABLE_THRESHOLD
+
+
+# --------------------------------------------------------------- wire gate
+# §VI applied to the gradient collective (optim.grad_compress): benefit is
+# the fraction of wire bytes the int8 collective saves, cost is a quality
+# penalty when the relative quantization error exceeds its budget.
+WIRE_BENEFIT_SCALE = 16      # counter ticks per unit fraction of bytes saved
+WIRE_COST_OVER_BUDGET = 64   # ticks charged when quality is over budget
+
+
+def wire_counter_step(counter, bytes_saving: float, over_budget, xp=np):
+    """One wire-gate update: `bytes_saving` is the fractional wire-byte
+    win (0.75 for float32 -> int8), its benefit the float32 product with
+    WIRE_BENEFIT_SCALE truncated to an int, as the reference computes it;
+    `over_budget` a bool (numpy, or a tensor with xp=torch)."""
+    benefit = int(np.float32(bytes_saving) * np.float32(WIRE_BENEFIT_SCALE))
+    cost = xp.where(over_budget, WIRE_COST_OVER_BUDGET, 0)
+    return counter_step(counter, cost, benefit, xp)

@@ -71,6 +71,8 @@ from ..kernels.engine_scan import (  # the layouts' one definition
     ST_WB_CLEAN,
     ST_WB_DIRTY,
     engine_scan,
+    fetch_checked,
+    raise_refused,
 )
 from .evict_logic import build_evict_table
 
@@ -143,7 +145,8 @@ class EngineParts:
     """The three engine entry points for one SimConfig.
 
     init_state(params, n_workloads=1, *, device="cuda") -> carry tuple
-    run_chunk(carry, flags, params, *trace)  -> carry (updated in place)
+    run_chunk(carry, flags, params, *trace, err=None)
+                                  -> (carry updated in place, refusal flags)
     run_one(flags, params, *trace)           -> (S, W, N_STATS) int32 stats
 
     flags (S, N_FLAGS) and params (S, N_PARAMS) are per scheme row; the
@@ -190,21 +193,24 @@ def build_engine(cfg: SimConfig) -> EngineParts:
                 z(N_STATS))
 
     def run_chunk(carry, flags, params, addrs, is_write, pair_ab, pair_cd,
-                  quad):
+                  quad, *, err=None):
         """Advance every lane over addrs[:, :] in place (one E1 launch on
-        the card); returns the carry."""
+        the card, which does not wait for it); returns (carry, err), err
+        the launch's refusal flags (`kernels.engine_scan.engine_scan`)."""
         dev = carry[0].device
         flags = torch.as_tensor(flags, dtype=torch.int32, device=dev)
         params = torch.as_tensor(params, dtype=torch.int32, device=dev)
         return engine_scan(carry, flags.reshape(-1, N_FLAGS),
                            params.reshape(-1, N_PARAMS), addrs, is_write,
                            pair_ab, pair_cd, quad, device_tables(cfg, dev),
-                           consts)
+                           consts, err=err)
 
     def run_one(flags, params, addrs, is_write, pair_ab, pair_cd, quad):
         carry = init_state(params, addrs.shape[0], device=addrs.device)
-        return run_chunk(carry, flags, params, addrs, is_write, pair_ab,
-                         pair_cd, quad)[-1]
+        carry, err = run_chunk(carry, flags, params, addrs, is_write,
+                               pair_ab, pair_cd, quad)
+        raise_refused([err])
+        return carry[-1]
 
     return EngineParts(init_state=init_state, run_chunk=run_chunk,
                        run_one=run_one)
@@ -243,13 +249,16 @@ def trace_tensors(cfg: SimConfig, addrs, is_write, pair_ab, pair_cd, quad,
     return (a, w) + fits
 
 
-def run_trace(cfg: SimConfig, flags, params, addrs, is_write, pair_ab,
-              pair_cd, quad, *, chunk_size: int | None = None,
-              device="cuda") -> tuple:
+def launch_trace(cfg: SimConfig, flags, params, addrs, is_write, pair_ab,
+                 pair_cd, quad, *, chunk_size: int | None = None,
+                 device="cuda") -> tuple:
     """Every scheme row over every workload: S x W lanes from the zero
     state, the whole trace in one `run_chunk` (one E1 launch on the
-    card), or `chunk_size` events at a time with the same carry.  Returns
-    the final carry; its last entry is the (S, W, N_STATS) stats."""
+    card), or `chunk_size` events at a time with the same carry, the
+    chunks enqueued back to back with one set of refusal flags.  Returns
+    (carry, err) without waiting for the card: the carry's last entry is
+    the (S, W, N_STATS) stats, and a caller that returns a result reads
+    `err` with it (`fetch_checked` / `raise_refused`)."""
     dev = resolve_device(device)
     eng = build_engine(cfg)
     a, w, pab, pcd, pq = trace_tensors(cfg, addrs, is_write, pair_ab,
@@ -257,10 +266,23 @@ def run_trace(cfg: SimConfig, flags, params, addrs, is_write, pair_ab,
     flags = torch.as_tensor(flags, dtype=torch.int32, device=dev)
     params = torch.as_tensor(params, dtype=torch.int32, device=dev)
     carry = eng.init_state(params, a.shape[0], device=dev)
+    err = None
     step = chunk_size or max(a.shape[1], 1)
     for lo in range(0, a.shape[1], step):
-        carry = eng.run_chunk(carry, flags, params, a[:, lo:lo + step],
-                              w[:, lo:lo + step], pab, pcd, pq)
+        carry, err = eng.run_chunk(carry, flags, params, a[:, lo:lo + step],
+                                   w[:, lo:lo + step], pab, pcd, pq, err=err)
+    return carry, err
+
+
+def run_trace(cfg: SimConfig, flags, params, addrs, is_write, pair_ab,
+              pair_cd, quad, *, chunk_size: int | None = None,
+              device="cuda") -> tuple:
+    """`launch_trace`, then its refusal flags read: raises ValueError for
+    a refused input, else returns the final carry."""
+    carry, err = launch_trace(cfg, flags, params, addrs, is_write, pair_ab,
+                              pair_cd, quad, chunk_size=chunk_size,
+                              device=device)
+    raise_refused([err])
     return carry
 
 
@@ -276,6 +298,6 @@ __all__ = [
     "PARAM_META_SETS", "N_PARAMS",
     "SimConfig", "EngineParts", "build_engine", "default_params",
     "sample_threshold", "engine_tables", "engine_consts", "device_tables",
-    "trace_tensors",
-    "run_trace",
+    "trace_tensors", "fetch_checked", "raise_refused",
+    "launch_trace", "run_trace",
 ]

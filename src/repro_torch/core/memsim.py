@@ -45,7 +45,8 @@ from .engine import (  # noqa: F401  (stat indices re-exported for callers)
     ST_WB_DIRTY,
     STAT_NAMES,
     SimConfig,
-    run_trace,
+    fetch_checked,
+    launch_trace,
 )
 from .schemes import BASE_SCHEMES as SCHEMES
 
@@ -95,12 +96,12 @@ def simulate(scheme, addrs, is_write, pair_ab, pair_cd, quad,
     chunks over one carry (bit-identical to one run)."""
     dev = resolve_device(device)
     sch = schemes_registry.resolve(scheme)
-    carry = run_trace(cfg, sch.flags()[None], sch.params(cfg)[None],
-                      np.asarray(addrs)[None], np.asarray(is_write)[None],
-                      np.asarray(pair_ab)[None], np.asarray(pair_cd)[None],
-                      np.asarray(quad)[None], chunk_size=chunk_size,
-                      device=dev)
-    return summarize_stats(sch.name, carry[-1][0, 0].cpu().numpy())
+    carry, err = launch_trace(
+        cfg, sch.flags()[None], sch.params(cfg)[None],
+        np.asarray(addrs)[None], np.asarray(is_write)[None],
+        np.asarray(pair_ab)[None], np.asarray(pair_cd)[None],
+        np.asarray(quad)[None], chunk_size=chunk_size, device=dev)
+    return summarize_stats(sch.name, fetch_checked(carry[-1][0, 0], [err]))
 
 
 def speedup(baseline_accesses: int, scheme_accesses: int, f: float) -> float:

@@ -73,13 +73,13 @@
 // outside [0, 4 * n_groups), a params row whose LCT size or metadata sets
 // exceed what the carry holds, and carry values that index the tables
 // (mem_state, LCT levels, valid/dirty masks, victim tags), each in the
-// event that would use it.  A lane that finds one stops there and sets a
-// flag in mapped host memory; the entry point waits for the launch and
-// returns the flag as a negative code.
+// event that would use it.  A lane that finds one stops there and sets
+// its kind's flag in the launch's own int32 flag array on the device; the
+// entry point does not wait, and the caller reads the flags when it copies
+// a result to the host.
 
 #include <climits>
 #include <cstdint>
-#include <mutex>
 #include <cuda_runtime.h>
 
 // the engine's layouts (core/engine.py: ST_*, FLAG_*, PARAM_*)
@@ -104,7 +104,7 @@ constexpr int LANE_MASKS = 16;   // valid / dirty / pf masks of a group
 constexpr int EVICT_ENTRIES = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS;
 constexpr int EVICT_BITS = 3;    // each eviction-table column, packed
 constexpr int SLOT_TABLE = MEM_STATES * GROUP_LANES;  // LOC, LANES_IN_SLOT..
-// what a lane refused, one flag each; returned as -(1 + kind)
+// what a lane refused, one flag each in the caller's flag array
 enum { ERR_ADDRESS = 0, ERR_PARAMS = 1, ERR_CARRY = 2, ERR_KINDS = 3 };
 
 constexpr int WARP = 32;
@@ -762,51 +762,28 @@ engine_scan_kernel(const EngineArgs a, volatile int* err) {
   for (int i = t; i < n_lct; i += WARP) g_lct[i] = L.lct[i];
 }
 
-// Launches E1 on `stream` and waits for it.  Returns 0, a cudaError, or
-// -(1 + kind) when a lane refused an input (ERR_*); the carry then holds
-// each lane's state as far as it got.
+// Launches E1 on `stream` and returns without waiting: 0 or a cudaError.
+// `err` points to ERR_KINDS int32 flags on the launch's device, zero
+// before the first launch of a run; a lane that refuses an input sets its
+// kind's flag to 1 (the carry then holds each lane's state as far as it
+// got).  Launches on other devices or streams share nothing.
 extern "C" int cram_engine_scan(const EngineArgs* args, long long smem,
-                                void* stream) {
+                                int* err, void* stream) {
   const EngineArgs a = *args;
   const long long lanes = a.n_schemes * a.n_workloads;
   if (lanes <= 0 || lanes > 0x7FFFFFFFLL || a.n_events <= 0 || smem <= 0
-      || a.n_groups <= 0 || a.n_groups > 0x7FFFFFFFLL || a.n_levels <= 0)
+      || a.n_groups <= 0 || a.n_groups > 0x7FFFFFFFLL || a.n_levels <= 0
+      || err == nullptr)
     return (int)cudaErrorInvalidValue;
   const long long expect = smem_layout(a.sets * a.ways,
                                        a.meta_sets * a.meta_ways,
                                        a.lct_entries, a.n_levels);
   if (smem != expect) return (int)cudaErrorInvalidValue;
-
-  // one set of flags for the process, in mapped host memory: the kernel
-  // writes them without a copy being enqueued
-  static std::mutex mu;
-  static int* host_err = nullptr;
-  std::lock_guard<std::mutex> lock(mu);
-  cudaError_t err = cudaSuccess;
-  if (host_err == nullptr) {
-    err = cudaHostAlloc(reinterpret_cast<void**>(&host_err),
-                        ERR_KINDS * sizeof(int),
-                        cudaHostAllocMapped | cudaHostAllocPortable);
-    if (err != cudaSuccess) { host_err = nullptr; return (int)err; }
-  }
-  int* dev_err = nullptr;
-  err = cudaHostGetDevicePointer(reinterpret_cast<void**>(&dev_err),
-                                 host_err, 0);
-  if (err != cudaSuccess) return (int)err;
-  volatile int* flags = host_err;
-  for (int k = 0; k < ERR_KINDS; ++k) flags[k] = 0;
-
-  err = cudaFuncSetAttribute(engine_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t e = cudaFuncSetAttribute(
+      engine_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
   engine_scan_kernel<<<(unsigned)lanes, 2 * WARP, (size_t)smem,
-                       (cudaStream_t)stream>>>(a, dev_err);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaStreamSynchronize((cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  for (int k = 0; k < ERR_KINDS; ++k)
-    if (flags[k]) return -(1 + k);
-  return 0;
+                       (cudaStream_t)stream>>>(a, err);
+  return (int)cudaGetLastError();
 }

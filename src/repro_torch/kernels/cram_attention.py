@@ -101,7 +101,9 @@ def cram_decode_attention_batched_plain(q, slots, strips, markers, valid,
                                         shared_cache: bool = False):
     """Plain version.  `block_groups` (the kernel's split width in page
     groups; None for `split_width`) only orders the kernel's float sums, so
-    the one-pass softmax here ignores it (kept for the same signature)."""
+    the one-pass softmax here ignores it (kept for the same signature).
+    Each query row is its own products, so a row's result does not depend
+    on B: a slot shard gives the bits of the whole batch's call."""
     del block_groups
     b, hq, d = q.shape
     slots = _batch(slots, b, shared_cache)
@@ -120,11 +122,12 @@ def cram_decode_attention_batched_plain(q, slots, strips, markers, valid,
     g = hq // hkv
     kg = torch.repeat_interleave(k, g, dim=2)
     vg = torch.repeat_interleave(v, g, dim=2)
-    s = torch.einsum("bhd,bthd->bht", q.to(torch.float32), kg)
-    s = s * (1.0 / math.sqrt(d))
-    s = torch.where(mask[:, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bht,bthd->bhd", p, vg)
+    qf = q.to(torch.float32)
+    out = q.new_empty((b, hq, d), dtype=torch.float32)
+    for i in range(b):
+        s = torch.einsum("hd,thd->ht", qf[i], kg[i]) * (1.0 / math.sqrt(d))
+        p = torch.softmax(torch.where(mask[i, None, :], s, NEG_INF), dim=-1)
+        out[i] = torch.einsum("ht,thd->hd", p, vg[i])
     byts = bytes_moved_flat(is_packed, valid, predictor, lanes=lanes,
                             slot_bytes=slot_bytes, strip_bytes=strip_bytes)
     return out, byts

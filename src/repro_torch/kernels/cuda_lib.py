@@ -63,8 +63,8 @@ SIGNATURES = {
     "cram_unpack_pages": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # lines, n, key, out, stream
     "cram_compress_scan": [_P, _L, _U, _P, _P],
-    # &EngineArgs, dynamic shared memory bytes, stream
-    "cram_engine_scan": [_P, _L, _P],
+    # &EngineArgs, dynamic shared memory bytes, refusal flags, stream
+    "cram_engine_scan": [_P, _L, _P, _P],
 }
 
 _state: dict = {"lib": None, "build_seconds": None}
@@ -74,13 +74,11 @@ _state: dict = {"lib": None, "build_seconds": None}
 OBSERVERS: list = []
 
 
-def kernel_wrapper(launch_key, *, waits: bool = False):
+def kernel_wrapper(launch_key):
     """Decorate a kernel's dispatching wrapper: while OBSERVERS is not
-    empty, each observer's `enter(name, waits)` / `exit(name)` bracket the
-    call, `name = launch_key(*args, **kw)` being the kernel's key in its
-    module's LAUNCHES (a constant string stands for itself).  `waits`
-    says that the kernel's host entry waits for its launch to finish (a
-    host sync on the card that torch cannot see)."""
+    empty, each observer's `enter(name)` / `exit(name)` bracket the call,
+    `name = launch_key(*args, **kw)` being the kernel's key in its
+    module's LAUNCHES (a constant string stands for itself)."""
     key = (launch_key if callable(launch_key)
            else lambda *a, **kw: launch_key)
 
@@ -91,7 +89,7 @@ def kernel_wrapper(launch_key, *, waits: bool = False):
                 return fn(*args, **kw)
             name = key(*args, **kw)
             for obs in OBSERVERS:
-                obs.enter(name, waits)
+                obs.enter(name)
             try:
                 return fn(*args, **kw)
             finally:

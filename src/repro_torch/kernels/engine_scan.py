@@ -16,8 +16,15 @@ chunk is applied in order, in every lane.
   * `engine_scan` — dispatches on the trace's device: a CPU tensor runs
     the plain version, a CUDA tensor launches the kernel or raises.
 
-All three update the carry in place (the reference returns a new one) and
-return it.  The carry is the reference's tuple with leading dims (S, W):
+All three update the carry in place (the reference returns a new one).
+The plain version returns the carry; the kernel and the dispatcher return
+(carry, err): `err` is the launch's ERR_KINDS int32 refusal flags on its
+device (None from the plain version, which is given only inputs the host
+has checked).  The launch does not wait for the card: whoever returns a
+result to the host reads the flags with it (`fetch_checked`,
+`raise_refused`) and raises ValueError for a refused input.
+
+The carry is the reference's tuple with leading dims (S, W):
   tag, lru, valid, dirty, pf     (S, W, sets, ways) int32
   mem_state                      (S, W, n_groups) int8
   lct                            (S, W, LCT_ENTRIES) int8
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -61,8 +69,9 @@ EVICT_ENTRIES = 2 * MEM_STATES * 8 * LANE_MASKS * LANE_MASKS
 EVICT_COLUMNS = TABLE_NAMES[:4]     # packed into one word an entry
 EVICT_BITS = 3
 META_QUEUE = 64             # metadata-cache requests a batch of 32 events
+ERR_KINDS = 3               # refusal flags a launch sets (REFUSALS)
 _PACKED: list = []          # (columns, their versions, packed): recent packs
-# what E1 refuses as it runs, by the negative code it returns (ERR_* in
+# what E1 refuses as it runs, by the index of its flag (ERR_* in
 # csrc/engine_scan.cu)
 REFUSALS = ("a trace address lies outside [0, 4 * n_groups)",
             "a params row's LCT size or metadata sets lie outside [1, what "
@@ -369,15 +378,18 @@ def _check(name, x, dtype, shape, dev):
 
 def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                      pair_cd, quad, tables: dict, consts: dict, *,
-                     lane_ns=None):
+                     err=None, lane_ns=None):
     """The CUDA kernel on the contract of `engine_scan_plain`: one launch
-    for the whole chunk, the carry updated in place.  Shapes, types and
-    tables are checked here; addresses, params rows and carry values by
-    the kernel as it runs (the call waits for the launch and raises
-    ValueError on one that would index outside a lane's slice or a
-    table, where the reference would clamp it).  `lane_ns`, when given,
-    is an (S * W, 2) int64 tensor on the card that receives each lane's
-    device clock (%globaltimer, ns) when it starts and ends its events."""
+    for the whole chunk, the carry updated in place; returns (carry,
+    err).  Shapes, types and tables are checked here; addresses, params
+    rows and carry values by the kernel as it runs: a lane that would
+    index outside its slice or a table (where the reference would clamp)
+    stops and sets its kind's flag in `err`, which the launch does not
+    wait for.  `err` is a zeroed int32 (ERR_KINDS,) tensor on the card,
+    made here when not given; a run of chunks passes one for all of them.
+    `lane_ns`, when given, is an (S * W, 2) int64 tensor on the card that
+    receives each lane's device clock (%globaltimer, ns) when it starts
+    and ends its events."""
     (tag, lru, valid, dirty, pf, mem_state, lct, (mtag, mlru, mdirty,
      mclock), counter, clock, stats) = carry
     dev = addrs.device
@@ -427,6 +439,9 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
             raise ValueError(f"table {name} must be contiguous int32 "
                              f"{shapes[name]} on {dev}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+    if err is None:
+        err = torch.zeros(ERR_KINDS, dtype=torch.int32, device=dev)
+    _check("err", err, torch.int32, (ERR_KINDS,), dev)
     if lane_ns is not None:
         _check("lane_ns", lane_ns, torch.int64, (n_s * n_w, 2), dev)
         if not lane_ns.is_contiguous():
@@ -437,7 +452,7 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
                          "of shared memory, above the block limit of "
                          f"{SMEM_LIMIT}")
     if n_events == 0 or n_s * n_w == 0:
-        return carry
+        return carry, err
     evict = pack_evict_table(tables)
     p = cuda_lib.ptr
     args = _Args(
@@ -451,25 +466,54 @@ def engine_scan_cuda(carry, flags, params, addrs, is_write, pair_ab,
         n_s, n_w, addrs.stride(0), is_write.stride(0), n_events, sets, ways,
         n_groups, ms_alloc, mw, lct.shape[-1], n_levels,
         *(int(consts[k]) for k in CONST_NAMES))
-    code = cuda_lib.load().cram_engine_scan(
-        ctypes.byref(args), smem, cuda_lib.stream_ptr(addrs))
-    if code < 0:
-        LAUNCHES["engine_scan"] += 1
-        raise ValueError(f"engine scan refused its input: "
-                         f"{REFUSALS[-code - 1]}; each lane's carry holds "
-                         "its state up to the event that was refused")
+    with torch.cuda.device(dev):
+        code = cuda_lib.load().cram_engine_scan(
+            ctypes.byref(args), smem, p(err), cuda_lib.stream_ptr(addrs))
     cuda_lib.check(code, "cram_engine_scan")
     LAUNCHES["engine_scan"] += 1
-    return carry
+    return carry, err
 
 
-# the host entry waits for the launch, to report a refused input
-@cuda_lib.kernel_wrapper("engine_scan", waits=True)
+@cuda_lib.kernel_wrapper("engine_scan")
 def engine_scan(carry, flags, params, addrs, is_write, pair_ab, pair_cd,
-                quad, tables: dict, consts: dict):
-    """Advance every lane's carry over the chunk's events, in place.  A
-    CPU trace runs the plain version; a CUDA trace launches E1 or raises."""
-    fn = engine_scan_cuda if addrs.device.type == "cuda" \
-        else engine_scan_plain
-    return fn(carry, flags, params, addrs, is_write, pair_ab, pair_cd, quad,
-              tables, consts)
+                quad, tables: dict, consts: dict, *, err=None):
+    """Advance every lane's carry over the chunk's events, in place;
+    returns (carry, err).  A CPU trace runs the plain version (err None);
+    a CUDA trace launches E1 with the refusal flags `err` (made when not
+    given) or raises."""
+    if addrs.device.type == "cuda":
+        return engine_scan_cuda(carry, flags, params, addrs, is_write,
+                                pair_ab, pair_cd, quad, tables, consts,
+                                err=err)
+    return engine_scan_plain(carry, flags, params, addrs, is_write, pair_ab,
+                             pair_cd, quad, tables, consts), err
+
+
+def _raise(codes) -> None:
+    """ValueError for the first refusal flag set in `codes` (rows of
+    ERR_KINDS flags, any number of them)."""
+    hit = np.asarray(codes).reshape(-1, ERR_KINDS).any(0)
+    for kind, flagged in enumerate(hit):
+        if flagged:
+            raise ValueError(f"engine scan refused its input: "
+                             f"{REFUSALS[kind]}")
+
+
+def raise_refused(errs) -> None:
+    """Read every pending refusal flag tensor of `errs` (None entries are
+    the plain version's and refuse nothing) in one copy to the host, and
+    raise ValueError for a refused input."""
+    errs = [e for e in errs if e is not None]
+    if errs:
+        _raise(torch.stack([e.to(errs[0].device) for e in errs]).cpu())
+
+
+def fetch_checked(result, errs) -> np.ndarray:
+    """`result` (an int32 tensor) as a numpy array, copied to the host in
+    one transfer with every pending refusal flag tensor of `errs`; raises
+    ValueError for a refused input before anything is returned."""
+    flags = [e.to(result.device).reshape(-1) for e in errs if e is not None]
+    host = torch.cat([result.reshape(-1), *flags]).cpu().numpy()
+    n = result.numel()
+    _raise(host[n:])
+    return host[:n].reshape(tuple(result.shape))

@@ -1,0 +1,55 @@
+"""Device meshes of the port (port of `repro.launch.mesh`).
+
+A mesh is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of
+the initialised process group, one rank a device.  Building one touches
+the world only when a function is called, never at import.
+
+Target hardware: NVIDIA H100 80GB HBM3 (SXM, 700 W), NVIDIA's H100 data
+sheet, dense rates without sparsity.  The production mesh of H100 nodes
+(`make_production_mesh`) comes with the sharded model step.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ..device import resolve_device
+
+PEAK_FLOPS = 989e12        # bf16 dense, per card (H100 SXM data sheet)
+HBM_BW = 3.35e12           # bytes/s per card (H100 SXM HBM3)
+HBM_BYTES = 80 * 10**9     # per card (H100 80GB)
+NVLINK_BW = 450e9          # bytes/s per card and direction (900 GB/s NVLink
+                           # 4 total, H100 SXM data sheet)
+
+
+def make_host_mesh(model: int = 1, *, device_type: str = "cuda"):
+    """A (world // model, model) mesh named ("data", "model") over every
+    rank of the initialised world, on the card ("cuda", the default) or
+    the CPU ("cpu")."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    resolve_device(device_type)
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs an initialised process "
+                           "group (torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"world of {world} ranks")
+    return init_device_mesh(device_type, (world // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_axes(mesh) -> dict[str, int]:
+    """{axis name: size} in the mesh's dim order: a DeviceMesh's named
+    dims, or any mesh whose `.shape` is such a dict (the reference's
+    duck-typed test meshes, `runtime.elastic.Grid`)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.mesh.shape, strict=True))
+    return dict(mesh.shape)
+
+
+def mesh_chip_count(mesh) -> int:
+    return math.prod(mesh_axes(mesh).values())

@@ -6,9 +6,9 @@ from .common import ModelConfig, smoke_config
 from .transformer import (DecoderLM, init_cache, init_lm, init_lm_reference,
                           lm_decode_step, lm_forward, lm_loss)
 from .whisper import Whisper, init_whisper
-from .zoo import active_params, build, count_params
+from .zoo import active_params, build, count_params, param_axes
 
 __all__ = ["ModelConfig", "DecoderLM", "Whisper", "active_params", "build",
            "count_params", "init_cache", "init_lm", "init_lm_reference",
            "init_whisper", "lm_decode_step", "lm_forward", "lm_loss",
-           "smoke_config"]
+           "param_axes", "smoke_config"]

@@ -106,6 +106,13 @@ def chunked_decode_attention(q, k_cache, v_cache, length,
     return out[:, 0]
 
 
+# each projection's logical axes, as the reference's init names them (the
+# sharding rules map them onto a mesh)
+ATTENTION_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+                  "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+                  "q_norm": ("head_dim",), "k_norm": ("head_dim",)}
+
+
 def attention_init(ini, cfg) -> dict:
     """Projection weights for (GQA) self / cross attention."""
     d, hd, hq, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads

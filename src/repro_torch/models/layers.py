@@ -72,6 +72,11 @@ def mlp_apply(p: dict, x, act: str):
     return h @ p["w2"]
 
 
+# each weight's logical axes, as the reference's init names them
+MLP_AXES = {"w1": ("embed", "mlp"), "w2": ("mlp", "embed"),
+            "w3": ("embed", "mlp")}
+
+
 def mlp_init(ini, d_model: int, d_ff: int, act: str) -> dict:
     p = {"w1": ini.normal((d_model, d_ff)), "w2": ini.normal((d_ff, d_model))}
     if act == "swiglu":

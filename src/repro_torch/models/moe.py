@@ -24,7 +24,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import mlp_apply, mlp_init
+from .layers import MLP_AXES, mlp_apply, mlp_init
+
+# each weight's logical axes, as the reference's init names them
+MOE_AXES = {"router": ("embed", "experts"),
+            "w1": ("experts", "embed", "mlp"),
+            "w2": ("experts", "mlp", "embed"),
+            "w3": ("experts", "embed", "mlp"),
+            **{f"shared.{k}": v for k, v in MLP_AXES.items()}}
 
 
 def moe_init(ini, cfg) -> dict:

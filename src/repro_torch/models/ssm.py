@@ -24,6 +24,15 @@ import torch.nn.functional as F
 from .layers import rms_norm
 
 
+# each parameter's logical axes, as the reference's init names them
+SSM_AXES = {"wz": ("embed", "mlp"), "wx": ("embed", "mlp"),
+            "wB": ("embed", None), "wC": ("embed", None),
+            "wdt": ("embed", None), "conv_x": (None, "mlp"),
+            "conv_B": (None, None), "conv_C": (None, None),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm": ("mlp",), "out": ("mlp", "embed")}
+
+
 def ssm_init(ini, cfg) -> dict:
     d, din = cfg.d_model, cfg.d_inner
     h, n, g, k = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_conv

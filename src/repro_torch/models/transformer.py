@@ -42,12 +42,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import attention_apply, attention_init, cross_attention
+from .attention import (ATTENTION_AXES, attention_apply, attention_init,
+                        cross_attention)
 from .common import Initializer, ModelConfig
-from .layers import (chunked_softmax_xent, logits_last, mlp_apply, mlp_init,
+from .layers import (MLP_AXES, chunked_softmax_xent, logits_last, mlp_apply,
+                     mlp_init,
                      rms_norm)
-from .moe import moe_apply, moe_init
-from .ssm import ssm_apply, ssm_decode_step, ssm_init, ssm_init_cache
+from .moe import MOE_AXES, moe_apply, moe_init
+from .ssm import (SSM_AXES, ssm_apply, ssm_decode_step, ssm_init,
+                  ssm_init_cache)
 from .threefry import ReferenceInitializer
 
 # weights used in the compute dtype (the reference's `.astype(x.dtype)`);
@@ -152,6 +155,30 @@ def init_lm_reference(cfg: ModelConfig, seed: int,
     if "shared" in spec:
         params.update(_prefixed("shared", _block_init(ini, cfg, "dense")))
     return params
+
+
+# logical axes of a block's parameters, by their names in the block
+BLOCK_AXES = {"ln1": ("embed",), "ln2": ("embed",), "gate": (),
+              **_prefixed("attn", ATTENTION_AXES),
+              **_prefixed("xattn", ATTENTION_AXES),
+              **_prefixed("mlp", MLP_AXES), **_prefixed("moe", MOE_AXES),
+              **_prefixed("ssm", SSM_AXES)}
+
+
+def lm_param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """{state-dict name: logical axes} of `init_lm`'s parameters: the
+    reference's axes tree (`init_lm(...)[1]`) with the stacked "layers"
+    axis dropped, keyed as the port's state dict."""
+    top = {"embed": ("vocab", "embed"), "final_ln": ("embed",)}
+    out = {}
+    for key in init_lm(cfg, None, "meta"):
+        head, _, rest = key.partition(".")
+        if key in top:
+            out[key] = top[key]
+        else:
+            out[key] = BLOCK_AXES[rest.partition(".")[2] if head == "blocks"
+                                  else rest]
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:

@@ -37,11 +37,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .attention import (attention_apply, attention_init,
+from .attention import (ATTENTION_AXES, attention_apply, attention_init,
                         chunked_decode_attention, cross_attention)
 from .common import ModelConfig
-from .layers import (chunked_softmax_xent, layer_norm, logits_last,
-                     mlp_apply, mlp_init, sinusoidal_positions)
+from .layers import (MLP_AXES, chunked_softmax_xent, layer_norm,
+                     logits_last, mlp_apply, mlp_init, sinusoidal_positions)
 from .threefry import ReferenceInitializer
 from .transformer import ParamTree, _prefixed, _subtree
 
@@ -120,6 +120,32 @@ def whisper_shapes(cfg: ModelConfig) -> dict[str, tuple]:
     return {k: tuple(v.shape)
             for k, v in _whisper_params(_Shapes(cfg.param_dtype),
                                         cfg).items()}
+
+
+# logical axes of a whisper block's parameters, by their names in the block
+WHISPER_BLOCK_AXES = {
+    **{f"{ln}.{k}": ("embed",) for ln in ("ln1", "ln2", "ln3")
+       for k in ("w", "b")},
+    **{f"{a}.{k}": v for a in ("attn", "self", "cross")
+       for k, v in ATTENTION_AXES.items()},
+    **_prefixed("mlp", MLP_AXES)}
+
+
+def whisper_param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """{state-dict name: logical axes} of `init_whisper`'s parameters: the
+    reference's axes tree with the stacked "layers" axis dropped, keyed as
+    the port's state dict."""
+    top = {"embed": ("vocab", "embed"), "pos_dec": (None, "embed")}
+    out = {}
+    for key in whisper_shapes(cfg):
+        part, _, rest = key.partition(".")
+        if key in top:
+            out[key] = top[key]
+        elif rest.startswith("ln."):
+            out[key] = ("embed",)
+        else:
+            out[key] = WHISPER_BLOCK_AXES[rest.split(".", 2)[2]]
+    return out
 
 
 def whisper_init_cache(cfg: ModelConfig, batch: int, max_len: int,

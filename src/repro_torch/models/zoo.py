@@ -1,5 +1,6 @@
 """Model construction and analytic parameter counts (port of
-`repro.models.zoo`: `build`, `count_params`, `active_params`).  The
+`repro.models.zoo`: `build`, `count_params`, `active_params`, and
+`param_axes`, the logical axes of `abstract_params`).  The
 reference's `Model` bundles the config with `init`, `loss`, `forward`,
 `init_cache` and `decode_step`; here `build` returns a `DecoderLM` (the
 decoder families) or a `Whisper` (encdec), which holds its weights and
@@ -11,8 +12,9 @@ import torch
 
 from ..device import resolve_device
 from .common import ModelConfig
-from .transformer import DecoderLM, init_lm
-from .whisper import Whisper, init_whisper, whisper_shapes
+from .transformer import DecoderLM, init_lm, lm_param_axes
+from .whisper import (Whisper, init_whisper, whisper_param_axes,
+                      whisper_shapes)
 
 
 def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
@@ -47,6 +49,14 @@ def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
         params = {k: v.to(device=dev, dtype=cfg.param_dtype)
                   for k, v in params.items()}
     return Whisper(cfg, params) if encdec else DecoderLM(cfg, params)
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """{state-dict name: logical axes} of the model's parameters (the
+    reference's `Model.abstract_params()[1]` without the stacked "layers"
+    axis, keyed as the port's state dict), for the sharding rules."""
+    return (whisper_param_axes(cfg) if cfg.family == "encdec"
+            else lm_param_axes(cfg))
 
 
 def _mlp(cfg: ModelConfig, d_ff: int) -> int:

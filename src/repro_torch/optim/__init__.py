@@ -1,5 +1,5 @@
-"""The optimizer and the train step (port of `repro.optim`; the gradient
-compression of `grad_compress.py` comes with the sharding slice)."""
+"""The optimizer and the train step (port of `repro.optim`), and the
+gated compressed-gradient DP step (`grad_compress`)."""
 
 from .adamw import (TrainState, adamw_init, adamw_update, cosine_lr,
                     global_norm, make_train_step)

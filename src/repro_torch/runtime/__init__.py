@@ -1,3 +1,3 @@
-"""Runtime of the training loop (port of `repro.runtime`: the
-fault-tolerant loop and straggler detection; sharding, pipelining and
-elastic resume come with the multi-card slice)."""
+"""Runtime of the port (port of `repro.runtime`): the fault-tolerant
+training loop and straggler detection, the sharding rules, GPipe pipeline
+parallelism and elastic re-meshing."""

@@ -6,7 +6,7 @@ compressed KV spill tier.
   migrate — incremental live migration between gates and packings
   spill   — SpillStore: the host tier holding cold sequences still
             compressed under its own packing; bit-exact resurrection
-  shard   — decode-attend over the slot axis (single device)
+  shard   — decode-attend over the slot axis, sharded across devices
   loop    — ServeLoop: admit / prefill / step / attend / retire / evict /
             wake, and per-tier AutoTuner observation windows
 """

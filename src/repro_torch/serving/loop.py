@@ -276,8 +276,9 @@ class ServeLoop:
 
     def attend(self, q_by_seq: dict, *, shard: "bool | str" = "auto") -> dict:
         """Batched decode-attend for `{seq_id: q}` with q (Hq, d): one kernel
-        launch over the whole slot axis, inactive lanes masked by valid.
-        Returns {seq_id: (Hq, d)}."""
+        launch over the whole slot axis (one a shard where `shard`, passed
+        on to `shard_kv_attend`, shards it), inactive lanes masked by
+        valid.  Returns {seq_id: (Hq, d)}."""
         ids = sorted(q_by_seq)
         for sid in ids:
             assert not self.seqs[sid].spilled, f"seq {sid} is spilled"

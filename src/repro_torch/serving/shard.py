@@ -1,41 +1,59 @@
-"""Decode-attend over the slot axis (port of `repro.serving.shard`).
+"""Decode-attend over the slot axis, sharded across devices (port of
+`repro.serving.shard`).
 
-As in the reference, `shard=True` runs the single-device decode when there
-is one device (a CPU cache, or at most one visible card) or when the slot
-count is not a multiple of the device count.  Sharding the slot axis across
-several cards is not ported yet (ROADMAP.md, Queue 1: the sharded
-attend): there, `shard=True` raises.  `shard="auto"` always runs the single-device decode,
-which gives the same result as the reference's sharded one."""
+Sequence slots are independent, so the batched decode partitions over
+devices with no collectives, as the reference's `shard_map` over its
+local devices does: slot shard i of (q, slots, slots_overflow, strips,
+packed_mask, valid) goes to `devices[i]` with the marker table
+replicated, each shard is one K3 launch on that device's current stream,
+and the outputs are gathered in slot order onto the cache's device.
+`shard="auto"` shards when there are several devices, `shard=True` asks
+for it; both run the single-device decode when there is one device or
+the slot count does not divide by the device count.  `devices` defaults
+to every visible card for a cache on a card (the CPU for a CPU cache); a
+list may name one device more than once, which is how one card runs the
+sharded path.  K3's split rule depends only on the slots of a sequence,
+not on B, so the sharded and single-device paths are bit-identical."""
 
 from __future__ import annotations
 
 import torch
 
+from ..device import device_list, on_device
 from ..kernels import ops as kops
 
 
-def _device_count(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
-def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto"):
+def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto",
+                    devices=None):
     """One batched decode-attend over `cache` (a CRAMKVCache or
-    SlotKVCache).  q: (B, Hq, d) one query row per slot.  Returns
-    (B, Hq, d) float32.  No bandwidth accounting here — callers charge
-    the step explicitly."""
+    SlotKVCache), optionally sharded over the slot axis.  q: (B, Hq, d)
+    one query row per slot.  Returns (B, Hq, d) float32 on the cache's
+    device.  No bandwidth accounting here — callers charge the step
+    explicitly."""
     cache.repack()
     q = torch.as_tensor(q, device=cache.device)
     if q.dim() == 2:
         q = q[None]
-    n_dev = _device_count(q.device)
-    if shard is True and n_dev > 1 and q.shape[0] % n_dev == 0:
-        raise NotImplementedError(
-            f"sharding the attend over {n_dev} cards is not ported yet "
-            "(ROADMAP.md, Queue 1: the sharded attend)")
     n = cache._active_bucket()
+    kc = cache._kernel_cache(n)
+    valid = cache._valid(n)
     decode = (kops.decode_attention_batched if cache.packing == "pair"
               else kops.decode_attention_quad_batched)
-    return decode(q, cache._kernel_cache(n), cache._valid(n))
+    devs = device_list(devices, cache.device)
+    n_dev, b = len(devs), q.shape[0]
+    want = shard is True or (shard == "auto" and n_dev > 1)
+    if not want or n_dev <= 1 or b % n_dev:
+        return decode(q, kc, valid)
+    per = b // n_dev
+    outs = []
+    for i, dev in enumerate(devs):
+        rows = slice(i * per, (i + 1) * per)
+        with on_device(dev):
+            shard_cache = {k: (v if k == "markers" else v[rows]).to(dev)
+                           for k, v in kc.items()}
+            outs.append(decode(q[rows].to(dev), shard_cache,
+                               valid[rows].to(dev)))
+    return torch.cat([o.to(cache.device) for o in outs])
 
 
 __all__ = ["shard_kv_attend"]

@@ -157,9 +157,14 @@ def test_audit_hard_invariants(audit_report):
     golden = json.loads(launch_audit.GOLDEN_PATH.read_text())
     assert launch_audit.hard_violations(
         audit_report, launch_audit.known_syncs(golden)) == []
-    # without the golden's pinned reason, E1's wait is a violation
-    bad = launch_audit.hard_violations(audit_report)
+    # E1's host entry no longer waits: no entry syncs, golden or not
+    assert launch_audit.hard_violations(audit_report) == []
+    # a sync is a violation unless a pinned reason allows its count
+    report = json.loads(json.dumps(audit_report))
+    report["engine_chunk"]["pinned"]["host_syncs"] = 1
+    bad = launch_audit.hard_violations(report)
     assert len(bad) == 1 and bad[0].startswith("engine_chunk: 1 host sync")
+    assert launch_audit.hard_violations(report, {"engine_chunk": 1}) == []
 
 
 def test_audit_matches_golden(audit_report):
@@ -185,9 +190,9 @@ def test_audit_compare_detects_drift(audit_report, entry, key, value):
 
 def test_audit_golden_pins_the_kernel_budget():
     """The committed golden itself: one kernel call per fused decode,
-    serve step and prompt ingest; no host sync but E1's pinned wait; no
-    float64; state in place where the reference donates it; a host-only
-    checkpoint pack."""
+    serve step and prompt ingest; no host sync (E1's launch no longer
+    waits: nothing is pinned with a reason); no float64; state in place
+    where the reference donates it; a host-only checkpoint pack."""
     entries = json.loads(launch_audit.GOLDEN_PATH.read_text())["entries"]
     for name in launch_audit.ONE_KERNEL:
         assert sum(entries[name]["pinned"]["kernel_calls"].values()) == 1
@@ -195,7 +200,8 @@ def test_audit_golden_pins_the_kernel_budget():
         assert entry["f64"] is False
         want = entry.get("known_syncs", {}).get("count", 0)
         assert entry["pinned"]["host_syncs"] == want, name
-    assert entries["engine_chunk"]["known_syncs"]["reason"]
+    assert "known_syncs" not in entries["engine_chunk"]
+    assert entries["engine_chunk"]["pinned"]["host_syncs"] == 0
     for name in ("serve_scatters", "serve_megastep", "serve_prefill",
                  "kv_step_booking"):
         assert entries[name]["inplace"] is True

@@ -584,9 +584,11 @@ def test_engine_scan_kernel_refuses_what_it_cannot_run(cuda):
 ])
 def test_engine_scan_kernel_refuses_bad_indices(cuda, fault, match):
     """An address outside the lanes' groups, a params row beyond what the
-    carry holds, or a carry value outside the tables makes E1 raise (after
-    its launch) instead of writing outside a lane's slice; the neighbour
-    lane's mem_state is left as the plain version leaves it."""
+    carry holds, or a carry value outside the tables makes E1 set its
+    refusal flag instead of writing outside a lane's slice: the launch
+    does not wait, and the entry that reads the flags (`run_trace`, or
+    `raise_refused` after `run_chunk`) raises; the neighbour lane's
+    mem_state is left as the plain version leaves it."""
     cfg = SimConfig(**E1_CONFIGS["small"])
     rng = np.random.default_rng(7)
     flags, params, trace = _e1_inputs(rng, cfg, 2, 1, 300)
@@ -604,9 +606,13 @@ def test_engine_scan_kernel_refuses_bad_indices(cuda, fault, match):
         pr[0, engine.PARAM_META_SETS] = 0
     else:
         carry[5][1, 0, int(a[0, 0]) >> 2] = es.MEM_STATES
+    fl = torch.as_tensor(flags, device=cuda)
+    if fault != "carry":
+        with pytest.raises(ValueError, match=match):
+            engine.run_trace(cfg, fl, pr, a, w, pab, pcd, pq, device=cuda)
+    carry, err = eng.run_chunk(carry, fl, pr, a, w, pab, pcd, pq)
     with pytest.raises(ValueError, match=match):
-        eng.run_chunk(carry, torch.as_tensor(flags, device=cuda), pr, a, w,
-                      pab, pcd, pq)
+        engine.raise_refused([err])
     torch.cuda.synchronize()
     if fault == "address":
         want = eng.init_state(params, 1, device="cpu")
@@ -719,6 +725,94 @@ def test_engine_scan_kernel_group_held_in_two_ways(cuda):
     assert int(want[5][:, 0, x].ne(0).sum()) > 0
     for name, g, w in zip(CARRY_NAMES, got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_engine_scan_refusal_flags_are_per_launch(cuda):
+    """Two sweeps in flight on two streams, one with a refused address:
+    each launch writes its own flags, so only that one raises, and the
+    other's stats are exact."""
+    cfg = SimConfig(**E1_CONFIGS["small"])
+    flags, params, trace = _e1_inputs(np.random.default_rng(9), cfg, 3, 2,
+                                      600)
+    want = _e1_run(cfg, flags, params, trace, torch.device("cpu"))[-1]
+    good = engine.trace_tensors(cfg, *trace, cuda)
+    bad = tuple(x.clone() for x in good)
+    bad[0][1, 300] = 4 * cfg.n_groups
+    runs = []
+    for tr in (bad, good):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            runs.append(engine.launch_trace(cfg, flags, params, *tr,
+                                            device=cuda))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="trace address"):
+        engine.fetch_checked(runs[0][0][-1], [runs[0][1]])
+    assert np.array_equal(engine.fetch_checked(runs[1][0][-1], [runs[1][1]]),
+                          want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3])
+def test_sharded_sweep_on_one_card(cuda, k):
+    """The workload axis in k shards on one card (a device list naming it
+    k times): one E1 launch a shard, stats equal to the one-launch
+    sweep; a refused address in one shard raises."""
+    from repro_torch.core import batchsim
+
+    names = ("libq", "pr_twi", "mix3", "mcf17", "lbm17", "soplex")
+    trace = tuple(np.stack([b[i] for b in (
+        traces.build_workload(n, 1500, 0) for n in names)])
+        for i in range(1, 6))
+    rows = schemes.names()
+    one = batchsim.sweep(rows, *trace, device=cuda, shard=False)
+    before = es.LAUNCHES["engine_scan"]
+    got = batchsim.sweep(rows, *trace, device=cuda, devices=[cuda] * k)
+    assert es.LAUNCHES["engine_scan"] - before == k
+    assert np.array_equal(got, one)
+    want = batchsim.sweep(rows, *(x[:2] for x in trace), device="cpu")
+    assert np.array_equal(one[:, :2], want)
+    bad = torch.as_tensor(trace[0], device=cuda).clone()
+    bad[-1, 7] = -1
+    with pytest.raises(ValueError, match="trace address"):
+        batchsim.sweep(rows, bad, *trace[1:], device=cuda,
+                       devices=[cuda] * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["pair", "quad"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_attend_on_one_card(cuda, packing, k):
+    """Slot shards on one card (a device list naming it k times): one K3
+    launch a shard, bit-identical to one launch over every slot, and
+    within the kernels' tolerance of the plain version on the CPU."""
+    from repro_torch.serving import ServeLoop
+    from repro_torch.serving.shard import shard_kv_attend
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        loop = ServeLoop(device=dev, slots=8, max_pages=4, page=8, n_kv=1,
+                         head_dim=16, policy="static", packing=packing)
+        rng = np.random.default_rng(k)
+        for sid in range(8):
+            kk, vv = synthetic_kv_stream(rng, 1, 5 + 7 * (sid % 4), 1, 16,
+                                         compressible=sid % 3 != 2)
+            loop.prefill(sid, kk[0], vv[0])
+        q = torch.from_numpy(rng.standard_normal((8, 2, 16)).astype(
+            np.float32)).to(dev)
+        out[dev.type] = (loop, q)
+    loop, q = out["cuda"]
+    key = "decode_attention_pair" if packing == "pair" else \
+        "decode_attention_quad"
+    single = shard_kv_attend(loop.cache, q, shard=False)
+    before = ca.LAUNCHES[key]
+    got = shard_kv_attend(loop.cache, q, devices=[cuda] * k)
+    assert ca.LAUNCHES[key] - before == k
+    assert torch.equal(got, single)
+    cpu_loop, cpu_q = out["cpu"]
+    want = shard_kv_attend(cpu_loop.cache, cpu_q, shard=False)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
 @pytest.mark.cuda

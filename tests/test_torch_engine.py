@@ -355,3 +355,64 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     fit = torch.zeros((1, 512), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA tensor"):
         es.engine_scan_cuda(carry, z, z, z, z.bool(), fit, fit, fit, {}, {})
+
+
+# ------------------------------------------------------ the sharded sweep
+
+SHARD_ROWS = ("baseline", "cram", "explicit", "ideal")
+
+
+@pytest.fixture(scope="module")
+def trace4():
+    return stacked(("libq", "pr_twi", "mix3", "mcf17"), 400, 0)
+
+
+@pytest.fixture(scope="module")
+def ref_sweep4(trace4):
+    return ref_batchsim.sweep(SHARD_ROWS, *trace4, shard=False)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_sweep_over_cpu_devices(trace4, ref_sweep4, k, monkeypatch):
+    """The workload axis in k shards, one engine run a shard: stats
+    bit-exact with the single-device sweep and the reference's."""
+    from repro_torch.core import batchsim
+
+    calls = []
+    launch = batchsim.launch_trace
+    monkeypatch.setattr(batchsim, "launch_trace", lambda *a, **kw: (
+        calls.append(kw["device"]), launch(*a, **kw))[1])
+    got = batchsim.sweep(SHARD_ROWS, *trace4, device="cpu",
+                         devices=["cpu"] * k)
+    assert len(calls) == k
+    assert np.array_equal(got, ref_sweep4)
+    calls.clear()
+    assert np.array_equal(batchsim.sweep(SHARD_ROWS, *trace4, device="cpu",
+                                         shard=False, devices=["cpu"] * k),
+                          ref_sweep4)
+    assert len(calls) == 1
+
+
+def test_sharded_sweep_falls_back_as_the_reference(trace4, ref_sweep4,
+                                                   monkeypatch):
+    """A workload count the devices do not divide, and a chunked sweep,
+    run on one device; chunk_size with shard=True raises."""
+    from repro_torch.core import batchsim
+
+    calls = []
+    launch = batchsim.launch_trace
+    monkeypatch.setattr(batchsim, "launch_trace", lambda *a, **kw: (
+        calls.append(kw["device"]), launch(*a, **kw))[1])
+    three = tuple(x[:3] for x in trace4)
+    got = batchsim.sweep(SHARD_ROWS, *three, device="cpu", shard=True,
+                         devices=["cpu"] * 2)
+    assert len(calls) == 1
+    assert np.array_equal(got, ref_sweep4[:, :3])
+    calls.clear()
+    got = batchsim.sweep(SHARD_ROWS, *trace4, device="cpu", chunk_size=150,
+                         devices=["cpu"] * 2)
+    assert len(calls) == 1
+    assert np.array_equal(got, ref_sweep4)
+    with pytest.raises(ValueError, match="chunk_size and shard=True"):
+        batchsim.sweep(SHARD_ROWS, *trace4, device="cpu", chunk_size=150,
+                       shard=True, devices=["cpu"] * 2)

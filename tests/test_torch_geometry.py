@@ -13,7 +13,10 @@ a head_dim that is not a multiple of 8 from 8 to 128.
 
 `shard_kv_attend(..., shard=True)` on one device runs the single-device
 decode, as the reference does: bit-identical to `shard=False` and, within
-the attention tolerance, to the reference's `shard=True` on one device."""
+the attention tolerance, to the reference's `shard=True` on one device.
+Over a list of k CPU devices the slot axis is sharded, one decode a shard:
+bit-identical to the single-device decode and within the tolerance of the
+reference's."""
 
 import jax
 import jax.numpy as jnp
@@ -208,8 +211,8 @@ def _serve_loops(packing, slots):
     port = ServeLoop(device="cpu", **kw)
     rng = np.random.default_rng([slots, len(packing)])
     for sid in range(slots):
-        k, v = synthetic_kv_stream(rng, 1, 5 + 7 * sid, SHARD_HKV, SHARD_HD,
-                                   compressible=sid % 3 != 2)
+        k, v = synthetic_kv_stream(rng, 1, 5 + 7 * (sid % 4), SHARD_HKV,
+                                   SHARD_HD, compressible=sid % 3 != 2)
         ref.prefill(sid, k[0], v[0])
         port.prefill(sid, k[0], v[0])
     q = rng.standard_normal((slots, SHARD_HQ, SHARD_HD)).astype(np.float32)
@@ -233,20 +236,39 @@ def test_shard_true_on_one_device_is_the_single_device_decode(packing,
 
 
 def test_shard_true_raises_only_for_a_real_multi_card_shard(monkeypatch):
-    """With two cards, `shard=True` over a slot count they divide is the
-    sharded attend, which is not ported and raises; over one they do not
-    divide it falls back to the single-device decode, as the reference
-    does."""
-    monkeypatch.setattr(t_shard, "_device_count", lambda device: 2)
-    for slots, raises in ((4, True), (3, False)):
+    """With two devices, `shard=True` over a slot count they divide is the
+    sharded attend (no longer a NotImplementedError): one decode a shard,
+    equal to the single-device decode; over one they do not divide it
+    falls back to the single-device decode, as the reference does."""
+    calls = []
+    decode = T.decode_attention_batched
+    monkeypatch.setattr(T, "decode_attention_batched",
+                        lambda *a: calls.append(len(a[0])) or decode(*a))
+    for slots, shards in ((4, [2, 2]), (3, [3])):
         _, port, q = _serve_loops("pair", slots)
-        if raises:
-            with pytest.raises(NotImplementedError, match="Queue 1: the sharded attend"):
-                t_shard.shard_kv_attend(port.cache, _t(q), shard=True)
-        else:
-            assert torch.equal(
-                t_shard.shard_kv_attend(port.cache, _t(q), shard=True),
-                t_shard.shard_kv_attend(port.cache, _t(q), shard=False))
-        assert torch.equal(
-            t_shard.shard_kv_attend(port.cache, _t(q), shard="auto"),
-            t_shard.shard_kv_attend(port.cache, _t(q), shard=False))
+        single = t_shard.shard_kv_attend(port.cache, _t(q), shard=False)
+        for shard in (True, "auto"):
+            calls.clear()
+            got = t_shard.shard_kv_attend(port.cache, _t(q), shard=shard,
+                                          devices=["cpu"] * 2)
+            assert calls == shards
+            assert torch.equal(got, single)
+        calls.clear()
+        t_shard.shard_kv_attend(port.cache, _t(q), shard=False,
+                                devices=["cpu"] * 2)
+        assert calls == [slots]
+
+
+@pytest.mark.parametrize("packing", ["pair", "quad"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_attend_over_cpu_devices(packing, k):
+    """Slot shards on k CPU devices: bit-identical to the single-device
+    decode, and within the attention tolerance of the reference's
+    single-device attend."""
+    ref, port, q = _serve_loops(packing, 8)
+    single = t_shard.shard_kv_attend(port.cache, _t(q), shard=False)
+    got = t_shard.shard_kv_attend(port.cache, _t(q), devices=["cpu"] * k)
+    assert got.device == port.cache.device
+    assert torch.equal(got, single)
+    want = r_shard(ref.cache, q, shard=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -23,6 +23,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import repro_torch, repro_torch.launch.serve
+        # the multi-device runtime
+        import repro_torch.launch.mesh, repro_torch.runtime.sharding
+        import repro_torch.runtime.pipeline, repro_torch.runtime.elastic
+        import repro_torch.optim.grad_compress
         for mod in pkgutil.walk_packages(repro_torch.__path__,
                                          "repro_torch."):
             importlib.import_module(mod.name)
@@ -54,6 +58,10 @@ def _imports(path: pathlib.Path):
 def test_no_source_imports_jax_or_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 25
+    for name in ("launch/mesh.py", "runtime/sharding.py",
+                 "runtime/pipeline.py", "runtime/elastic.py",
+                 "optim/grad_compress.py"):
+        assert PKG / name in files, name
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -76,8 +84,27 @@ def test_entry_points_default_to_cuda():
                batchsim.sweep_workloads, init_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert serve.build_parser().parse_args([]).device == "cuda"
+    # the multi-device entries: a mesh on the card, devices from the cards
+    from repro_torch.device import device_list
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.elastic import Grid
+    from repro_torch.serving import shard_kv_attend
+    assert inspect.signature(make_host_mesh).parameters[
+        "device_type"].default == "cuda"
+    assert inspect.signature(Grid.build).parameters[
+        "device_type"].default == "cuda"
+    assert inspect.signature(device_list).parameters["device"].default == \
+        "cuda"
+    for fn in (batchsim.sweep, batchsim.sweep_workloads, shard_kv_attend):
+        assert inspect.signature(fn).parameters["devices"].default is None
     if torch.cuda.is_available():
         return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_list()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_list(["cpu", "cuda:0"], "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeLoop(slots=1, max_pages=4, page=4, n_kv=1, head_dim=8)
     with pytest.raises(RuntimeError, match="CUDA"):
