@@ -72,7 +72,18 @@ Phases, each of which makes the script exit non-zero when it fails:
      outputs and gradients torch.equal to the layers in sequence
      ("multi-device gpipe"); the train launcher's lm20m checkpoint
      restored and resharded onto the `shrink_mesh` grid, every local
-     shard equal to its leaf ("multi-device elastic"); then
+     shard equal to its leaf ("multi-device elastic"); and in the same
+     world the model cell (`launch/steps.py:build_cell`, placed by
+     `place_cell` on a (1, 1) ("data", "model") mesh): phi4-mini-3.8B at
+     its published width, `--seed` weights, train_4k (batch cut 256 ->
+     2), prefill_32k (32 -> 2, and 4 of 32 layers) and decode_32k (128
+     -> 8, a random 32,767-token prefix in the cache), each step under
+     `launch/hlo_analysis.py:analyze_step` (flops, collectives by type,
+     argument bytes a device holds beside HBM_BYTES) held against the
+     unsharded step on the same weights and inputs (loss and four leaves
+     within 1e-5 relative, logits within 1e-4, next tokens and written
+     cache rows torch.equal), then timed alone (wall, device time, busy
+     share, peak memory): "cell" lines; then
      the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -300,6 +311,9 @@ PATHS = {
     "multi_dp": (),
     "multi_gpipe": (),
     "multi_elastic": (),
+    # the model cell: its steps reach none of K1-K7 or E1 (the reference's
+    # model steps have no pallas_call)
+    "multi_cell": (),
 }
 
 
@@ -2872,6 +2886,226 @@ def elastic_phase(torch, device, ckpt_dir: str, card: str) -> dict:
     return {"step": step, "leaves": len(placed), "wall_s": wall}
 
 
+# the model cell: phi4-mini at full width on a (1, 1) mesh, each
+# STANDARD_SHAPE's batch cut to what one card holds, {cell: (batch,
+# layers or None for all)}; prefill_32k also cut to 4 of 32 layers (at 32
+# layers a 2 x 32,768 prefill is 1.4 M eager kernels and 45.7 s of device
+# time a run, and the phase runs it three times)
+CELL_ARCH, CELL_SEED = "phi4_mini_3_8b", 0
+CELL_CUTS = {"train_4k": (2, None), "prefill_32k": (2, 4),
+             "decode_32k": (8, None)}
+
+
+def _cell_fill_cache(torch, cache: dict, seed: int) -> None:
+    """A random prefix in every K/V leaf of a decode cache (placed or
+    plain), drawn layer by layer from one seeded generator of the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for j in sorted(cache):
+        for name in ("k", "v"):
+            leaf = cache[j]["attn"][name]
+            t = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+            for layer in t:
+                layer.normal_(generator=gen)
+
+
+def _device_ms_raw(torch, prof) -> float | None:
+    """The summed duration of a profile's device activities (kernels,
+    copies, sets), read from the raw kineto events: `key_averages` would
+    first build an event object for each of the ~10^5 kernels of a step
+    (a minute of host time)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda)
+    return total / 1e6 or None
+
+
+def _cell_timed(torch, fn, args) -> dict:
+    """One more call of a cell's step under torch.profiler: wall (to a
+    synchronise), device time, busy share, peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev = _device_ms_raw(torch, prof)
+    return {"wall_s": wall, "device_ms": dev,
+            "busy_share": None if dev is None else dev / (wall * 1e3),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _host(t):
+    """A copy of `t` on the host (a CPU tensor copied too)."""
+    return t.to("cpu", copy=True)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (float32, on the host)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def cell_phase(torch, device, card: str) -> dict:
+    """The model cell at phi4-mini-3.8B's full width on a (1, 1) mesh of
+    the world of one rank, for train_4k, prefill_32k and decode_32k at
+    the CELL_CUTS cuts: built by `build_cell` (FSDP placements), placed
+    by `place_cell` from CELL_SEED, run once under `analyze_step` and
+    held against the unsharded step, then timed alone; the cell and the
+    unsharded model never share the card.  The train step is the state's
+    first (as `adamw_init` makes it), whose rate is 0 under the warm-up:
+    the checked leaves are the four DP_CHECK parameters and their first
+    moments, m = 0.1 x clip scale x gradient (a first Adam step moves
+    each parameter by lr x sign(g), which would turn any reordered
+    gradient sum into +-lr)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.hlo_analysis import analyze_step, argument_bytes
+    from repro_torch.launch.mesh import HBM_BYTES, make_host_mesh
+    from repro_torch.launch.steps import (build_cell, make_prefill_step,
+                                          make_serve_step, place_cell)
+    from repro_torch.models import SHAPES_BY_NAME, ShapeSpec, build
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    full = configs.get(CELL_ARCH)
+    mesh = make_host_mesh(device_type=device.type)
+    out = {}
+    for name, (batch, layers) in CELL_CUTS.items():
+        cfg = full if layers is None else full.replace(n_layers=layers)
+        std = SHAPES_BY_NAME[name]
+        shape = ShapeSpec(name, std.seq_len, batch, std.kind)
+        b, s = batch, std.seq_len
+        rng = np.random.default_rng(31)
+        _free_card(torch)
+        walls = {}
+        t0 = time.perf_counter()
+        fn, specs, shards, _ = build_cell(cfg, shape, mesh)
+        held_spec = argument_bytes(specs, shards)
+        if shape.kind == "decode":
+            tok = rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32)
+            args = place_cell(fn, specs, shards, (tok, None, s - 1),
+                              seed=CELL_SEED, device=device)
+            _cell_fill_cache(torch, args[2], CELL_SEED)
+        else:
+            data = {k: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+                    for k in (("tokens", "labels") if shape.kind == "train"
+                              else ("tokens",))}
+            args = place_cell(fn, specs, shards, (data,), seed=CELL_SEED,
+                              device=device)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = analyze_step(fn, *args)
+        torch.cuda.synchronize()
+        analysed_s = time.perf_counter() - t0
+        stats = {k: r[k] for k in ("flops", "collectives", "argument_bytes")}
+        if shape.kind == "train":
+            st, m = r["out"]
+            got = {"loss": _host(m["loss"].detach()),
+                   **{k: _host(st.params[k].detach().full_tensor())
+                      for k in DP_CHECK},
+                   **{f"m {k}": _host(st.m[k].full_tensor())
+                      for k in DP_CHECK}}
+        elif shape.kind == "prefill":
+            got = {"logits": _host(r["out"].full_tensor())}
+        else:
+            nxt, cache = r["out"]
+            got = {"next": _host(nxt.full_tensor()),
+                   **{n: _host(cache["b0"]["attn"][n].to_local()[:, :, s - 1])
+                      for n in ("k", "v")}}
+        del r
+        walls["copy_s"] = time.perf_counter() - t0 - analysed_s
+        t1 = time.perf_counter()
+        timed = _cell_timed(torch, fn, args)
+        walls["timed_s"] = time.perf_counter() - t1
+        del fn, args, specs, shards
+        if shape.kind == "train":
+            del st, m
+        elif shape.kind == "decode":
+            del nxt, cache
+        _free_card(torch)
+        # the unsharded step on the same weights and inputs
+        t1 = time.perf_counter()
+        model = build(cfg, device=device, seed=CELL_SEED)
+        if shape.kind == "train":
+            state = adamw_init(model, cfg.optimizer_dtype)
+            state, m = make_train_step(model)(state, {
+                k: torch.from_numpy(v).to(device) for k, v in data.items()})
+            want = {"loss": _host(m["loss"].detach()),
+                    **{k: _host(state.params[k].detach()) for k in DP_CHECK},
+                    **{f"m {k}": _host(state.m[k]) for k in DP_CHECK}}
+            del state, m
+        elif shape.kind == "prefill":
+            want = {"logits": _host(make_prefill_step(model)(
+                {"tokens": torch.from_numpy(data["tokens"]).to(device)}))}
+        else:
+            cache = model.init_cache(b, s)
+            _cell_fill_cache(torch, cache, CELL_SEED)
+            nxt, cache = make_serve_step(model)(
+                torch.from_numpy(tok).to(device), cache, s - 1)
+            want = {"next": _host(nxt),
+                    **{n: _host(cache["b0"]["attn"][n][:, :, s - 1])
+                       for n in ("k", "v")}}
+            del cache, nxt
+        del model
+        _free_card(torch)
+        walls["unsharded_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if shape.kind == "decode":
+            diff = {k: float((got[k].float() - want[k].float()).abs().max())
+                    for k in got}
+            ok = all(torch.equal(got[k], want[k]) for k in got)
+            rule = "torch.equal"
+        else:
+            diff = {k: _rel(got[k], want[k]) for k in got}
+            tol = 1e-5 if shape.kind == "train" else 1e-4
+            ok = all(d <= tol for d in diff.values())
+            rule = f"within {tol:g} relative"
+        if not ok:
+            fail(f"cell {name}: the cell's step differs from the unsharded "
+                 f"step: {diff}")
+        walls["check_s"] = time.perf_counter() - t1
+        for k, v in got.items():
+            if v.is_floating_point() and not torch.isfinite(v).all():
+                fail(f"cell {name}: non-finite {k}")
+        depth = (f"{cfg.n_layers} layers" if layers is None else
+                 f"{cfg.n_layers} of {full.n_layers} layers (depth cut)")
+        print(f"cell {name}: {CELL_ARCH} full width ({depth}, d "
+              f"{cfg.d_model}, vocab {cfg.vocab}), mesh (1, 1) ('data', "
+              f"'model'), FSDP placements; batch cut {std.global_batch} -> "
+              f"{b} sequences of {s}; placed in {place_s:.2f} s; held "
+              f"against the unsharded step: {rule}, largest difference "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diff.items())
+              + f"; card {card}")
+        c = stats["collectives"]
+        dev = timed["device_ms"]
+        print(f"cell {name}: step wall {timed['wall_s']:.3f} s (under the "
+              f"profiler), device {dev if dev is None else round(dev, 1)} ms, "
+              f"busy share {timed['busy_share']}, peak memory "
+              f"{timed['peak_gb']:.2f} GB; the analysed run {analysed_s:.3f} "
+              f"s; the phase's other walls: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in walls.items()) + f"; card {card}")
+        print(f"cell {name}: analyze_step flops {stats['flops']:.6g} "
+              f"(one device); collectives {c['total_ops']} ops, "
+              f"{c['total_bytes']} B: counts {c['counts_by_type']}, bytes "
+              f"{c['bytes_by_type']}; argument bytes a device holds "
+              f"{stats['argument_bytes']} ({held_spec} from the specs), "
+              f"{stats['argument_bytes'] / HBM_BYTES:.4f} of HBM_BYTES "
+              f"{HBM_BYTES}; card {card}")
+        if stats["argument_bytes"] != held_spec:
+            fail(f"cell {name}: {stats['argument_bytes']} argument bytes "
+                 f"placed, {held_spec} by the specs")
+        out[name] = {"batch": b, "seq": s, "layers": cfg.n_layers,
+                     "cut_from": std.global_batch, "diff": diff,
+                     "place_s": place_s, "analysed_s": analysed_s,
+                     "walls": walls, **timed, **stats}
+    return out
+
+
 def _check_engine_scan(torch, label, args, kw, outs):
     """A recorded E1 launch replayed from its input carry over its first
     SIM_REPLAY_EVENTS events, by the plain version and by E1 again: every
@@ -3771,8 +4005,12 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
                                lambda: gpipe_phase(torch, device, card))
         multi["elastic"] = drive("multi_elastic", lambda: elastic_phase(
             torch, device, ckpt_dir, card))
+        print(f"multi-device collectives: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        multi["cell"] = drive("multi_cell",
+                              lambda: cell_phase(torch, device, card))
+        print(f"cell: {time.perf_counter() - t0:.1f} s")
     _free_card(torch)
-    print(f"multi-device collectives: {time.perf_counter() - t0:.1f} s")
 
     reports = {}
     launchers = {

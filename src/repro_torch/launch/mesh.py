@@ -5,8 +5,11 @@ the initialised process group, one rank a device.  Building one touches
 the world only when a function is called, never at import.
 
 Target hardware: NVIDIA H100 80GB HBM3 (SXM, 700 W), NVIDIA's H100 data
-sheet, dense rates without sparsity.  The production mesh of H100 nodes
-(`make_production_mesh`) comes with the sharded model step.
+sheet, dense rates without sparsity.  The production meshes keep the
+reference's chip counts (256 and 512: 16 x 16 and 2 x 16 x 16 TPU v5e
+chips) and put the "model" axis inside one 8-card H100 node, so that
+tensor parallelism stays on NVLink: (32, 8) ("data", "model") and
+(2, 32, 8) ("pod", "data", "model").
 """
 
 from __future__ import annotations
@@ -22,18 +25,45 @@ NVLINK_BW = 450e9          # bytes/s per card and direction (900 GB/s NVLink
                            # 4 total, H100 SXM data sheet)
 
 
+PRODUCTION_MESHES = {False: ((32, 8), ("data", "model")),
+                     True: ((2, 32, 8), ("pod", "data", "model"))}
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    return dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The (32, 8) ("data", "model") mesh of 256 cards, or with
+    `multi_pod` the (2, 32, 8) ("pod", "data", "model") mesh of 512,
+    over the initialised world, which must hold exactly that many ranks
+    (a real one, or torch's fake process group for a dry run on the
+    CPU)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    resolve_device(device_type)
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    world = _world()
+    if world != math.prod(shape):
+        raise ValueError(f"the {shape} mesh needs a world of "
+                         f"{math.prod(shape)} ranks, not {world}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
 def make_host_mesh(model: int = 1, *, device_type: str = "cuda"):
     """A (world // model, model) mesh named ("data", "model") over every
     rank of the initialised world, on the card ("cuda", the default) or
     the CPU ("cpu")."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     resolve_device(device_type)
-    if not dist.is_initialized():
-        raise RuntimeError("make_host_mesh needs an initialised process "
-                           "group (torch.distributed.init_process_group)")
-    world = dist.get_world_size()
+    world = _world()
     if model < 1 or world % model:
         raise ValueError(f"a model axis of {model} does not divide the "
                          f"world of {world} ranks")

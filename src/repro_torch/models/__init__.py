@@ -6,9 +6,13 @@ from .common import ModelConfig, smoke_config
 from .transformer import (DecoderLM, init_cache, init_lm, init_lm_reference,
                           lm_decode_step, lm_forward, lm_loss)
 from .whisper import Whisper, init_whisper
-from .zoo import active_params, build, count_params, param_axes
+from .zoo import (SHAPES_BY_NAME, STANDARD_SHAPES, ShapeSpec,
+                  abstract_params, active_params, build, cache_specs,
+                  count_params, input_specs, param_axes)
 
-__all__ = ["ModelConfig", "DecoderLM", "Whisper", "active_params", "build",
-           "count_params", "init_cache", "init_lm", "init_lm_reference",
-           "init_whisper", "lm_decode_step", "lm_forward", "lm_loss",
-           "param_axes", "smoke_config"]
+__all__ = ["ModelConfig", "DecoderLM", "SHAPES_BY_NAME", "STANDARD_SHAPES",
+           "ShapeSpec", "Whisper", "abstract_params", "active_params",
+           "build", "cache_specs", "count_params", "init_cache", "init_lm",
+           "init_lm_reference", "init_whisper", "input_specs",
+           "lm_decode_step", "lm_forward", "lm_loss", "param_axes",
+           "smoke_config"]

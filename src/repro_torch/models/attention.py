@@ -13,6 +13,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.sharding import (constrain, from_local_at, is_dtensor,
+                                matmul, replicated_like, target_placements,
+                                to_local_at)
 from .layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
@@ -32,9 +35,10 @@ def _block_attend(q, k, v, bias):
     return m, l, o.to(torch.float32)
 
 
-def _q_chunk(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
+def _q_chunk_state(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
     """One q-chunk against every k-chunk: qc (B,Hq,qc,D) scaled, kb/vb
-    (nk,B,kc,Hkv,D), qpos (qc,), k_pos (nk,kc) -> (B,Hq,qc,D) float32."""
+    (nk,B,kc,Hkv,D), qpos (qc,), k_pos (nk,kc) -> the online softmax's
+    (m, l, o) float32; `_q_chunk` normalises o by l."""
     b, hq, q_chunk, d = qc.shape
     g = hq // kb.shape[3]
     dev = qc.device
@@ -62,16 +66,24 @@ def _q_chunk(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
         l = l * alpha + bl * beta
         o = o * alpha[..., None] + bo * beta[..., None]
         m = m_new
+    return m, l, o
+
+
+def _q_chunk(*args):
+    m, l, o = _q_chunk_state(*args)
     return o / torch.clamp(l, min=1e-30)[..., None]
 
 
 def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
                         q_chunk: int = 512, k_chunk: int = 1024,
-                        kv_length=None):
+                        kv_length=None, state: bool = False):
     """q: (B,S,Hq,D), k/v: (B,T,Hkv,D) -> (B,S,Hq,D) in q's dtype.
     `kv_length` is the valid KV prefix length (decode against a
     preallocated cache).  Under autograd each q-chunk is recomputed in
-    backward."""
+    backward.  With `state` (one q-chunk, no autograd): the online
+    softmax's (m, l, o), (B,Hq,S) / (B,Hq,S) / (B,Hq,S,D) float32, not
+    yet normalised (a decode whose cache is split over ranks combines
+    them)."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     assert hq % hkv == 0
@@ -85,6 +97,10 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
     vb = v.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
     q_pos = torch.arange(s, device=dev).reshape(nq, q_chunk) + q_offset
     k_pos = torch.arange(t, device=dev).reshape(nk, k_chunk) + k_offset
+    if state:
+        assert nq == 1, "state=True takes one q-chunk"
+        return _q_chunk_state(qb[0], kb, vb, q_pos[0], k_pos, causal,
+                              kv_length)
     remat = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     outs = []
@@ -134,13 +150,95 @@ def _project(p, cfg, x, kv_src):
     hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     kv_dt = torch.promote_types(kv_src.dtype, x.dtype)
     kv_src = kv_src.to(kv_dt)
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (kv_src @ p["wk"].to(kv_dt)).reshape(b, t, hkv, hd)
-    v = (kv_src @ p["wv"].to(kv_dt)).reshape(b, t, hkv, hd)
+    # `matmul`: on a mesh the sequence shards are gathered first
+    # (Megatron-SP)
+    q = matmul(x, p["wq"]).reshape(b, s, hq, hd)
+    k = matmul(kv_src, p["wk"].to(kv_dt)).reshape(b, t, hkv, hd)
+    v = matmul(kv_src, p["wv"].to(kv_dt)).reshape(b, t, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     return q, k, v
+
+
+def _core_layout(q, k) -> tuple:
+    """The placements the attention core runs at on a mesh: the batch as
+    the rules shard it, the sequence whole, and the heads of q and of k/v
+    on "model" where both divide it (else whole), so that each rank's q
+    heads meet their own KV heads; the layout `cfg.attn_gather` names."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    tq = target_placements(q, ("batch", None, "heads", None))
+    tk = target_placements(k, ("batch", None, "kv_heads", None))
+    if tq != tk:
+        tq = tk = tuple(Replicate() if isinstance(p, Shard) and p.dim == 2
+                        else p for p in tq)
+    return tq
+
+
+def _attend(q, k, v, cfg, *, causal: bool):
+    """Blockwise attention of q/k/v, on their local shards at
+    `_core_layout` when they are DTensors."""
+    at = _core_layout(q, k) if is_dtensor(q) else None
+    out = blockwise_attention(to_local_at(q, at), to_local_at(k, at),
+                              to_local_at(v, at), causal=causal,
+                              q_chunk=cfg.attn_q_chunk,
+                              k_chunk=cfg.attn_k_chunk)
+    return from_local_at(out, q, at)
+
+
+def decode_on_shards(q, k, v, cache, index: int, k_chunk: int,
+                     length: int | None = None):
+    """The decode step's cache write and attention when the cache
+    {k, v} (B,T,Hkv,hd) is a DTensor, possibly split on T: the new K/V
+    row (k, v: (B,1,Hkv,hd), or None to attend without writing, as
+    whisper's cross K/V) is written on the rank whose shard holds `index`
+    (through `to_local()`), each rank attends its own shard's part of the
+    valid prefix (`length`, by default index + 1), and the ranks that
+    split T combine their online-softmax states (a max and two sums over
+    each such mesh dim).  q (B,1,Hq,hd); returns (B,1,Hq,hd) at q's
+    dtype, placed as the cache (T whole)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    kc, vc = cache["k"], cache["v"]
+    mesh, pl = kc.device_mesh, kc.placements
+    seq = [i for i, p in enumerate(pl)
+           if isinstance(p, Shard) and p.dim == 1 and mesh.size(i) > 1]
+    at = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in pl)
+    ql = to_local_at(q, at)
+    kcl, vcl = kc.to_local(), vc.to_local()
+    _, off = compute_local_shape_and_global_offset(kc.shape, mesh, pl)
+    t0, tl, s = off[1], kcl.shape[1], q.shape[1]
+    if k is not None:
+        kl, vl = to_local_at(k, at), to_local_at(v, at)
+        lo, hi = max(index, t0), min(index + s, t0 + tl)
+        if lo < hi:
+            kcl[:, lo - t0:hi - t0] = kl[:, lo - index:hi - index]
+            vcl[:, lo - t0:hi - t0] = vl[:, lo - index:hi - index]
+    length = index + s if length is None else length
+    m, l, o = blockwise_attention(ql, kcl, vcl, causal=False, q_chunk=1,
+                                  k_chunk=min(k_chunk, tl),
+                                  kv_length=length - t0, state=True)
+    for i in seq:
+        group = mesh.get_group(i)
+        top = funcol.all_reduce(m, "max", group)
+        w = torch.exp(m - top)
+        l = funcol.all_reduce(l * w, "sum", group)
+        o = funcol.all_reduce(o * w[..., None], "sum", group)
+        m = top
+    out = (o / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3)
+    return from_local_at(out.to(q.dtype), q, at)
+
+
+def _out_proj(out, p, cfg):
+    """(B, S, Hq, hd) -> the block output (B, S, D) through wo (the rows
+    made safe to flatten on a mesh, as in `_project`)."""
+    b, s = out.shape[:2]
+    return matmul(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
 
 
 def cross_attention(p, cfg, x, kv_x=None):
@@ -152,10 +250,8 @@ def cross_attention(p, cfg, x, kv_x=None):
     Returns (B, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project(p, cfg, x, x if kv_x is None else kv_x)
-    out = blockwise_attention(q, k, v, causal=False,
-                              q_chunk=cfg.attn_q_chunk,
-                              k_chunk=cfg.attn_k_chunk)
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = _attend(q, k, v, cfg, causal=False)
+    return _out_proj(out, p, cfg)
 
 
 def attention_apply(p, cfg, x, *, positions=None, cache=None,
@@ -167,22 +263,33 @@ def attention_apply(p, cfg, x, *, positions=None, cache=None,
     (training and prefill).  With a cache {k, v}: (B,T,Hkv,hd), the
     decode path: the cache is updated in place at `cache_index` (the
     reference returns a new cache) and the query attends its valid
-    prefix.  Returns the block output (B,S,D)."""
+    prefix.  On a mesh (DTensor activations and weights) the attention
+    core runs on local shards: `_attend`, and `decode_on_shards` for a
+    cache split over ranks.  Returns the block output (B,S,D)."""
     b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = replicated_like(torch.arange(s, device=x.device)[None, :],
+                                    x)
     q, k, v = _project(p, cfg, x, x)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is None and cfg.attn_gather:
+        # Megatron-SP: one explicit seq gather here; the blockwise chunks
+        # then slice locally (heads stay model-sharded)
+        q = constrain(q, ("batch", None, "heads", None))
+        k = constrain(k, ("batch", None, "kv_heads", None))
+        v = constrain(v, ("batch", None, "kv_heads", None))
     if cache is None:
-        out = blockwise_attention(q, k, v, causal=True,
-                                  q_chunk=cfg.attn_q_chunk,
-                                  k_chunk=cfg.attn_k_chunk)
-        return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+        out = _attend(q, k, v, cfg, causal=True)
+        return _out_proj(out, p, cfg)
+    if is_dtensor(cache["k"]):
+        out = decode_on_shards(q, k, v, cache, cache_index,
+                               cfg.attn_k_chunk)
+        return _out_proj(out, p, cfg)
     cache["k"][:, cache_index:cache_index + s] = k
     cache["v"][:, cache_index:cache_index + s] = v
     out = chunked_decode_attention(
         q[:, 0], cache["k"], cache["v"], length=cache_index + s,
         k_chunk=cfg.attn_k_chunk)[:, None]
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    return _out_proj(out, p, cfg)

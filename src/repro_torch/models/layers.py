@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.sharding import matmul, replicated_like, seq_whole, whole_dim
+
 
 def rms_norm(x, weight, eps: float = 1e-6):
     dt = x.dtype
@@ -36,7 +38,7 @@ def rope_freqs(head_dim: int, theta: float, device):
 def apply_rope(x, positions, theta: float = 10_000.0):
     """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+    freqs = replicated_like(rope_freqs(hd, theta, x.device), x)
     angles = positions[..., :, None].to(torch.float32) * freqs
     angles = angles[..., None, :]                      # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -60,16 +62,17 @@ def sinusoidal_positions(seq: int, dim: int, device="cpu"):
 
 def mlp_apply(p: dict, x, act: str):
     """SwiGLU (w1, w3, w2), squared-ReLU (w1, w2) or GELU (w1, w2); `p`
-    holds the weights already in x's dtype."""
+    holds the weights already in x's dtype.  On a mesh the sequence
+    shards of a (B, S, D) x are gathered first (`matmul`)."""
     if act == "swiglu":
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        h = F.silu(matmul(x, p["w1"])) * matmul(x, p["w3"])
     elif act == "relu2":
-        h = torch.square(F.relu(x @ p["w1"]))
+        h = torch.square(F.relu(matmul(x, p["w1"])))
     elif act == "gelu":
-        h = F.gelu(x @ p["w1"], approximate="tanh")
+        h = F.gelu(matmul(x, p["w1"]), approximate="tanh")
     else:
         raise ValueError(f"unknown mlp_act {act!r}")
-    return h @ p["w2"]
+    return matmul(h, p["w2"])
 
 
 # each weight's logical axes, as the reference's init names them
@@ -86,7 +89,10 @@ def mlp_init(ini, d_model: int, d_ff: int, act: str) -> dict:
 
 def _xent_chunk(hc, yc, mc, wt):
     """One chunk's summed NLL and label count, float32."""
-    logits = (hc @ wt.T).to(torch.float32)              # (B, c, V)
+    logits = matmul(hc, wt.T).to(torch.float32)         # (B, c, V)
+    # on a mesh: DTensor's gather along a sharded vocab masks the wrong
+    # rows, so the chunk's logits are gathered whole on the vocab first
+    logits = whole_dim(logits, -1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
@@ -104,16 +110,18 @@ def chunked_softmax_xent(h, embed, labels, chunk: int = 512,
     sums run in float32 in the reference's order: chunk by chunk, then
     the remainder."""
     b, s, _ = h.shape
+    h = seq_whole(h)
     chunk = min(chunk, s)
     n_chunks = s // chunk
     wt = embed.to(h.dtype)
     if label_mask is None:
-        label_mask = torch.ones(labels.shape, dtype=torch.float32,
-                                device=h.device)
+        label_mask = replicated_like(torch.ones(
+            labels.shape, dtype=torch.float32, device=h.device), h)
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
     if s > n_chunks * chunk:
         bounds.append((n_chunks * chunk, s))
-    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    tot = cnt = replicated_like(torch.zeros((), dtype=torch.float32,
+                                            device=h.device), h)
     for lo, hi in bounds:
         sl = (slice(None), slice(lo, hi))
         nll, n = checkpoint(_xent_chunk, h[sl], labels[sl], label_mask[sl],

@@ -42,6 +42,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..runtime.sharding import (batch_only, constrain, from_local_at,
+                                is_dtensor, reduce_partial, replicated,
+                                replicated_like, to_local_at)
 from .attention import (ATTENTION_AXES, attention_apply, attention_init,
                         cross_attention)
 from .common import Initializer, ModelConfig
@@ -115,19 +118,26 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator | None,
     one, the SSM's constants and the cross gate at the reference's
     values), one layer at a time.  On the "meta" device: the shapes
     only."""
+    return dict(iter_lm(cfg, generator, device))
+
+
+def iter_lm(cfg: ModelConfig, generator: torch.Generator | None,
+            device="cuda"):
+    """`init_lm`'s (name, tensor) pairs in its order, drawn one layer at a
+    time as they are asked for (placing a model on a mesh keeps each
+    rank's shard of a layer and lets the rest go)."""
     ini = Initializer(generator, resolve_device(device), cfg.param_dtype)
     spec = super_block_spec(cfg)
     per = len([k for k in spec if k != "shared"])
-    params = {"embed": ini.normal((cfg.vocab, cfg.d_model), scale=0.02),
-              "final_ln": ini.ones((cfg.d_model,))}
+    yield "embed", ini.normal((cfg.vocab, cfg.d_model), scale=0.02)
+    yield "final_ln", ini.ones((cfg.d_model,))
     for s in range(n_supers(cfg)):
         for j, kind in enumerate(spec):
             if kind != "shared":
-                params.update(_prefixed(f"blocks.{s * per + j}",
-                                        _block_init(ini, cfg, kind)))
+                yield from _prefixed(f"blocks.{s * per + j}",
+                                     _block_init(ini, cfg, kind)).items()
     if "shared" in spec:
-        params.update(_prefixed("shared", _block_init(ini, cfg, "dense")))
-    return params
+        yield from _prefixed("shared", _block_init(ini, cfg, "dense")).items()
 
 
 def init_lm_reference(cfg: ModelConfig, seed: int,
@@ -260,7 +270,8 @@ class DecoderLM(nn.Module):
         """The weights the decode step reads, in the compute dtype (the
         parameters themselves where `param_dtype` is the compute dtype):
         cast once and kept until a parameter changes in place."""
-        versions = tuple(p._version for p in self.parameters())
+        versions = tuple((p.to_local() if is_dtensor(p) else p)._version
+                         for p in self.parameters())
         if self._decode is None or self._decode[0] != versions:
             self._decode = None
             dt = self.config.dtype
@@ -284,9 +295,12 @@ class DecoderLM(nn.Module):
         if kind == "ssm":
             h = rms_norm(x, w["ln1"])
             if cache is None:
-                return x + ssm_apply(w["ssm"], cfg, h), None
+                return x + _on_shards(lambda wl, hl: ssm_apply(wl, cfg, hl),
+                                      w["ssm"], h), None
             state = {k: v[s] for k, v in cache["ssm"].items()}
-            return x + ssm_decode_step(w["ssm"], cfg, h, state), None
+            if not is_dtensor(state["h"]):
+                return x + ssm_decode_step(w["ssm"], cfg, h, state), None
+            return x + _ssm_decode_on_shards(w["ssm"], cfg, h, state), None
         if kind == "cross":
             h = cross_attention(w["xattn"], cfg, rms_norm(x, w["ln1"]),
                                 kv_x=image_embeds)
@@ -301,7 +315,8 @@ class DecoderLM(nn.Module):
                                 cache_index=index)
         h2 = rms_norm(x, w["ln2"])
         if kind == "moe":
-            y, aux = moe_apply(w["moe"], cfg, h2)
+            y, aux = _on_shards(lambda wl, hl: moe_apply(wl, cfg, hl),
+                                w["moe"], h2, whole=True)
             return x + y, aux
         return x + mlp_apply(w["mlp"], h2, cfg.mlp_act), None
 
@@ -319,7 +334,7 @@ class DecoderLM(nn.Module):
                                image_embeds=image_embeds)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return constrain(x, ("batch", "seq", "embed")), aux
 
     def _inputs(self, batch: dict):
         dev = self.embed.device
@@ -343,8 +358,12 @@ class DecoderLM(nn.Module):
         # F.embedding: its gradient sums a repeated token's rows in a
         # fixed order (indexing's would scatter-add them)
         x = F.embedding(tokens, self.embed.to(cfg.dtype))
-        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # on a mesh: the lookup in a vocab-sharded table is partial
+        x = constrain(reduce_partial(x), ("batch", "seq", "embed"))
+        positions = replicated_like(
+            torch.arange(tokens.shape[1], device=x.device)[None, :], x)
+        aux = replicated_like(
+            torch.zeros((), dtype=torch.float32, device=x.device), x)
         remat = cfg.remat and torch.is_grad_enabled()
         for s in range(n_supers(cfg)):
             body = functools.partial(self._super, s, positions=positions,
@@ -379,9 +398,14 @@ class DecoderLM(nn.Module):
         cfg = self.config
         wts = self.decode_weights()
         emb = wts["embed"]
-        x = emb[token]                                   # (B, 1, D)
-        positions = torch.full((1, 1), index, dtype=torch.int64,
-                               device=x.device)
+        if is_dtensor(token):
+            # DTensor's lookup of batch-sharded ids in a table sharded on
+            # other mesh dims masks the wrong rows: the B ids go whole
+            token = token.redistribute(token.device_mesh,
+                                       replicated(token))
+        x = reduce_partial(F.embedding(token, emb))     # (B, 1, D)
+        positions = replicated_like(torch.full(
+            (1, 1), index, dtype=torch.int64, device=x.device), x)
         if image_embeds is not None:
             image_embeds = image_embeds.to(cfg.dtype)
         for s in range(n_supers(cfg)):
@@ -395,6 +419,51 @@ class DecoderLM(nn.Module):
                                    cache=cache[f"b{j}"], s=s, index=index)
         x = rms_norm(x, self.final_ln)
         return logits_last(x[:, 0], emb)
+
+
+def _on_shards(fn, weights: dict, x, *, whole: bool = False, like=None):
+    """fn(weights, x) on local tensors when x is a DTensor: the weights
+    gathered whole, x with its batch shard kept (`whole`: gathered whole
+    too, as the MoE's capacity counts every token of the batch; `like`: at
+    the batch shard of that DTensor instead of x's); the outputs come back
+    as DTensors at x's local placements.  A plain x: fn itself."""
+    if not is_dtensor(x):
+        return fn(weights, x)
+    at = (replicated(x) if whole else
+          batch_only(x if like is None else like))
+    out = fn(_whole_locals(weights), to_local_at(x, at))
+    if isinstance(out, tuple):
+        return tuple(from_local_at(o, x, at if o.dim() else replicated(x))
+                     for o in out)
+    return from_local_at(out, x, at)
+
+
+def _ssm_decode_on_shards(w: dict, cfg, h, state: dict):
+    """The SSM decode step on a mesh: each state leaf of this layer (the
+    conv contexts and h, O(1) a sequence) gathered whole but for its batch
+    shard, the step run on local tensors (writing those copies), and each
+    rank's shard of the new state written back into the cache through
+    `to_local()`."""
+    from torch.distributed.tensor import DTensor
+
+    at = {k: batch_only(v) for k, v in state.items()}
+    local = {k: to_local_at(v, at[k]).clone() for k, v in state.items()}
+    y = _on_shards(lambda wl, hl: ssm_decode_step(wl, cfg, hl, local), w, h,
+                   like=state["h"])
+    for k, v in state.items():
+        new = DTensor.from_local(local[k], v.device_mesh, at[k],
+                                 run_check=False, shape=v.shape,
+                                 stride=v.stride())
+        v.to_local().copy_(new.redistribute(v.device_mesh,
+                                            v.placements).to_local())
+    return y
+
+
+def _whole_locals(tree):
+    """Every DTensor of a nested dict gathered whole, as a local tensor."""
+    if isinstance(tree, dict):
+        return {k: _whole_locals(v) for k, v in tree.items()}
+    return to_local_at(tree, replicated(tree)) if is_dtensor(tree) else tree
 
 
 def lm_forward(model: DecoderLM, tokens, image_embeds=None):

@@ -37,8 +37,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..runtime.sharding import (is_dtensor, matmul, reduce_partial,
+                                replicated, replicated_like)
 from .attention import (ATTENTION_AXES, attention_apply, attention_init,
-                        chunked_decode_attention, cross_attention)
+                        chunked_decode_attention, cross_attention,
+                        decode_on_shards)
 from .common import ModelConfig
 from .layers import (MLP_AXES, chunked_softmax_xent, layer_norm,
                      logits_last, mlp_apply, mlp_init, sinusoidal_positions)
@@ -207,8 +210,8 @@ class Whisper(nn.Module):
         the compute dtype."""
         cfg = self.config
         x = frames.to(cfg.dtype)
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                     x.device).to(x.dtype)
+        x = x + replicated_like(sinusoidal_positions(
+            x.shape[1], cfg.d_model, x.device), x).to(x.dtype)
         for tree in self.enc.blocks:
             body = functools.partial(self._enc_block, tree)
             x = (checkpoint(body, x, use_reentrant=False) if self._remat()
@@ -221,7 +224,8 @@ class Whisper(nn.Module):
         cfg = self.config
         # F.embedding: its gradient sums a repeated token's rows in a
         # fixed order (indexing's would scatter-add them)
-        x = F.embedding(tokens, self.embed.to(cfg.dtype))
+        # on a mesh: the lookup in a vocab-sharded table is partial
+        x = reduce_partial(F.embedding(tokens, self.embed.to(cfg.dtype)))
         x = x + self.pos_dec[:tokens.shape[1]].to(x.dtype)[None]
         for tree in self.dec.blocks:
             body = functools.partial(self._dec_block, tree)
@@ -262,7 +266,8 @@ class Whisper(nn.Module):
         """The weights the decode step reads, in the compute dtype (the
         norms and `pos_dec` in param_dtype, cast at use): cast once and
         kept until a parameter changes in place."""
-        versions = tuple(p._version for p in self.parameters())
+        versions = tuple((p.to_local() if is_dtensor(p) else p)._version
+                         for p in self.parameters())
         if self._decode is None or self._decode[0] != versions:
             self._decode = None
             dt = self.config.dtype
@@ -303,6 +308,8 @@ class Whisper(nn.Module):
         in place) -> logits (B, V) float32."""
         cfg = self.config
         wts = self.decode_weights()
+        if is_dtensor(cache["k"]):
+            return self._decode_on_mesh(wts, token, cache, index)
         b = token.shape[0]
         hd, hkv, hq = cfg.hd, cfg.n_kv_heads, cfg.n_heads
         x = wts["embed"][token]                              # (B, 1, D)
@@ -329,6 +336,40 @@ class Whisper(nn.Module):
             x = x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
         x = _ln(x, wts["ln"])
         return logits_last(x[:, 0], wts["embed"])
+
+    def _decode_on_mesh(self, wts, token, cache: dict, index: int):
+        """`decode_step` with DTensor weights and cache: the token ids
+        whole, the self K/V written and attended through
+        `decode_on_shards`, the cross K/V attended the same way without a
+        write."""
+        cfg = self.config
+        b = token.shape[0]
+        hd, hkv, hq = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+        emb = wts["embed"]
+        if is_dtensor(token):
+            token = token.redistribute(token.device_mesh,
+                                       replicated(token))
+        x = reduce_partial(F.embedding(token, emb))         # (B, 1, D)
+        x = x + wts["pos_dec"][index].to(x.dtype)
+        for i, w in enumerate(wts["blocks"]):
+            h = _ln(x, w["ln1"])
+            q = matmul(h, w["self"]["wq"]).reshape(b, 1, hq, hd)
+            k = matmul(h, w["self"]["wk"]).reshape(b, 1, hkv, hd)
+            v = matmul(h, w["self"]["wv"]).reshape(b, 1, hkv, hd)
+            a = decode_on_shards(q, k, v, {"k": cache["k"][i],
+                                           "v": cache["v"][i]},
+                                 index, cfg.attn_k_chunk)
+            x = x + matmul(a.reshape(b, 1, hq * hd), w["self"]["wo"])
+            h = _ln(x, w["ln2"])
+            q = matmul(h, w["cross"]["wq"]).reshape(b, 1, hq, hd)
+            xk = cache["xk"][i]
+            a = decode_on_shards(q, None, None, {"k": xk,
+                                                 "v": cache["xv"][i]},
+                                 0, cfg.attn_k_chunk, length=xk.shape[1])
+            x = x + matmul(a.reshape(b, 1, hq * hd), w["cross"]["wo"])
+            x = x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
+        x = _ln(x, wts["ln"])
+        return logits_last(x[:, 0], emb)
 
 
 def encode(model: Whisper, frames):

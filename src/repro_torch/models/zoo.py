@@ -1,6 +1,8 @@
-"""Model construction and analytic parameter counts (port of
-`repro.models.zoo`: `build`, `count_params`, `active_params`, and
-`param_axes`, the logical axes of `abstract_params`).  The
+"""Model construction, the cells' shapes and analytic parameter counts
+(port of `repro.models.zoo`: `build`, `ShapeSpec` and `STANDARD_SHAPES`,
+`abstract_params` and `param_axes`, `input_specs` and `cache_specs`,
+`count_params`, `active_params`).  Shapes come as tensors on the "meta"
+device, the port's `jax.ShapeDtypeStruct`: they allocate nothing.  The
 reference's `Model` bundles the config with `init`, `loss`, `forward`,
 `init_cache` and `decode_step`; here `build` returns a `DecoderLM` (the
 decoder families) or a `Whisper` (encdec), which holds its weights and
@@ -8,13 +10,36 @@ has `loss(batch)`, `forward(batch)`, `init_cache` and `decode_step`."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ..device import resolve_device
 from .common import ModelConfig
-from .transformer import DecoderLM, init_lm, lm_param_axes
-from .whisper import (Whisper, init_whisper, whisper_param_axes,
-                      whisper_shapes)
+from .transformer import DecoderLM, init_cache, init_lm, lm_param_axes
+from .whisper import (Whisper, init_whisper, whisper_init_cache,
+                      whisper_param_axes, whisper_shapes)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+STANDARD_SHAPES = (
+    ShapeSpec("train_4k", 4_096, 256, "train"),
+    ShapeSpec("prefill_32k", 32_768, 32, "prefill"),  # forward-only
+    ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    ShapeSpec("long_500k", 524_288, 1, "decode"),
+)
+SHAPES_BY_NAME = {s.name: s for s in STANDARD_SHAPES}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def build(cfg: ModelConfig, *, device="cuda", seed: int = 0,
@@ -57,6 +82,52 @@ def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
     axis, keyed as the port's state dict), for the sharding rules."""
     return (whisper_param_axes(cfg) if cfg.family == "encdec"
             else lm_param_axes(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(state dict of meta tensors, `param_axes(cfg)`): the reference's
+    `Model.abstract_params()` as a function, keyed as the port's state
+    dict (one tensor a layer).  Allocates nothing, so the 123B and 400B
+    configs build on any host."""
+    if cfg.family == "encdec":
+        shapes = {k: _meta(v, cfg.param_dtype)
+                  for k, v in whisper_shapes(cfg).items()}
+    else:
+        shapes = init_lm(cfg, None, "meta")
+    return shapes, param_axes(cfg)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors standing in for every model input of this cell, with
+    the reference's keys, shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _meta((b, s), i32)}
+        if shape.kind == "train":
+            batch["labels"] = _meta((b, s), i32)
+        if cfg.family == "encdec":
+            # the decoder teacher-forced over S, the encoder over S frames
+            batch["frames"] = _meta((b, s, cfg.d_model), cfg.dtype)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = _meta((b, cfg.n_image_tokens,
+                                           cfg.d_model), cfg.dtype)
+        return batch
+    # decode: one new token against a seq_len cache
+    spec = {"token": _meta((b, 1), i32), "index": _meta((), i32)}
+    if cfg.family == "vlm":
+        spec["image_embeds"] = _meta((b, cfg.n_image_tokens, cfg.d_model),
+                                     cfg.dtype)
+    return spec
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The decode cache of this cell as meta tensors (the model's
+    `init_cache(global_batch, seq_len)`)."""
+    if cfg.family == "encdec":
+        return whisper_init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  device="meta")
+    return init_cache(cfg, shape.global_batch, shape.seq_len, "meta")
 
 
 def _mlp(cfg: ModelConfig, d_ff: int) -> int:

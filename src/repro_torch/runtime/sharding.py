@@ -12,11 +12,20 @@ A spec is `PartitionSpec`, a tuple with one entry per leading dim (None,
 an axis name, or a tuple of axis names) that equals the reference's
 `jax.sharding.PartitionSpec` entry for entry.  `placements` maps it to
 DTensor placements over a `DeviceMesh`.  The mesh of `spec_for` is
-anything `launch.mesh.mesh_axes` reads.
+anything `launch.mesh.mesh_axes` reads.  `NamedSharding` holds (mesh,
+spec, placements) for one tensor; `tree_shardings` and `zero_shardings`
+give one for every leaf of a tree, as the reference's do.
 
 An active-mesh context (`activation_sharding`) makes
 `constrain(x, logical_axes)` redistribute a DTensor to its spec; outside
-the context, and for a plain tensor, it returns x unchanged.
+the context, and for a plain tensor, it returns x unchanged.  The models
+run on DTensors through the helpers below it, each the identity on a
+plain tensor: `replicated_like` makes a tensor the model builds for
+itself (RoPE tables, masks, offsets) a replicated DTensor on the mesh of
+the activation it meets; `to_local_at` / `from_local_at` bracket a
+region that runs on local shards (the attention core, the MoE, the SSM
+scan); `matmul`, `reduce_partial`, `whole_dim` and `seq_whole` gather
+where DTensor has no working strategy (listed in PERF.md).
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass
+
+import torch
 
 from ..launch.mesh import mesh_axes
 
@@ -177,6 +188,42 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
     return tuple(out)
 
 
+@dataclass(frozen=True)
+class NamedSharding:
+    """One tensor's sharding: the mesh, its spec and the DTensor
+    placements of that spec (the port's `jax.sharding.NamedSharding`)."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, PartitionSpec):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def tree_shardings(axes_tree, shape_tree, mesh, rules=None):
+    """A `NamedSharding` for every leaf: its `spec_for` on `mesh`."""
+    return _map_specs(lambda s: NamedSharding(mesh, s),
+                      tree_specs(axes_tree, shape_tree, mesh, rules))
+
+
+def zero_shardings(axes_tree, shape_tree, mesh, rules=None, axis="data"):
+    """A `NamedSharding` for every leaf: its spec with `axis` added on the
+    largest replicated dim (`zero_spec`)."""
+    def leaf(spec, shp):
+        if isinstance(spec, PartitionSpec):
+            return NamedSharding(mesh, zero_spec(spec, _shape(shp), mesh,
+                                                 axis))
+        return {k: leaf(v, shp[k]) for k, v in spec.items()}
+
+    return leaf(tree_specs(axes_tree, shape_tree, mesh, rules), shape_tree)
+
+
 # ------------------------------------------------------- activation context
 _ctx = threading.local()
 
@@ -191,6 +238,178 @@ def activation_sharding(mesh, rules: RuleSet | None = None):
         _ctx.state = prev
 
 
+def active_rules():
+    """(mesh, rules) of the active `activation_sharding`, or None."""
+    return getattr(_ctx, "state", None)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def replicated_like(t, ref):
+    """`t`, a tensor the model makes for itself, as a DTensor replicated
+    on the mesh of `ref` when `ref` is a DTensor; else `t` itself."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _gather_where(x, gather):
+    """DTensor `x` redistributed with each partial placement reduced and
+    each placement p of mesh dim i where gather(i, p) made `Replicate()`;
+    anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() or gather(i, p) else p
+        for i, p in enumerate(x.placements)))
+
+
+def reduce_partial(x):
+    """A DTensor with its partial placements reduced to `Replicate()` (the
+    embedding over a vocab-sharded table comes out partial on that mesh
+    dim); anything else as it is."""
+    return _gather_where(x, lambda i, p: False)
+
+
+def whole_dim(x, dim: int):
+    """DTensor `x` with tensor dim `dim` gathered whole and any partial
+    placement reduced (the other shards kept); anything else as it is."""
+    from torch.distributed.tensor import Shard
+
+    if is_dtensor(x):
+        dim %= x.dim()
+    return _gather_where(x, lambda i, p: isinstance(p, Shard)
+                         and p.dim == dim)
+
+
+def seq_whole(x):
+    """A (B, S, ...) DTensor with its sequence (dim 1) gathered whole and
+    its shards over mesh dims of one rank dropped (they hold the whole
+    dim already), before a matmul flattens B and S into rows: DTensor
+    refuses to merge two sharded dims, or a sharded dim of size one.
+    Anything else as it is."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    mesh = x.device_mesh
+    return _gather_where(x, lambda i, p: isinstance(p, Shard) and (
+        p.dim == 1 or mesh.size(i) == 1))
+
+
+class _GradAtOutput(torch.autograd.Function):
+    """The identity, whose backward hands the gradient on at the
+    placements its input had in the forward (replicated where that was
+    partial: the gradient of a pending sum is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = y.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def matmul(x, w):
+    """`x @ w`.  On a mesh: x's rows made safe to flatten (`seq_whole`),
+    and the product's gradient brought back to the product's own
+    placements before the matmul's backward flattens it (the gradient
+    arriving from the residual stream is sharded on batch and sequence
+    at once)."""
+    if not is_dtensor(x):
+        return x @ w
+    return _GradAtOutput.apply(seq_whole(x) @ w)
+
+
+def replicated(x) -> tuple:
+    """Placements replicating DTensor `x` on every mesh dim."""
+    from torch.distributed.tensor import Replicate
+
+    return (Replicate(),) * x.device_mesh.ndim
+
+
+def batch_only(x) -> tuple:
+    """`x`'s placements with every shard but the batch dim's (dim 0)
+    replaced by `Replicate()`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+
+
+def to_local_at(x, target):
+    """A DTensor redistributed to `target` placements, and its local
+    shard (with autograd through both); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, tuple(target)).to_local()
+
+
+def from_local_at(t, ref, target):
+    """The inverse of `to_local_at`: `t`, a local shard, as the DTensor
+    at `target` placements on `ref`'s mesh; `t` itself when `ref` is a
+    plain tensor.  The global shape is the local one scaled by the mesh
+    dims that shard it, so every rank's shard must be the same size."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = ref.device_mesh
+    shape = list(t.shape)
+    for i, p in enumerate(target):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.size(i)
+    # contiguous: DTensor's reshape of the result runs `view` on it
+    return DTensor.from_local(t.contiguous(), mesh, tuple(target),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def target_placements(x, logical_axes):
+    """The placements of `logical_axes` for DTensor `x` under the active
+    rules (the default rules on x's mesh outside a context)."""
+    state = active_rules()
+    rules = state[1] if state is not None else None
+    mesh = x.device_mesh
+    return _activation_placements(
+        spec_for(logical_axes, x.shape, mesh, rules), mesh, x.shape)
+
+
+def _activation_placements(spec, mesh, shape) -> tuple:
+    """`placements(spec, mesh)` with a dim of size one left whole: only a
+    mesh dim of one rank shards it (spec_for lets 1 % 1 pass), which
+    moves no data, and DTensor cannot flatten such a dim into rows (a
+    microbatch of one sequence)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Replicate() if isinstance(p, Shard) and shape[p.dim] == 1
+                 else p for p in placements(spec, mesh))
+
+
 def constrain(x, logical_axes):
     """Redistribute a DTensor to its spec if a mesh context is active; a
     plain tensor, or any tensor outside the context, is returned as is."""
@@ -203,4 +422,4 @@ def constrain(x, logical_axes):
         return x
     mesh, rules = state
     spec = spec_for(logical_axes, x.shape, mesh, rules)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return x.redistribute(mesh, _activation_placements(spec, mesh, x.shape))

@@ -492,6 +492,59 @@ def test_new_kernels_refuse_what_they_cannot_run(cuda):
         bdi_pack.unpack_pair(packed, packed[:, 0])
 
 
+@pytest.mark.cuda
+def test_train_cell_on_one_nccl_rank_matches_the_unsharded_step(cuda):
+    """lm2m's train cell, built by `build_cell` and placed from a seed on
+    a (1, 1) mesh of one NCCL rank, takes three steps equal to
+    `make_train_step` on the same weights (loss and every parameter
+    within 1e-5: on one rank DTensor moves nothing)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, place_cell
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import ShapeSpec, build
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    cfg = PRESETS["lm2m"]
+    rng = np.random.default_rng(7)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh(device_type="cuda")
+        fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", 64, 4, "train"),
+                                          mesh)
+        state, pb = place_cell(fn, specs, shards, (batch,), seed=2,
+                               device=cuda)
+        losses = []
+        for _ in range(3):
+            state, m = fn(state, pb)
+            losses.append(float(m["loss"]))
+        got = {k: p.detach().full_tensor() for k, p in state.params.items()}
+    finally:
+        dist.destroy_process_group()
+    model = build(cfg, device=cuda, seed=2)
+    st, step = adamw_init(model), make_train_step(model)
+    tb = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    want = []
+    for _ in range(3):
+        st, m = step(st, tb)
+        want.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, want, rtol=1e-5, atol=1e-5)
+    for k, p in st.params.items():
+        torch.testing.assert_close(got[k], p.detach(), rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------ E1: the engine scan
 
 E1_CONFIGS = {

@@ -477,3 +477,329 @@ mesh = grid.build("cpu")
                 assert np.array_equal(got[key], want), (tag, key)
                 sharded += got[key].shape != params[name].shape
         assert (sharded > 0) == (tag == "2x2")
+
+
+# ------------------------------------------------- the model cell on a mesh
+#
+# Tolerance of the sharded steps against the one-rank unsharded step:
+# 1e-5 absolute and relative on the losses, on every parameter after each
+# step and on the written cache rows (the mesh reorders float32 sums: the
+# gradient's reduce-scatters, the norm's per-shard sums, the decode's
+# combine of the per-shard softmax states); the decode's next tokens
+# equal.
+
+CELL_TOL = dict(atol=1e-5, rtol=1e-5)
+CELL_STEPS, CELL_B, CELL_S, CELL_SEED = 3, 4, 64, 3
+
+
+def test_collective_bytes_follow_the_references_rule(tmp_path):
+    """One all-gather, one reduce-scatter and one all-reduce of known
+    DTensors (f32, 8 x 4 over a 4-rank mesh), recorded by `analyze_step`,
+    count what the reference's `collective_bytes` counts for an HLO text
+    of the same three ops."""
+    from repro.launch.hlo_analysis import collective_bytes
+
+    run_world("""
+import json
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from repro_torch.launch.hlo_analysis import analyze_step
+mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("data",))
+x = DTensor.from_local(torch.ones(2, 4), mesh, (Shard(0),))
+p = DTensor.from_local(torch.ones(8, 4), mesh, (Partial(),))
+
+def step(x, p):
+    return (x.redistribute(mesh, (Replicate(),)),
+            p.redistribute(mesh, (Shard(0),)),
+            p.redistribute(mesh, (Replicate(),)))
+
+r = analyze_step(step, x, p)
+ag, rs, ar = r["out"]
+assert torch.equal(ag.to_local(), torch.ones(8, 4))
+assert torch.equal(rs.to_local(), torch.full((2, 4), 4.0))
+assert torch.equal(ar.to_local(), torch.full((8, 4), 4.0))
+if RANK == 0:
+    json.dump({"coll": r["collectives"], "flops": r["flops"],
+               "held": r["argument_bytes"]}, open(OUT + "/r.json", "w"))
+""", 4, tmp_path)
+    import json
+    got = json.loads((tmp_path / "r.json").read_text())
+    hlo = "\n".join([
+        "%ag = f32[8,4]{1,0} all-gather(f32[2,4]{1,0} %x), "
+        "replica_groups=[1,4]<=[4], dimensions={0}",
+        "%rs = f32[2,4]{1,0} reduce-scatter(f32[8,4]{1,0} %p), "
+        "replica_groups=[1,4]<=[4], dimensions={0}, to_apply=%add",
+        "%ar = f32[8,4]{1,0} all-reduce(f32[8,4]{1,0} %p), "
+        "replica_groups=[1,4]<=[4], to_apply=%add"])
+    want = collective_bytes(hlo)
+    assert got["coll"] == want
+    assert want["total_ops"] == 3 and want["total_bytes"] == 3 * 128
+    assert got["flops"] == 0 and got["held"] == (2 * 4 + 8 * 4) * 4
+
+
+CELL_HEAD = f"""
+import json
+import numpy as np
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.launch.train import PRESETS
+from repro_torch.models import ShapeSpec
+cfg = PRESETS["lm2m"]
+mesh = make_host_mesh(2, device_type="cpu")
+B, S, SEED = {CELL_B}, {CELL_S}, {CELL_SEED}
+"""
+
+
+def _unsharded_model():
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.models import build
+
+    return build(PRESETS["lm2m"], device="cpu", seed=CELL_SEED)
+
+
+@pytest.mark.parametrize("fsdp", [True, False])
+def test_sharded_train_cell_matches_one_rank(tmp_path, fsdp):
+    """lm2m's train cell on a 2 x 2 mesh of 4 gloo ranks, built by
+    `build_cell` and placed from the seed: CELL_STEPS steps equal the
+    one-rank unsharded steps within CELL_TOL, parameters and moments
+    placed as the cell says (FSDP / ZeRO-1, or tensor parallel only)."""
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    rng = np.random.default_rng(17)
+    batch = {k: rng.integers(0, 2048, (CELL_B, CELL_S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    np.savez(tmp_path / "batch.npz", **batch)
+    run_world(CELL_HEAD + f"""
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", S, B, "train"), mesh,
+                                  fsdp={fsdp})
+batch = dict(np.load(OUT + "/batch.npz"))
+state, pb = place_cell(fn, specs, shards, (batch,), seed=SEED, device="cpu")
+for k, p in state.params.items():
+    assert p.placements == shards[0].params[k].placements, k
+    assert state.m[k].placements == shards[0].m[k].placements, k
+losses = []
+for _ in range({CELL_STEPS}):
+    state, m = fn(state, pb)
+    losses.append([float(m["loss"]), float(m["gnorm"])])
+full = {{k: p.detach().full_tensor().numpy()
+        for k, p in state.params.items()}}
+if RANK == 0:
+    np.savez(OUT + "/params.npz", **full)
+    json.dump(losses, open(OUT + "/losses.json", "w"))
+""", 4, tmp_path)
+    model = _unsharded_model()
+    state = adamw_init(model)
+    step = make_train_step(model)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    losses = []
+    for _ in range(CELL_STEPS):
+        state, m = step(state, tb)
+        losses.append([float(m["loss"]), float(m["gnorm"])])
+    import json
+    got = json.loads((tmp_path / "losses.json").read_text())
+    np.testing.assert_allclose(got, losses, **CELL_TOL)
+    placed = np.load(tmp_path / "params.npz")
+    assert set(placed.files) == set(state.params)
+    for k, p in state.params.items():
+        np.testing.assert_allclose(placed[k], p.detach().numpy(),
+                                   **CELL_TOL, err_msg=k)
+    assert losses[-1][0] < losses[0][0]
+
+
+def test_sharded_decode_cell_matches_one_rank(tmp_path):
+    """lm2m's decode cell on 2 x 2 ranks: the cache (B = 4, T = 128)
+    splits its batch over "data" and its sequence over "model", a random
+    prefix in it; two steps at positions 100 and 101 (the written rows
+    on the rank that owns them, the attention combined over the sequence
+    shards) give the unsharded step's next tokens and cache rows."""
+    from repro_torch.launch.steps import make_serve_step
+
+    rng = np.random.default_rng(19)
+    kv = {k: rng.standard_normal((2, CELL_B, 128, 4, 32)).astype(np.float32)
+          for k in ("k", "v")}
+    tok = rng.integers(0, 2048, (CELL_B, 1)).astype(np.int32)
+    np.savez(tmp_path / "dec.npz", tok=tok, **kv)
+    run_world(CELL_HEAD + """
+from torch.distributed.tensor import Shard
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("d", 128, B, "decode"),
+                                  mesh)
+d = dict(np.load(OUT + "/dec.npz"))
+cache = {"b0": {"attn": {"k": d["k"], "v": d["v"]}}}
+params, tok, cache, index = place_cell(fn, specs, shards,
+                                       (d["tok"], cache, 100), seed=SEED,
+                                       device="cpu")
+assert cache["b0"]["attn"]["k"].placements == (Shard(1), Shard(2))
+toks = []
+for i in (100, 101):
+    tok, cache = fn(params, tok, cache, torch.tensor(i, dtype=torch.int32))
+    toks.append(tok.full_tensor().flatten().tolist())
+full = {k: v.full_tensor().numpy() for k, v in cache["b0"]["attn"].items()}
+if RANK == 0:
+    np.savez(OUT + "/cache.npz", **full)
+    json.dump(toks, open(OUT + "/toks.json", "w"))
+""", 4, tmp_path)
+    model = _unsharded_model()
+    step = make_serve_step(model)
+    cache = {"b0": {"attn": {k: torch.from_numpy(v.copy())
+                             for k, v in kv.items()}}}
+    t, toks = torch.from_numpy(tok), []
+    for i in (100, 101):
+        t, cache = step(t, cache, i)
+        toks.append(t.flatten().tolist())
+    import json
+    assert json.loads((tmp_path / "toks.json").read_text()) == toks
+    got = np.load(tmp_path / "cache.npz")
+    for k in ("k", "v"):
+        want = cache["b0"]["attn"][k].numpy()
+        np.testing.assert_allclose(got[k][:, :, 100:102], want[:, :, 100:102],
+                                   **CELL_TOL)
+        assert np.array_equal(np.delete(got[k], [100, 101], axis=2),
+                              np.delete(want, [100, 101], axis=2))
+        assert not np.array_equal(want[:, :, 100:102], kv[k][:, :, 100:102])
+
+
+def test_sharded_prefill_cell_matches_one_rank(tmp_path):
+    """lm2m's prefill cell on 2 x 2 ranks (batch over "data", the
+    activations' sequence over "model"), placed from full tensors (the
+    reference's init for seed 5): the last position's logits equal the
+    unsharded prefill step's within CELL_TOL."""
+    from repro_torch.launch.train import PRESETS
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build, init_lm_reference
+
+    rng = np.random.default_rng(23)
+    tokens = rng.integers(0, 2048, (CELL_B, CELL_S)).astype(np.int32)
+    np.save(tmp_path / "tokens.npy", tokens)
+    params = init_lm_reference(PRESETS["lm2m"], 5, "cpu")
+    np.savez(tmp_path / "params.npz",
+             **{k: v.numpy() for k, v in params.items()})
+    run_world(CELL_HEAD + """
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("p", S, B, "prefill"), mesh)
+tokens = np.load(OUT + "/tokens.npy")
+full = {k: torch.from_numpy(v)
+        for k, v in np.load(OUT + "/params.npz").items()}
+params, batch = place_cell(fn, specs, shards, ({"tokens": tokens},),
+                           params=full, device="cpu")
+assert not full                 # each full tensor handed over and let go
+logits = fn(params, batch).full_tensor()
+if RANK == 0:
+    np.save(OUT + "/logits.npy", logits.numpy())
+""", 4, tmp_path)
+    model = build(PRESETS["lm2m"], device="cpu", params=params)
+    want = make_prefill_step(model)({"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(np.load(tmp_path / "logits.npy"),
+                               want.numpy(), **CELL_TOL)
+
+
+def test_mini_cell_counts_flops_and_collectives(tmp_path):
+    """The reference's mini dry run, as the port does it: olmoe at smoke
+    size on a (4, 2) mesh of 8 gloo ranks, a ShapeSpec("mini", 128, 8,
+    "train") cell under `analyze_step`: flops above 0, at least one
+    collective, and the loss of the unsharded step within CELL_TOL."""
+    run_world("""
+import json
+import numpy as np
+from repro_torch import configs
+from repro_torch.launch.hlo_analysis import analyze_step, argument_bytes
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.models import ShapeSpec, smoke_config
+cfg = smoke_config(configs.get("olmoe_1b_7b"))
+mesh = make_host_mesh(2, device_type="cpu")
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("mini", 128, 8, "train"),
+                                  mesh)
+rng = np.random.default_rng(0)
+batch = {k: rng.integers(0, cfg.vocab, (8, 128)).astype(np.int32)
+         for k in ("tokens", "labels")}
+args = place_cell(fn, specs, shards, (batch,), seed=0, device="cpu")
+r = analyze_step(fn, *args)
+assert r["argument_bytes"] == argument_bytes(specs, shards)
+if RANK == 0:
+    np.savez(OUT + "/batch.npz", **batch)
+    json.dump({"flops": r["flops"], "coll": r["collectives"],
+               "loss": float(r["out"][1]["loss"])},
+              open(OUT + "/mini.json", "w"))
+""", 8, tmp_path, timeout=85)
+    import json
+
+    from repro_torch import configs
+    from repro_torch.models import build, smoke_config
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    got = json.loads((tmp_path / "mini.json").read_text())
+    assert got["flops"] > 0
+    assert got["coll"]["total_ops"] > 0 and got["coll"]["total_bytes"] > 0
+    cfg = smoke_config(configs.get("olmoe_1b_7b"))
+    model = build(cfg, device="cpu", seed=0)
+    batch = {k: torch.from_numpy(v)
+             for k, v in np.load(tmp_path / "batch.npz").items()}
+    _, m = make_train_step(model)(adamw_init(model), batch)
+    np.testing.assert_allclose(got["loss"], float(m["loss"]), **CELL_TOL)
+
+
+FAMILY_CELLS = {"moe": "olmoe_1b_7b", "ssm": "mamba2_130m",
+                "hybrid": "zamba2_2_7b", "vlm": "llama_3_2_vision_90b",
+                "encdec": "whisper_base"}
+
+
+@pytest.mark.parametrize("family", list(FAMILY_CELLS))
+def test_every_family_runs_its_cells_on_a_mesh(tmp_path, family):
+    """Each family's train and decode cells at smoke size on 2 x 2 gloo
+    ranks (the MoE gathered whole, the SSM scan and its decode state on
+    local shards, the vlm's image embeddings, whisper's frames and cross
+    K/V): the train loss within CELL_TOL of the unsharded step's, the
+    decode's next tokens equal."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build, smoke_config
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    name = FAMILY_CELLS[family]
+    cfg = smoke_config(configs.get(name))
+    rng = np.random.default_rng(29)
+    data = {k: rng.integers(0, cfg.vocab, (CELL_B, CELL_S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    if family == "vlm":
+        data["image_embeds"] = rng.standard_normal(
+            (CELL_B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if family == "encdec":
+        data["frames"] = rng.standard_normal(
+            (CELL_B, CELL_S, cfg.d_model)).astype(np.float32)
+    tok = rng.integers(0, cfg.vocab, (CELL_B, 1)).astype(np.int32)
+    np.savez(tmp_path / "in.npz", tok=tok, **data)
+    run_world(f"""
+import json
+import numpy as np
+from repro_torch import configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.models import ShapeSpec, smoke_config
+cfg = smoke_config(configs.get({name!r}))
+mesh = make_host_mesh(2, device_type="cpu")
+d = dict(np.load(OUT + "/in.npz"))
+tok = d.pop("tok")
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", {CELL_S}, {CELL_B},
+                                                 "train"), mesh)
+_, m = fn(*place_cell(fn, specs, shards, (d,), seed=1, device="cpu"))
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("d", {CELL_S}, {CELL_B},
+                                                 "decode"), mesh)
+vals = (tok, None, 5) + ((d["image_embeds"],) if {family!r} == "vlm"
+                         else ())
+nxt, _ = fn(*place_cell(fn, specs, shards, vals, seed=1, device="cpu"))
+nxt = nxt.full_tensor().flatten().tolist()
+if RANK == 0:
+    json.dump({{"loss": float(m["loss"]), "next": nxt}},
+              open(OUT + "/r.json", "w"))
+""", 4, tmp_path)
+    import json
+    got = json.loads((tmp_path / "r.json").read_text())
+    model = build(cfg, device="cpu", seed=1)
+    _, m = make_train_step(model)(adamw_init(model), {
+        k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(got["loss"], float(m["loss"]), **CELL_TOL)
+    kw = ({"image_embeds": torch.from_numpy(data["image_embeds"])}
+          if family == "vlm" else {})
+    nxt, _ = make_serve_step(model)(torch.from_numpy(tok),
+                                    model.init_cache(CELL_B, CELL_S), 5,
+                                    **kw)
+    assert got["next"] == nxt.flatten().tolist()

@@ -27,6 +27,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         import repro_torch.launch.mesh, repro_torch.runtime.sharding
         import repro_torch.runtime.pipeline, repro_torch.runtime.elastic
         import repro_torch.optim.grad_compress
+        # the model cell
+        import repro_torch.launch.steps, repro_torch.launch.variants
+        import repro_torch.launch.hlo_analysis, repro_torch.models.zoo
         for mod in pkgutil.walk_packages(repro_torch.__path__,
                                          "repro_torch."):
             importlib.import_module(mod.name)
@@ -60,7 +63,9 @@ def test_no_source_imports_jax_or_reference():
     assert len(files) > 25
     for name in ("launch/mesh.py", "runtime/sharding.py",
                  "runtime/pipeline.py", "runtime/elastic.py",
-                 "optim/grad_compress.py"):
+                 "optim/grad_compress.py", "launch/steps.py",
+                 "launch/variants.py", "launch/hlo_analysis.py",
+                 "models/zoo.py"):
         assert PKG / name in files, name
     for path in files:
         for name in _imports(path):
