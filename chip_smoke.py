@@ -2894,6 +2894,9 @@ def elastic_phase(torch, device, ckpt_dir: str, card: str) -> dict:
 CELL_ARCH, CELL_SEED = "phi4_mini_3_8b", 0
 CELL_CUTS = {"train_4k": (2, None), "prefill_32k": (2, 4),
              "decode_32k": (8, None)}
+# the train cell's state starts at this step, the end of `cosine_lr`'s
+# warm-up: the step's rate is the peak, so the step moves every parameter
+CELL_STEP = 100
 
 
 def _cell_fill_cache(torch, cache: dict, seed: int) -> None:
@@ -2955,12 +2958,14 @@ def cell_phase(torch, device, card: str) -> dict:
     the CELL_CUTS cuts: built by `build_cell` (FSDP placements), placed
     by `place_cell` from CELL_SEED, run once under `analyze_step` and
     held against the unsharded step, then timed alone; the cell and the
-    unsharded model never share the card.  The train step is the state's
-    first (as `adamw_init` makes it), whose rate is 0 under the warm-up:
-    the checked leaves are the four DP_CHECK parameters and their first
-    moments, m = 0.1 x clip scale x gradient (a first Adam step moves
-    each parameter by lr x sign(g), which would turn any reordered
-    gradient sum into +-lr)."""
+    unsharded model never share the card.  Both train states (zero
+    moments, as `adamw_init` makes them) start at step CELL_STEP, where
+    the rate is the peak: the checked leaves are the loss, the four
+    DP_CHECK parameters after the update and both their moments (m = 0.1
+    x clip scale x g, v = 0.05 x (clip scale x g)^2).  On one rank the
+    gradients are bit-exact, so the parameters are too (a reordered
+    gradient sum would move a parameter by up to 2 x 0.45 x lr and
+    fail)."""
     import numpy as np
 
     from repro_torch import configs
@@ -2996,6 +3001,8 @@ def cell_phase(torch, device, card: str) -> dict:
                               else ("tokens",))}
             args = place_cell(fn, specs, shards, (data,), seed=CELL_SEED,
                               device=device)
+            if shape.kind == "train":
+                args[0].step.to_local().fill_(CELL_STEP)
         torch.cuda.synchronize()
         place_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3008,8 +3015,8 @@ def cell_phase(torch, device, card: str) -> dict:
             got = {"loss": _host(m["loss"].detach()),
                    **{k: _host(st.params[k].detach().full_tensor())
                       for k in DP_CHECK},
-                   **{f"m {k}": _host(st.m[k].full_tensor())
-                      for k in DP_CHECK}}
+                   **{f"{n} {k}": _host(getattr(st, n)[k].full_tensor())
+                      for n in ("m", "v") for k in DP_CHECK}}
         elif shape.kind == "prefill":
             got = {"logits": _host(r["out"].full_tensor())}
         else:
@@ -3033,11 +3040,13 @@ def cell_phase(torch, device, card: str) -> dict:
         model = build(cfg, device=device, seed=CELL_SEED)
         if shape.kind == "train":
             state = adamw_init(model, cfg.optimizer_dtype)
+            state.step.fill_(CELL_STEP)
             state, m = make_train_step(model)(state, {
                 k: torch.from_numpy(v).to(device) for k, v in data.items()})
             want = {"loss": _host(m["loss"].detach()),
                     **{k: _host(state.params[k].detach()) for k in DP_CHECK},
-                    **{f"m {k}": _host(state.m[k]) for k in DP_CHECK}}
+                    **{f"{n} {k}": _host(getattr(state, n)[k])
+                       for n in ("m", "v") for k in DP_CHECK}}
             del state, m
         elif shape.kind == "prefill":
             want = {"logits": _host(make_prefill_step(model)(

@@ -11,6 +11,10 @@ the scores of one chunk at a time are live."""
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime.sharding import (constrain, from_local_at, is_dtensor,
@@ -76,14 +80,11 @@ def _q_chunk(*args):
 
 def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
                         q_chunk: int = 512, k_chunk: int = 1024,
-                        kv_length=None, state: bool = False):
+                        kv_length=None):
     """q: (B,S,Hq,D), k/v: (B,T,Hkv,D) -> (B,S,Hq,D) in q's dtype.
     `kv_length` is the valid KV prefix length (decode against a
     preallocated cache).  Under autograd each q-chunk is recomputed in
-    backward.  With `state` (one q-chunk, no autograd): the online
-    softmax's (m, l, o), (B,Hq,S) / (B,Hq,S) / (B,Hq,S,D) float32, not
-    yet normalised (a decode whose cache is split over ranks combines
-    them)."""
+    backward."""
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     assert hq % hkv == 0
@@ -97,10 +98,6 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
     vb = v.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
     q_pos = torch.arange(s, device=dev).reshape(nq, q_chunk) + q_offset
     k_pos = torch.arange(t, device=dev).reshape(nk, k_chunk) + k_offset
-    if state:
-        assert nq == 1, "state=True takes one q-chunk"
-        return _q_chunk_state(qb[0], kb, vb, q_pos[0], k_pos, causal,
-                              kv_length)
     remat = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     outs = []
@@ -112,14 +109,32 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
     return out.permute(1, 0, 3, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
+def decode_attention_state(q, k_cache, v_cache, length,
+                           k_chunk: int = 2048):
+    """Single-token decode before the normalisation: q (B,Hq,D) against
+    cache (B,T,Hkv,D) with `length` valid positions -> the online
+    softmax's (m, l, o), (B,Hq) / (B,Hq) / (B,Hq,D) float32 (a decode
+    whose cache is split over ranks combines them)."""
+    b, hq, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    assert hq % hkv == 0
+    k_chunk = min(k_chunk, t)
+    assert t % k_chunk == 0, (t, k_chunk)
+    nk = t // k_chunk
+    kb = k_cache.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
+    vb = v_cache.reshape(b, nk, k_chunk, hkv, d).transpose(0, 1)
+    k_pos = torch.arange(t, device=q.device).reshape(nk, k_chunk)
+    qc = (q * (1.0 / (d ** 0.5)))[:, :, None]              # (B,Hq,1,D)
+    m, l, o = _q_chunk_state(qc, kb, vb, None, k_pos, False, length)
+    return m[..., 0], l[..., 0], o[:, :, 0]
+
+
 def chunked_decode_attention(q, k_cache, v_cache, length,
                              k_chunk: int = 2048):
     """Single-token decode: q (B,Hq,D) against cache (B,T,Hkv,D) with
-    `length` valid positions."""
-    out = blockwise_attention(
-        q[:, None], k_cache, v_cache, causal=False, q_chunk=1,
-        k_chunk=min(k_chunk, k_cache.shape[1]), kv_length=length)
-    return out[:, 0]
+    `length` valid positions -> (B,Hq,D) in q's dtype."""
+    m, l, o = decode_attention_state(q, k_cache, v_cache, length, k_chunk)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 # each projection's logical axes, as the reference's init names them (the
@@ -166,8 +181,6 @@ def _core_layout(q, k) -> tuple:
     the rules shard it, the sequence whole, and the heads of q and of k/v
     on "model" where both divide it (else whole), so that each rank's q
     heads meet their own KV heads; the layout `cfg.attn_gather` names."""
-    from torch.distributed.tensor import Replicate, Shard
-
     tq = target_placements(q, ("batch", None, "heads", None))
     tk = target_placements(k, ("batch", None, "kv_heads", None))
     if tq != tk:
@@ -198,11 +211,6 @@ def decode_on_shards(q, k, v, cache, index: int, k_chunk: int,
     split T combine their online-softmax states (a max and two sums over
     each such mesh dim).  q (B,1,Hq,hd); returns (B,1,Hq,hd) at q's
     dtype, placed as the cache (T whole)."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
-
     kc, vc = cache["k"], cache["v"]
     mesh, pl = kc.device_mesh, kc.placements
     seq = [i for i, p in enumerate(pl)
@@ -220,9 +228,8 @@ def decode_on_shards(q, k, v, cache, index: int, k_chunk: int,
             kcl[:, lo - t0:hi - t0] = kl[:, lo - index:hi - index]
             vcl[:, lo - t0:hi - t0] = vl[:, lo - index:hi - index]
     length = index + s if length is None else length
-    m, l, o = blockwise_attention(ql, kcl, vcl, causal=False, q_chunk=1,
-                                  k_chunk=min(k_chunk, tl),
-                                  kv_length=length - t0, state=True)
+    m, l, o = decode_attention_state(ql[:, 0], kcl, vcl, length - t0,
+                                     k_chunk)
     for i in seq:
         group = mesh.get_group(i)
         top = funcol.all_reduce(m, "max", group)
@@ -230,7 +237,7 @@ def decode_on_shards(q, k, v, cache, index: int, k_chunk: int,
         l = funcol.all_reduce(l * w, "sum", group)
         o = funcol.all_reduce(o * w[..., None], "sum", group)
         m = top
-    out = (o / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3)
+    out = (o / torch.clamp(l, min=1e-30)[..., None])[:, None]
     return from_local_at(out.to(q.dtype), q, at)
 
 

@@ -22,8 +22,15 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
+from ..runtime.sharding import (from_local_at, is_dtensor, replicated,
+                                replicated_like, sum_grad, sum_over,
+                                to_local_at)
 from .layers import MLP_AXES, mlp_apply, mlp_init
 
 # each weight's logical axes, as the reference's init names them
@@ -62,12 +69,18 @@ class Routing(NamedTuple):
     dest: torch.Tensor    # (T*k,) dispatch row e * cap + rank (0 if dropped)
 
 
+def _top_k(probs, k: int):
+    """probs (T, E) -> (gates, eidx) (T, k): the k largest by falling
+    probability, ties to the lower expert, gates normalised over the k."""
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = srt.values[:, :k], srt.indices[:, :k]
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx
+
+
 def moe_route(probs, k: int, cap: int) -> Routing:
     """probs (T, E) float32 -> the routing of `moe_apply`."""
     t, _ = probs.shape
-    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eidx = srt.values[:, :k], srt.indices[:, :k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    gates, eidx = _top_k(probs, k)
     flat_e = eidx.reshape(t * k)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
@@ -79,9 +92,24 @@ def moe_route(probs, k: int, cap: int) -> Routing:
     return Routing(eidx, gates, order, keep, dest)
 
 
+def _ffn(p, cfg, buf):
+    """The experts on their dispatch buffer: buf (E', C, D) against the
+    weights of those E' experts -> (E', C, D)."""
+    h1 = torch.bmm(buf, p["w1"])
+    if cfg.mlp_act == "swiglu":
+        h = F.silu(h1) * torch.bmm(buf, p["w3"])
+    elif cfg.mlp_act == "relu2":
+        h = torch.square(F.relu(h1))
+    else:
+        h = F.gelu(h1, approximate="tanh")
+    return torch.bmm(h, p["w2"])
+
+
 def moe_apply(p, cfg, x):
     """x: (B, S, D) -> (y, aux_loss); `p` holds the weights in x's
-    dtype."""
+    dtype.  On a mesh (DTensor x and weights): `_moe_on_mesh`."""
+    if is_dtensor(x):
+        return _moe_on_mesh(p, cfg, x)
     b, s, d = x.shape
     t, e, k = b * s, cfg.n_experts, cfg.top_k
     cap = capacity(cfg, t)
@@ -103,15 +131,7 @@ def moe_apply(p, cfg, x):
     # scatter-add them, in no fixed order on several threads)
     buf[torch.where(r.keep, r.dest, spare)] = \
         xf.repeat_interleave(k, dim=0)[r.order]
-    buf = buf[:spare].reshape(e, cap, d)
-    h1 = torch.bmm(buf, p["w1"])
-    if cfg.mlp_act == "swiglu":
-        h = F.silu(h1) * torch.bmm(buf, p["w3"])
-    elif cfg.mlp_act == "relu2":
-        h = torch.square(F.relu(h1))
-    else:
-        h = F.gelu(h1, approximate="tanh")
-    out = torch.bmm(h, p["w2"]).reshape(spare, d)
+    out = _ffn(p, cfg, buf[:spare].reshape(e, cap, d)).reshape(spare, d)
 
     g_sorted = r.gates.reshape(t * k)[r.order]
     contrib = out[r.dest] * (g_sorted * r.keep)[:, None].to(x.dtype)
@@ -120,3 +140,172 @@ def moe_apply(p, cfg, x):
     if cfg.shared_expert_ff:
         y = y + mlp_apply(p["shared"], xf, cfg.mlp_act)
     return y.reshape(b, s, d), aux
+
+
+# ------------------------------------------------------------ on a mesh
+def _size(mesh, dims) -> int:
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+    return n
+
+
+def _coord(mesh, dims) -> int:
+    """This rank's index among the ranks of the mesh dims `dims`, the
+    first dim outermost (as DTensor nests a dim's shards)."""
+    c = 0
+    for i in dims:
+        c = c * mesh.size(i) + mesh.get_local_rank(i)
+    return c
+
+
+def _flat_rank(mesh, dims, chunk):
+    """The contribution to a rank's row-major index in the mesh of being
+    at index `chunk` (a tensor) among the ranks of the mesh dims `dims`."""
+    strides = [1] * mesh.ndim
+    for i in range(mesh.ndim - 2, -1, -1):
+        strides[i] = strides[i + 1] * mesh.size(i + 1)
+    out = torch.zeros_like(chunk)
+    for i in reversed(dims):
+        out = out + (chunk % mesh.size(i)) * strides[i]
+        chunk = chunk // mesh.size(i)
+    return out
+
+
+def _all_gather(row, mesh, dims):
+    """`row` of every rank of the mesh dims `dims`, stacked (ranks)."""
+    out = row[None]
+    for i in dims:
+        out = funcol.wait_tensor(funcol.all_gather_tensor(
+            out, 0, mesh.get_group(i)))
+    return out
+
+
+def _queue_places(eidx, mesh, dims, block, shape, e: int):
+    """Each local (token, choice) pair's place in its expert's queue over
+    the global batch, (L, k): the pairs before it in the global (token,
+    choice) order with the same expert.  `block` = (b0, s0, bl, sl), this
+    rank's rectangle of the (B, S) tokens; every rank of the mesh dims
+    `dims` (those that split the tokens) adds its per-row expert counts
+    to a table of the global grid of blocks, whose exclusive prefix sum
+    in token order gives each local row's base."""
+    b0, s0, bl, sl = block
+    bsz, s = shape
+    k = eidx.shape[1]
+    pairs = eidx.reshape(bl, sl * k)
+    onehot = F.one_hot(pairs, e)                          # (bl, sl*k, E)
+    within = (onehot.cumsum(1) - onehot).gather(2, pairs[..., None])
+    head = torch.tensor([b0, s0], device=eidx.device)
+    rows = _all_gather(torch.cat([head, onehot.sum(1).reshape(-1)]), mesh,
+                       dims)
+    ns = s // sl
+    table = torch.zeros((bsz, ns, e), dtype=torch.int64, device=eidx.device)
+    r = rows[:, :1] + torch.arange(bl, device=eidx.device)[None, :]
+    table[r, (rows[:, 1:2] // sl).expand_as(r)] = rows[:, 2:].reshape(
+        -1, bl, e)
+    flat = table.reshape(bsz * ns, e)
+    base = (flat.cumsum(0) - flat).reshape(bsz, ns, e)[b0:b0 + bl, s0 // sl]
+    return (base.gather(1, pairs) + within[..., 0]).reshape(bl * sl, k)
+
+
+def _moe_on_mesh(p, cfg, x):
+    """`moe_apply` on a mesh, with the experts' rows sent to their ranks.
+    The (expert, capacity row) grid is split over the ranks: the experts
+    over the mesh dims that shard the experts' weights on their first dim
+    (each rank gathers only its own experts' slice over the other dims),
+    the capacity rows over the other mesh dims.  Each rank routes its own
+    tokens; an all-gather of the per-row expert counts gives each
+    (token, choice) pair its place in its expert's queue over the global
+    batch, exactly as `moe_route` orders them, so the same pairs are kept;
+    the kept pairs' rows go to the ranks that hold their (expert, row)
+    by an all-to-all, run through the experts there and come back the
+    same way to be weighted and summed by token.  Ranks that hold the
+    same tokens (x replicated on a mesh dim) route them alike and split
+    the dispatch between them, and the parts are summed.  What a rank
+    holds whole but uses a part of (the router over the token shards; the
+    tokens and gates over the ranks that share them; its experts' weights
+    over the row dims) has its gradient summed over the ranks that share
+    it.  The shared expert runs as a dense MLP on x."""
+    mesh = x.device_mesh
+    bsz, s, d = x.shape
+    t, e, k = bsz * s, cfg.n_experts, cfg.top_k
+    cap = capacity(cfg, t)
+    # the tokens' layout: x's shards of B and S (D whole)
+    x_at = tuple(pl if isinstance(pl, Shard) and pl.dim < 2 else Replicate()
+                 for pl in x.placements)
+    ep_at = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                  else Replicate() for pl in p["w1"].placements)
+    big = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    ep = [i for i in big if isinstance(ep_at[i], Shard)]
+    split = [i for i in big if i not in ep]
+    tok = [i for i in big if isinstance(x_at[i], Shard)]
+    rep = [i for i in big if i not in tok]
+    w = {n: sum_grad(to_local_at(p[n], ep_at), mesh, split)
+         for n in ("w1", "w2", "w3") if n in p}
+    ne = w["w1"].shape[0]
+    e0 = compute_local_shape_and_global_offset(p["w1"].shape, mesh,
+                                               ep_at)[1][0]
+    nc = -(-cap // _size(mesh, split))
+    c0 = _coord(mesh, split) * nc
+
+    # route this rank's tokens
+    xl = to_local_at(x, x_at)
+    bl, sl = xl.shape[:2]
+    b0, s0 = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                   x_at)[1][:2]
+    n_tok = bl * sl
+    xf = xl.reshape(n_tok, d)
+    router = sum_grad(to_local_at(p["router"], replicated(p["router"])),
+                      mesh, tok)
+    probs = torch.softmax((xf @ router).to(torch.float32), dim=-1)
+    gates, eidx = _top_k(probs, k)
+    first = torch.zeros(e, dtype=torch.float32, device=x.device)
+    first.index_add_(0, eidx[:, 0], torch.ones(n_tok, device=x.device))
+    aux = e * torch.sum(sum_over(first, mesh, tok) / t
+                        * (sum_over(probs.sum(0), mesh, tok) / t))
+    with torch.no_grad():
+        place = _queue_places(eidx, mesh, tok, (b0, s0, bl, sl), (bsz, s), e)
+
+    # this rank's share of the pairs of its tokens, kept and sent
+    per = -(-n_tok // _size(mesh, rep))
+    lo = min(n_tok, _coord(mesh, rep) * per)
+    hi = min(n_tok, lo + per)
+    pe, pq = eidx[lo:hi].reshape(-1), place[lo:hi].reshape(-1)
+    kept = torch.nonzero(pq < cap)[:, 0]
+    dest = (_flat_rank(mesh, ep, pe[kept] // ne)
+            + _flat_rank(mesh, split, pq[kept] // nc))
+    srt = torch.sort(dest, stable=True)
+    pair = kept[srt.indices]
+    group = mesh._flatten().get_group() if mesh.ndim > 1 else \
+        mesh.get_group(0)
+    n_ranks = mesh.size()
+    send = torch.bincount(srt.values, minlength=n_ranks)
+    recv = funcol.wait_tensor(funcol.all_to_all_single(send, None, None,
+                                                       group))
+    send, recv = send.tolist(), recv.tolist()
+    # as in `moe_apply`: a permutation of the repeat, whose gradient sums
+    # each token's k rows in a fixed order
+    rows = sum_grad(xf, mesh, rep)[lo:hi].repeat_interleave(k, dim=0)[pair]
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        rows, recv, send, group))
+    meta = funcol.wait_tensor(funcol.all_to_all_single(
+        torch.stack([pe[pair], pq[pair]], 1), recv, send, group))
+    slot = (meta[:, 0] - e0) * nc + (meta[:, 1] - c0)
+    buf = got.new_zeros((ne * nc, d))
+    buf[slot] = got
+    out = _ffn(w, cfg, buf.reshape(ne, nc, d)).reshape(ne * nc, d)
+    back = funcol.wait_tensor(funcol.all_to_all_single_autograd(
+        out[slot], send, recv, group))
+
+    # weight each pair's row by its gate and sum by token, choices in order
+    g = sum_grad(gates, mesh, rep)[lo:hi].reshape(-1)[pair]
+    contrib = back * g[:, None].to(back.dtype)
+    by_pair = contrib.new_zeros(((hi - lo) * k, d)).index_copy(0, pair,
+                                                                contrib)
+    y = by_pair.reshape(hi - lo, k, d).sum(1)
+    y = torch.cat([y.new_zeros((lo, d)), y,
+                   y.new_zeros((n_tok - hi, d))])
+    y = from_local_at(sum_over(y, mesh, rep).reshape(bl, sl, d), x, x_at)
+    if cfg.shared_expert_ff:
+        y = y + mlp_apply(p["shared"], x, cfg.mlp_act)
+    return y, replicated_like(aux, x)

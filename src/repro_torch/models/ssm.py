@@ -20,7 +20,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
+from ..runtime.sharding import (batch_only, is_dtensor, replicated,
+                                sum_grad, sum_over, sum_to, to_local_at,
+                                unpartial)
 from .layers import rms_norm
 
 
@@ -82,13 +86,19 @@ def _project(p, cfg, x):
     return z, xin, b_, c_, dt
 
 
-def ssm_apply(p, cfg, x):
-    """Chunked SSD forward.  x: (B, S, D) -> (B, S, D); `p` holds the
-    projections and conv weights in x's dtype.  S must be a multiple of
-    the chunk min(ssm_chunk, S)."""
+def _dims(p, cfg) -> tuple:
+    """(heads, groups, d_inner) of the weights `p` holds: all of them, or
+    one rank's share on a mesh (`_local_weights`)."""
+    return (p["A_log"].shape[0], p["wB"].shape[1] // cfg.ssm_state,
+            p["wx"].shape[1])
+
+
+def _ssd(p, cfg, x):
+    """The chunked SSD of `ssm_apply` up to the gate: x (B, S, D) -> the
+    gated output (B, S, d_inner) in x's dtype, before the norm."""
     bsz, s, _ = x.shape
-    nh, n, g, hp = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups,
-                    cfg.ssm_headdim)
+    nh, g, din = _dims(p, cfg)
+    n, hp = cfg.ssm_state, cfg.ssm_headdim
     c = min(cfg.ssm_chunk, s)
     assert s % c == 0, (s, c)
     nc, hpg = s // c, nh // g
@@ -130,9 +140,18 @@ def ssm_apply(p, cfg, x):
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(bsz, s, nh, hp)
     y = y + xh.reshape(bsz, s, nh, hp) * p["D"].to(f32)[:, None]
-    y = y.reshape(bsz, s, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return y @ p["out"]
+    y = y.reshape(bsz, s, din).to(x.dtype)
+    return y * F.silu(z)
+
+
+def ssm_apply(p, cfg, x):
+    """Chunked SSD forward.  x: (B, S, D) -> (B, S, D); `p` holds the
+    projections and conv weights in x's dtype.  S must be a multiple of
+    the chunk min(ssm_chunk, S).  On a mesh (DTensor x and weights):
+    `_on_mesh`."""
+    if is_dtensor(x):
+        return _on_mesh(p, cfg, x, None)
+    return rms_norm(_ssd(p, cfg, x), p["norm"]) @ p["out"]
 
 
 def ssm_init_cache(cfg, batch: int, device, lead=()) -> dict:
@@ -149,13 +168,12 @@ def ssm_init_cache(cfg, batch: int, device, lead=()) -> dict:
             "conv_C": zeros(k - 1, gn), "h": zeros(h, n, p)}
 
 
-def ssm_decode_step(p, cfg, x, cache):
-    """Recurrent step.  x: (B, 1, D) -> y (B, 1, D); `p` holds the
-    projections and conv weights in x's dtype; `cache` (conv_x, conv_B,
-    conv_C, h) is updated in place."""
+def _decode(p, cfg, x, cache):
+    """The recurrent step of `ssm_decode_step` up to the gate: x (B, 1, D)
+    -> the gated output (B, 1, d_inner); `cache` updated in place."""
     bsz = x.shape[0]
-    nh, n, g, hp = (cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups,
-                    cfg.ssm_headdim)
+    nh, g, din = _dims(p, cfg)
+    n, hp = cfg.ssm_state, cfg.ssm_headdim
     hpg = nh // g
     z, xin, b_, c_, dt = _project(p, cfg, x)
     xin = F.silu(_causal_conv(xin, p["conv_x"], cache["conv_x"]))
@@ -173,6 +191,94 @@ def ssm_decode_step(p, cfg, x, cache):
     cache["h"].copy_(h)
     y = torch.einsum("bhn,bhnp->bhp", ch.to(torch.float32), h)
     y = y + xh * p["D"].to(torch.float32)[:, None]
-    y = y.reshape(bsz, 1, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return y @ p["out"]
+    y = y.reshape(bsz, 1, din).to(x.dtype)
+    return y * F.silu(z)
+
+
+def ssm_decode_step(p, cfg, x, cache):
+    """Recurrent step.  x: (B, 1, D) -> y (B, 1, D); `p` holds the
+    projections and conv weights in x's dtype; `cache` (conv_x, conv_B,
+    conv_C, h) is updated in place (on a mesh: DTensor leaves, each rank
+    writing its shard)."""
+    if is_dtensor(x):
+        return _on_mesh(p, cfg, x, cache)
+    return rms_norm(_decode(p, cfg, x, cache), p["norm"]) @ p["out"]
+
+
+# on a mesh: the dim of each weight and decode-state leaf that runs along
+# the heads (d_inner or H), and along the groups of B and C
+_HEAD_DIM = {"wz": 1, "wx": 1, "wdt": 1, "conv_x": 1, "A_log": 0, "D": 0,
+             "dt_bias": 0, "norm": 0, "out": 0}
+_GROUP_DIM = {"wB": 1, "wC": 1, "conv_B": 1, "conv_C": 1}
+_STATE_HEAD_DIM = {"conv_x": 2, "h": 1}
+_STATE_GROUP_DIM = {"conv_B": 2, "conv_C": 2}
+
+
+def _on_mesh(p, cfg, x, cache):
+    """`ssm_apply` (cache None) or `ssm_decode_step` on a mesh.  The heads
+    are split over the mesh dims that shard d_inner (the "mlp" axis of
+    wx) when the heads divide them evenly (and the groups of B and C too,
+    or there is one group): each rank gathers its heads' slice of every
+    weight (and the groups' weights whole when there is one group), runs
+    its heads on the tokens of its batch shard, and the ranks' parts of
+    the output are summed straight to x's placements (a reduce-scatter
+    over the sequence shards), the gated norm's sum of squares first.
+    What a rank holds whole but uses a part of (the tokens, the one
+    group's weights) has its gradient summed over the ranks that split
+    the heads.  Otherwise every rank runs all heads.  The decode state is
+    read and written at the same split, each rank writing its shard back
+    into the cache through `to_local()`."""
+    mesh = x.device_mesh
+    bat = batch_only(x if cache is None else cache["h"])
+    nh, g = cfg.ssm_heads, cfg.ssm_ngroups
+    tp = [i for i, pl in enumerate(p["wx"].placements)
+          if isinstance(pl, Shard) and pl.dim == 1 and mesh.size(i) > 1
+          and not isinstance(bat[i], Shard)]
+    n = 1
+    for i in tp:
+        n *= mesh.size(i)
+    if nh % n or (g > 1 and g % n):
+        tp, n = [], 1
+
+    def at(dim, base):
+        return tuple(Shard(dim) if i in tp and dim is not None else base[i]
+                     for i in range(mesh.ndim))
+
+    rep = replicated(x)
+    local = {}
+    for k, w in p.items():
+        dim = _HEAD_DIM.get(k, _GROUP_DIM.get(k) if g > 1 else None)
+        wl = to_local_at(w, at(dim, rep))
+        local[k] = wl if dim is not None else sum_grad(wl, mesh, tp)
+    xl = sum_grad(to_local_at(x, bat), mesh, tp)
+    if cache is None:
+        v = _ssd(local, cfg, xl)
+    else:
+        state_at = {k: at(_STATE_HEAD_DIM.get(
+            k, _STATE_GROUP_DIM.get(k) if g > 1 else None), bat)
+            for k in cache}
+        state = {k: to_local_at(c, state_at[k]).clone()
+                 for k, c in cache.items()}
+        v = _decode(local, cfg, xl, state)
+        for k, c in cache.items():
+            new = DTensor.from_local(state[k], mesh, state_at[k],
+                                     run_check=False, shape=c.shape,
+                                     stride=c.stride())
+            c.to_local().copy_(new.redistribute(mesh,
+                                                c.placements).to_local())
+    if tp:
+        v = _rms_norm_split(v, local["norm"], mesh, tp, cfg.d_inner)
+    else:
+        v = rms_norm(v, local["norm"])
+    return sum_to(v @ local["out"], x, tp, bat, unpartial(x))
+
+
+def _rms_norm_split(v, w, mesh, dims, width: int, eps: float = 1e-6):
+    """`rms_norm` over a last dim of `width` split over the mesh dims
+    `dims`: v and w hold this rank's part."""
+    dt = v.dtype
+    v = v.to(torch.float32)
+    ss = sum_grad(sum_over((v * v).sum(-1, keepdim=True), mesh, dims), mesh,
+                  dims)
+    v = v * torch.rsqrt(ss / width + eps)
+    return (v * w.to(torch.float32)).to(dt)

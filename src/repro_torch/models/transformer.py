@@ -42,9 +42,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..runtime.sharding import (batch_only, constrain, from_local_at,
-                                is_dtensor, reduce_partial, replicated,
-                                replicated_like, to_local_at)
+from ..runtime.sharding import (constrain, is_dtensor, reduce_partial,
+                                replicated, replicated_like)
 from .attention import (ATTENTION_AXES, attention_apply, attention_init,
                         cross_attention)
 from .common import Initializer, ModelConfig
@@ -295,12 +294,9 @@ class DecoderLM(nn.Module):
         if kind == "ssm":
             h = rms_norm(x, w["ln1"])
             if cache is None:
-                return x + _on_shards(lambda wl, hl: ssm_apply(wl, cfg, hl),
-                                      w["ssm"], h), None
+                return x + ssm_apply(w["ssm"], cfg, h), None
             state = {k: v[s] for k, v in cache["ssm"].items()}
-            if not is_dtensor(state["h"]):
-                return x + ssm_decode_step(w["ssm"], cfg, h, state), None
-            return x + _ssm_decode_on_shards(w["ssm"], cfg, h, state), None
+            return x + ssm_decode_step(w["ssm"], cfg, h, state), None
         if kind == "cross":
             h = cross_attention(w["xattn"], cfg, rms_norm(x, w["ln1"]),
                                 kv_x=image_embeds)
@@ -315,8 +311,7 @@ class DecoderLM(nn.Module):
                                 cache_index=index)
         h2 = rms_norm(x, w["ln2"])
         if kind == "moe":
-            y, aux = _on_shards(lambda wl, hl: moe_apply(wl, cfg, hl),
-                                w["moe"], h2, whole=True)
+            y, aux = moe_apply(w["moe"], cfg, h2)
             return x + y, aux
         return x + mlp_apply(w["mlp"], h2, cfg.mlp_act), None
 
@@ -419,51 +414,6 @@ class DecoderLM(nn.Module):
                                    cache=cache[f"b{j}"], s=s, index=index)
         x = rms_norm(x, self.final_ln)
         return logits_last(x[:, 0], emb)
-
-
-def _on_shards(fn, weights: dict, x, *, whole: bool = False, like=None):
-    """fn(weights, x) on local tensors when x is a DTensor: the weights
-    gathered whole, x with its batch shard kept (`whole`: gathered whole
-    too, as the MoE's capacity counts every token of the batch; `like`: at
-    the batch shard of that DTensor instead of x's); the outputs come back
-    as DTensors at x's local placements.  A plain x: fn itself."""
-    if not is_dtensor(x):
-        return fn(weights, x)
-    at = (replicated(x) if whole else
-          batch_only(x if like is None else like))
-    out = fn(_whole_locals(weights), to_local_at(x, at))
-    if isinstance(out, tuple):
-        return tuple(from_local_at(o, x, at if o.dim() else replicated(x))
-                     for o in out)
-    return from_local_at(out, x, at)
-
-
-def _ssm_decode_on_shards(w: dict, cfg, h, state: dict):
-    """The SSM decode step on a mesh: each state leaf of this layer (the
-    conv contexts and h, O(1) a sequence) gathered whole but for its batch
-    shard, the step run on local tensors (writing those copies), and each
-    rank's shard of the new state written back into the cache through
-    `to_local()`."""
-    from torch.distributed.tensor import DTensor
-
-    at = {k: batch_only(v) for k, v in state.items()}
-    local = {k: to_local_at(v, at[k]).clone() for k, v in state.items()}
-    y = _on_shards(lambda wl, hl: ssm_decode_step(wl, cfg, hl, local), w, h,
-                   like=state["h"])
-    for k, v in state.items():
-        new = DTensor.from_local(local[k], v.device_mesh, at[k],
-                                 run_check=False, shape=v.shape,
-                                 stride=v.stride())
-        v.to_local().copy_(new.redistribute(v.device_mesh,
-                                            v.placements).to_local())
-    return y
-
-
-def _whole_locals(tree):
-    """Every DTensor of a nested dict gathered whole, as a local tensor."""
-    if isinstance(tree, dict):
-        return {k: _whole_locals(v) for k, v in tree.items()}
-    return to_local_at(tree, replicated(tree)) if is_dtensor(tree) else tree
 
 
 def lm_forward(model: DecoderLM, tokens, image_embeds=None):

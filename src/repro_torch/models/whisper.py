@@ -305,46 +305,14 @@ class Whisper(nn.Module):
     @torch.no_grad()
     def decode_step(self, token, cache: dict, index: int):
         """token (B, 1) int at position `index` against the cache (updated
-        in place) -> logits (B, V) float32."""
+        in place) -> logits (B, V) float32.  On a mesh (DTensor weights
+        and cache) the token ids go whole and each attention runs through
+        `decode_on_shards`."""
         cfg = self.config
         wts = self.decode_weights()
-        if is_dtensor(cache["k"]):
-            return self._decode_on_mesh(wts, token, cache, index)
         b = token.shape[0]
         hd, hkv, hq = cfg.hd, cfg.n_kv_heads, cfg.n_heads
-        x = wts["embed"][token]                              # (B, 1, D)
-        x = x + wts["pos_dec"][index].to(x.dtype)
-        for i, w in enumerate(wts["blocks"]):
-            h = _ln(x, w["ln1"])
-            q = (h @ w["self"]["wq"]).reshape(b, 1, hq, hd)
-            kc, vc = cache["k"][i], cache["v"][i]
-            kc[:, index:index + 1] = (h @ w["self"]["wk"]).reshape(
-                b, 1, hkv, hd)
-            vc[:, index:index + 1] = (h @ w["self"]["wv"]).reshape(
-                b, 1, hkv, hd)
-            a = chunked_decode_attention(q[:, 0], kc, vc, length=index + 1,
-                                         k_chunk=cfg.attn_k_chunk)
-            x = x + a.reshape(b, 1, hq * hd) @ w["self"]["wo"]
-            # cross-attention against the precomputed encoder K/V
-            h = _ln(x, w["ln2"])
-            q = (h @ w["cross"]["wq"]).reshape(b, 1, hq, hd)
-            xk, xv = cache["xk"][i], cache["xv"][i]
-            a = chunked_decode_attention(q[:, 0], xk, xv,
-                                         length=xk.shape[1],
-                                         k_chunk=cfg.attn_k_chunk)
-            x = x + a.reshape(b, 1, hq * hd) @ w["cross"]["wo"]
-            x = x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
-        x = _ln(x, wts["ln"])
-        return logits_last(x[:, 0], wts["embed"])
-
-    def _decode_on_mesh(self, wts, token, cache: dict, index: int):
-        """`decode_step` with DTensor weights and cache: the token ids
-        whole, the self K/V written and attended through
-        `decode_on_shards`, the cross K/V attended the same way without a
-        write."""
-        cfg = self.config
-        b = token.shape[0]
-        hd, hkv, hq = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+        kc = cfg.attn_k_chunk
         emb = wts["embed"]
         if is_dtensor(token):
             token = token.redistribute(token.device_mesh,
@@ -356,20 +324,34 @@ class Whisper(nn.Module):
             q = matmul(h, w["self"]["wq"]).reshape(b, 1, hq, hd)
             k = matmul(h, w["self"]["wk"]).reshape(b, 1, hkv, hd)
             v = matmul(h, w["self"]["wv"]).reshape(b, 1, hkv, hd)
-            a = decode_on_shards(q, k, v, {"k": cache["k"][i],
-                                           "v": cache["v"][i]},
-                                 index, cfg.attn_k_chunk)
+            a = _decode_attend(q, k, v, cache["k"][i], cache["v"][i], index,
+                               index + 1, kc)
             x = x + matmul(a.reshape(b, 1, hq * hd), w["self"]["wo"])
+            # cross-attention against the precomputed encoder K/V
             h = _ln(x, w["ln2"])
             q = matmul(h, w["cross"]["wq"]).reshape(b, 1, hq, hd)
             xk = cache["xk"][i]
-            a = decode_on_shards(q, None, None, {"k": xk,
-                                                 "v": cache["xv"][i]},
-                                 0, cfg.attn_k_chunk, length=xk.shape[1])
+            a = _decode_attend(q, None, None, xk, cache["xv"][i], 0,
+                               xk.shape[1], kc)
             x = x + matmul(a.reshape(b, 1, hq * hd), w["cross"]["wo"])
             x = x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
         x = _ln(x, wts["ln"])
         return logits_last(x[:, 0], emb)
+
+
+def _decode_attend(q, k, v, kc, vc, index: int, length: int, k_chunk: int):
+    """q (B,1,Hq,hd) against one layer's cache kc/vc (B,T,Hkv,hd) with
+    `length` valid positions, the new row k/v (B,1,Hkv,hd) written at
+    `index` first (None: no write, the cross K/V) -> (B,1,Hq,hd).  A
+    DTensor cache goes through `decode_on_shards`."""
+    if is_dtensor(kc):
+        return decode_on_shards(q, k, v, {"k": kc, "v": vc}, index, k_chunk,
+                                length=length)
+    if k is not None:
+        kc[:, index:index + 1] = k
+        vc[:, index:index + 1] = v
+    return chunked_decode_attention(q[:, 0], kc, vc, length=length,
+                                    k_chunk=k_chunk)[:, None]
 
 
 def encode(model: Whisper, frames):

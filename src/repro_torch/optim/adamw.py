@@ -25,6 +25,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..runtime.sharding import is_dtensor, reduce_partial
 
@@ -97,8 +98,6 @@ def _sumsq(x: torch.Tensor) -> torch.Tensor:
     if not is_dtensor(x):
         return sum(torch.dot(c.to(torch.float32), c.to(torch.float32))
                    for c in _chunks(x))
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
     local = _sumsq(reduce_partial(x).to_local().contiguous())
     part = [Partial() if isinstance(p, Shard) else Replicate()
             for p in x.placements]
@@ -127,8 +126,6 @@ def _shards(p, g, m, v):
     shards."""
     if not is_dtensor(m):
         return p, g, m, v, None
-    from torch.distributed.tensor import DTensor
-
     mesh, pl = m.device_mesh, m.placements
     gl = g.redistribute(mesh, pl).to_local().contiguous()
     if p.placements == pl:
@@ -173,8 +170,6 @@ def _update(state: TrainState, grads: dict, gnorm, *, lr, b1, b2, eps,
             if write_back is not None:
                 write_back()
     if is_dtensor(state.step):
-        from torch.distributed.tensor import DTensor
-
         step = DTensor.from_local(step, state.step.device_mesh,
                                   state.step.placements)
     state.step = step

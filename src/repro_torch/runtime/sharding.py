@@ -23,9 +23,11 @@ run on DTensors through the helpers below it, each the identity on a
 plain tensor: `replicated_like` makes a tensor the model builds for
 itself (RoPE tables, masks, offsets) a replicated DTensor on the mesh of
 the activation it meets; `to_local_at` / `from_local_at` bracket a
-region that runs on local shards (the attention core, the MoE, the SSM
-scan); `matmul`, `reduce_partial`, `whole_dim` and `seq_whole` gather
-where DTensor has no working strategy (listed in PERF.md).
+region that runs on local shards (the attention core, the MoE, the SSM),
+where `sum_over` sums the ranks' parts of an output and `sum_grad` the
+gradient of what each rank holds whole but uses a part of; `matmul`,
+`reduce_partial`, `whole_dim` and `seq_whole` gather where DTensor has no
+working strategy (listed in PERF.md).
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ import threading
 from dataclasses import dataclass
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..launch.mesh import mesh_axes
 
@@ -166,8 +170,6 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
     `Replicate()` elsewhere.  A composite entry must name its axes in the
     mesh's dim order (DTensor splits a dim over several mesh dims in that
     order); any other order raises ValueError."""
-    from torch.distributed.tensor import Replicate, Shard
-
     names = list(mesh_axes(mesh))
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
@@ -244,8 +246,6 @@ def active_rules():
 
 
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
     return isinstance(x, DTensor)
 
 
@@ -254,8 +254,6 @@ def replicated_like(t, ref):
     on the mesh of `ref` when `ref` is a DTensor; else `t` itself."""
     if not is_dtensor(ref):
         return t
-    from torch.distributed.tensor import DTensor, Replicate
-
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
@@ -267,8 +265,6 @@ def _gather_where(x, gather):
     anything else as it is."""
     if not is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate
-
     return x.redistribute(x.device_mesh, tuple(
         Replicate() if p.is_partial() or gather(i, p) else p
         for i, p in enumerate(x.placements)))
@@ -284,8 +280,6 @@ def reduce_partial(x):
 def whole_dim(x, dim: int):
     """DTensor `x` with tensor dim `dim` gathered whole and any partial
     placement reduced (the other shards kept); anything else as it is."""
-    from torch.distributed.tensor import Shard
-
     if is_dtensor(x):
         dim %= x.dim()
     return _gather_where(x, lambda i, p: isinstance(p, Shard)
@@ -298,8 +292,6 @@ def seq_whole(x):
     dim already), before a matmul flattens B and S into rows: DTensor
     refuses to merge two sharded dims, or a sharded dim of size one.
     Anything else as it is."""
-    from torch.distributed.tensor import Shard
-
     if not is_dtensor(x) or x.dim() < 3:
         return x
     mesh = x.device_mesh
@@ -314,11 +306,8 @@ class _GradAtOutput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y):
-        from torch.distributed.tensor import Replicate
-
         ctx.mesh = y.device_mesh
-        ctx.placements = tuple(Replicate() if p.is_partial() else p
-                               for p in y.placements)
+        ctx.placements = unpartial(y)
         return y.view_as(y)
 
     @staticmethod
@@ -337,18 +326,71 @@ def matmul(x, w):
     return _GradAtOutput.apply(seq_whole(x) @ w)
 
 
+def _all_reduce(t, mesh, dims):
+    for i in dims:
+        t = funcol.all_reduce(t, "sum", mesh.get_group(i))
+    return funcol.wait_tensor(t)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        return _all_reduce(t.contiguous(), mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.mesh, ctx.dims), None, None
+
+
+def sum_over(t, mesh, dims):
+    """Local tensor `t`, a part of a sum, summed over the ranks of the
+    mesh dims `dims` (an all-reduce); its gradient passes unchanged, as
+    every part had the same."""
+    return _SumOver.apply(t, mesh, tuple(dims)) if dims else t
+
+
+def sum_grad(t, mesh, dims):
+    """Local tensor `t` unchanged, its gradient summed over the ranks of
+    the mesh dims `dims`: for a tensor every rank holds whole but uses
+    only a part of (each rank's gradient is then a part of the sum)."""
+    return _SumGrad.apply(t, mesh, tuple(dims)) if dims else t
+
+
+def sum_to(t, ref, dims, at, target):
+    """Local tensor `t`, this rank's shard at `at` placements of a part of
+    a sum over the ranks of the mesh dims `dims`, as the DTensor of the
+    sum at `target` placements on `ref`'s mesh (a reduce-scatter where
+    `target` shards a summed mesh dim, an all-reduce where it replicates
+    it); its gradient is the gradient at `target`, gathered."""
+    part = tuple(Partial() if i in dims else p for i, p in enumerate(at))
+    return from_local_at(t, ref, part).redistribute(ref.device_mesh,
+                                                    tuple(target))
+
+
+def unpartial(x) -> tuple:
+    """DTensor `x`'s placements with each partial one made `Replicate()`."""
+    return tuple(Replicate() if p.is_partial() else p for p in x.placements)
+
+
 def replicated(x) -> tuple:
     """Placements replicating DTensor `x` on every mesh dim."""
-    from torch.distributed.tensor import Replicate
-
     return (Replicate(),) * x.device_mesh.ndim
 
 
 def batch_only(x) -> tuple:
     """`x`'s placements with every shard but the batch dim's (dim 0)
     replaced by `Replicate()`."""
-    from torch.distributed.tensor import Replicate, Shard
-
     return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
                  for p in x.placements)
 
@@ -368,8 +410,6 @@ def from_local_at(t, ref, target):
     dims that shard it, so every rank's shard must be the same size."""
     if not is_dtensor(ref):
         return t
-    from torch.distributed.tensor import DTensor, Shard
-
     mesh = ref.device_mesh
     shape = list(t.shape)
     for i, p in enumerate(target):
@@ -404,8 +444,6 @@ def _activation_placements(spec, mesh, shape) -> tuple:
     mesh dim of one rank shards it (spec_for lets 1 % 1 pass), which
     moves no data, and DTensor cannot flatten such a dim into rows (a
     microbatch of one sequence)."""
-    from torch.distributed.tensor import Replicate, Shard
-
     return tuple(Replicate() if isinstance(p, Shard) and shape[p.dim] == 1
                  else p for p in placements(spec, mesh))
 
@@ -416,8 +454,6 @@ def constrain(x, logical_axes):
     state = getattr(_ctx, "state", None)
     if state is None:
         return x
-    from torch.distributed.tensor import DTensor
-
     if not isinstance(x, DTensor):
         return x
     mesh, rules = state

@@ -745,10 +745,10 @@ FAMILY_CELLS = {"moe": "olmoe_1b_7b", "ssm": "mamba2_130m",
 @pytest.mark.parametrize("family", list(FAMILY_CELLS))
 def test_every_family_runs_its_cells_on_a_mesh(tmp_path, family):
     """Each family's train and decode cells at smoke size on 2 x 2 gloo
-    ranks (the MoE gathered whole, the SSM scan and its decode state on
-    local shards, the vlm's image embeddings, whisper's frames and cross
-    K/V): the train loss within CELL_TOL of the unsharded step's, the
-    decode's next tokens equal."""
+    ranks (the MoE's experts and the SSM's heads split over the ranks, the
+    vlm's image embeddings, whisper's frames and cross K/V): the train
+    loss within CELL_TOL of the unsharded step's, the decode's next tokens
+    equal."""
     from repro_torch import configs
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import build, smoke_config
@@ -803,3 +803,187 @@ if RANK == 0:
                                     model.init_cache(CELL_B, CELL_S), 5,
                                     **kw)
     assert got["next"] == nxt.flatten().tolist()
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick_400b_a17b"])
+def test_moe_cell_runs_each_ranks_experts_on_their_rows(tmp_path, arch):
+    """The MoE on a 2 x 2 mesh keeps its experts sharded: each rank's
+    expert block holds its half of the experts (the "model" shard of the
+    experts' weights) and its half of their capacity rows (split over
+    "data"), filled by an all-to-all from the ranks that route the
+    tokens; one train step's loss and first moments of every leaf (0.1 x
+    the clipped gradient) equal the unsharded step's, each leaf within
+    1e-5 of its largest magnitude.  maverick adds the shared
+    expert and top-1 routing, and keeps its moments in bfloat16: there
+    a moment may round to the next bfloat16 value, so its leaves are held
+    within 2^-8 of their largest magnitude (one bfloat16 step)."""
+    from repro_torch import configs
+    from repro_torch.models import build, smoke_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    cfg = smoke_config(configs.get(arch))
+    rng = np.random.default_rng(37)
+    data = {k: rng.integers(0, cfg.vocab, (CELL_B, CELL_S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    np.savez(tmp_path / "in.npz", **data)
+    run_world(f"""
+import json
+import numpy as np
+import repro_torch.models.moe as moe
+from repro_torch import configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.models import ShapeSpec, smoke_config
+cfg = smoke_config(configs.get({arch!r}))
+mesh = make_host_mesh(2, device_type="cpu")
+seen, ffn = [], moe._ffn
+
+
+def record(p, cfg, buf):
+    seen.append(list(buf.shape[:2]))
+    return ffn(p, cfg, buf)
+
+
+moe._ffn = record
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", {CELL_S}, {CELL_B},
+                                                 "train"), mesh)
+st, m = fn(*place_cell(fn, specs, shards, (dict(np.load(OUT + "/in.npz")),),
+                       seed=1, device="cpu"))
+mom = {{k: v.full_tensor().float().numpy() for k, v in st.m.items()}}
+json.dump(seen, open(OUT + f"/seen{{RANK}}.json", "w"))
+if RANK == 0:
+    np.savez(OUT + "/m.npz", **mom)
+    json.dump(float(m["loss"]), open(OUT + "/loss.json", "w"))
+""", 4, tmp_path)
+    import json
+    half = cfg.n_experts // 2
+    # a microbatch's tokens set the capacity
+    rows = {-(-capacity(cfg, CELL_B * CELL_S // n) // 2) for n in (1, 2, 4)}
+    for rank in range(4):
+        seen = json.loads((tmp_path / f"seen{rank}.json").read_text())
+        assert seen, rank
+        assert all(n == half and nc in rows for n, nc in seen), (rank, seen)
+    model = build(cfg, device="cpu", seed=1)
+    state, m = make_train_step(model)(adamw_init(model), {
+        k: torch.from_numpy(v) for k, v in data.items()})
+    got = json.loads((tmp_path / "loss.json").read_text())
+    np.testing.assert_allclose(got, float(m["loss"]), **CELL_TOL)
+    mom = np.load(tmp_path / "m.npz")
+    assert set(mom.files) == set(state.m)
+    tol = 2.0 ** -8 if cfg.optimizer_dtype == torch.bfloat16 else 1e-5
+    for k, v in state.m.items():
+        want = v.float().numpy()
+        err = np.abs(mom[k] - want).max()
+        assert err <= tol * np.abs(want).max(), (k, err)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2_7b"])
+def test_ssm_cell_runs_each_ranks_heads(tmp_path, arch):
+    """The SSM on a 2 x 2 mesh splits its heads over "model" (the "mlp"
+    shard of d_inner): every SSD and decode step a rank runs holds half
+    the heads.  One train step's loss and the first moments of every leaf
+    equal the unsharded step's, each leaf within 1e-4 of its largest
+    magnitude (the head-split norm and output sums reorder float32 sums,
+    and the gradients of D and dt_bias cancel: zamba2's reach 2.4e-5);
+    a decode step from a random cache gives the unsharded
+    step's next tokens and every cache leaf within CELL_TOL (the state
+    written back shard by shard)."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build, smoke_config
+    from repro_torch.optim.adamw import adamw_init, make_train_step
+
+    cfg = smoke_config(configs.get(arch))
+    model = build(cfg, device="cpu", seed=1)
+    rng = np.random.default_rng(41)
+    data = {k: rng.integers(0, cfg.vocab, (CELL_B, CELL_S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    tok = rng.integers(0, cfg.vocab, (CELL_B, 1)).astype(np.int32)
+    cache = {f"{j}/{kind}/{k}": rng.standard_normal(v.shape).astype(
+                 np.float32)
+             for j, d in model.init_cache(CELL_B, CELL_S).items()
+             for kind, leaves in d.items() for k, v in leaves.items()}
+    np.savez(tmp_path / "in.npz", tok=tok, **data)
+    np.savez(tmp_path / "cache.npz", **cache)
+    run_world(f"""
+import json
+import numpy as np
+import repro_torch.models.ssm as ssm
+from repro_torch import configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.models import ShapeSpec, smoke_config
+cfg = smoke_config(configs.get({arch!r}))
+mesh = make_host_mesh(2, device_type="cpu")
+seen, ssd, dec = [], ssm._ssd, ssm._decode
+
+
+def rec_ssd(p, cfg, x):
+    seen.append(["ssd", ssm._dims(p, cfg)[0]])
+    return ssd(p, cfg, x)
+
+
+def rec_dec(p, cfg, x, cache):
+    seen.append(["decode", ssm._dims(p, cfg)[0]])
+    return dec(p, cfg, x, cache)
+
+
+ssm._ssd, ssm._decode = rec_ssd, rec_dec
+d = dict(np.load(OUT + "/in.npz"))
+tok = d.pop("tok")
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", {CELL_S}, {CELL_B},
+                                                 "train"), mesh)
+st, m = fn(*place_cell(fn, specs, shards, (d,), seed=1, device="cpu"))
+mom = {{k: v.full_tensor().float().numpy() for k, v in st.m.items()}}
+cache = {{}}
+for name, v in np.load(OUT + "/cache.npz").items():
+    j, kind, k = name.split("/")
+    cache.setdefault(j, {{}}).setdefault(kind, {{}})[k] = v
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("d", {CELL_S}, {CELL_B},
+                                                 "decode"), mesh)
+nxt, cache = fn(*place_cell(fn, specs, shards, (tok, cache, 5), seed=1,
+                            device="cpu"))
+full = {{f"{{j}}/{{kind}}/{{k}}": v.full_tensor().numpy()
+        for j, dd in cache.items() for kind, leaves in dd.items()
+        for k, v in leaves.items()}}
+json.dump(seen, open(OUT + f"/seen{{RANK}}.json", "w"))
+if RANK == 0:
+    np.savez(OUT + "/m.npz", **mom)
+    np.savez(OUT + "/after.npz", **full)
+    json.dump({{"loss": float(m["loss"]),
+               "next": nxt.full_tensor().flatten().tolist()}},
+              open(OUT + "/r.json", "w"))
+""", 4, tmp_path, timeout=85)
+    import json
+    for rank in range(4):
+        seen = json.loads((tmp_path / f"seen{rank}.json").read_text())
+        assert {k for k, _ in seen} == {"ssd", "decode"}, rank
+        assert all(n == cfg.ssm_heads // 2 for _, n in seen), (rank, seen)
+    got = json.loads((tmp_path / "r.json").read_text())
+    state, m = make_train_step(model)(adamw_init(model), {
+        k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(got["loss"], float(m["loss"]), **CELL_TOL)
+    mom = np.load(tmp_path / "m.npz")
+    assert set(mom.files) == set(state.m)
+    for k, v in state.m.items():
+        want = v.float().numpy()
+        err = np.abs(mom[k] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (k, err)
+    full = {}
+    for name, v in cache.items():
+        j, kind, k = name.split("/")
+        full.setdefault(j, {}).setdefault(kind, {})[k] = torch.from_numpy(
+            v.copy())
+    model = build(cfg, device="cpu", seed=1)
+    nxt, full = make_serve_step(model)(torch.from_numpy(tok), full, 5)
+    assert got["next"] == nxt.flatten().tolist()
+    after = np.load(tmp_path / "after.npz")
+    assert set(after.files) == set(cache)
+    for name in cache:
+        j, kind, k = name.split("/")
+        want = full[j][kind][k].numpy()
+        np.testing.assert_allclose(after[name], want, **CELL_TOL,
+                                   err_msg=name)
+        if kind == "ssm":
+            assert not np.array_equal(want, cache[name]), name

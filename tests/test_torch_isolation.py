@@ -30,6 +30,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         # the model cell
         import repro_torch.launch.steps, repro_torch.launch.variants
         import repro_torch.launch.hlo_analysis, repro_torch.models.zoo
+        import repro_torch.launch.ab_launchers
         for mod in pkgutil.walk_packages(repro_torch.__path__,
                                          "repro_torch."):
             importlib.import_module(mod.name)
@@ -65,7 +66,7 @@ def test_no_source_imports_jax_or_reference():
                  "runtime/pipeline.py", "runtime/elastic.py",
                  "optim/grad_compress.py", "launch/steps.py",
                  "launch/variants.py", "launch/hlo_analysis.py",
-                 "models/zoo.py"):
+                 "models/zoo.py", "launch/ab_launchers.py"):
         assert PKG / name in files, name
     for path in files:
         for name in _imports(path):
