@@ -83,7 +83,17 @@ Phases, each of which makes the script exit non-zero when it fails:
      unsharded step on the same weights and inputs (loss and four leaves
      within 1e-5 relative, logits within 1e-4, next tokens and written
      cache rows torch.equal), then timed alone (wall, device time, busy
-     share, peak memory): "cell" lines; then
+     share, peak memory): "cell" lines; then the dry run
+     (`launch/dryrun.py`), in processes of its own started together, each
+     in a fake world: the same three cells counted on fake CUDA tensors
+     in a world of one rank, their flops, collectives and argument bytes
+     equal to the "cell" lines' and their predicted peak (argument + temp
+     bytes) within 10% of the measured one, and phi4-mini's four
+     STANDARD_SHAPES on the (32, 8) mesh in a world of 256 through the
+     dry run's CLI (decode_32k through `launch/perf.py` over base, no_fsdp
+     and bf16_params), each ok or skipped with no probe error, its
+     argument bytes equal to `argument_table`'s, its peak beside 80 GB
+     and its roofline terms: "dryrun" lines; then
      the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -198,12 +208,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      from torch.profiler's record of the CUDA calls that enqueue them;
      the group pack and E1 must be exactly one.
 
-Phases 3 to 5 drive twenty-nine paths (phi4 and zamba2 training, the
+Phases 3 to 5 drive thirty-one paths (phi4 and zamba2 training, the
 training launcher, whisper's training, the DP step, GPipe, elastic
-re-meshing, launcher pair and quad, the spill launcher with auto and with
-pair, the six zoo runs, whisper's serving, serve attend pair and quad, the
-small serve attend, serve churn pair and quad, page codec pair and quad,
-scan, trace simulator, the sharded attend, the sharded sweep);
+re-meshing, the model cell, the dry run, launcher pair and quad, the
+spill launcher with auto and with pair, the six zoo runs, whisper's
+serving, serve attend pair and quad, the small serve attend, serve churn
+pair and quad, page codec pair and quad, scan, trace simulator, the
+sharded attend, the sharded sweep);
 the launch counters are set to 0 just before each and read just after it,
 and every kernel a path runs must have launched in it.  The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
@@ -218,6 +229,7 @@ import functools
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -314,6 +326,8 @@ PATHS = {
     # the model cell: its steps reach none of K1-K7 or E1 (the reference's
     # model steps have no pallas_call)
     "multi_cell": (),
+    # the dry run counts cells on fake tensors: no kernel
+    "dryrun": (),
 }
 
 
@@ -3115,6 +3129,189 @@ def cell_phase(torch, device, card: str) -> dict:
     return out
 
 
+# the dry run (launch/dryrun.py) on the card's machine: phi4-mini's three
+# cells at CELL_CUTS counted in a fake world of one rank, and phi4-mini's
+# STANDARD_SHAPES on the (32, 8) mesh in a fake world of 256, each count
+# in a process of its own (the default process group is global), all
+# started together; a process that outlives DRYRUN_TIMEOUT fails the phase
+DRYRUN_TIMEOUT = 600
+DRYRUN_VARIANTS = ("base", "no_fsdp", "bf16_params")
+PEAK_TOL = 0.10                 # predicted peak against the measured one
+_DRY_CARD = """
+import json, sys, time
+from repro_torch import configs
+from repro_torch.launch.dryrun import depth_count, fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import SHAPES_BY_NAME, ShapeSpec
+fake_world(1)
+mesh = make_host_mesh(device_type="cuda")
+full = configs.get(sys.argv[1])
+out = {}
+for name, (batch, layers) in json.loads(sys.argv[2]).items():
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    std = SHAPES_BY_NAME[name]
+    t = time.perf_counter()
+    out[name] = depth_count(cfg, ShapeSpec(name, std.seq_len, batch,
+                                           std.kind), mesh, device="cuda")
+    out[name]["count_s"] = time.perf_counter() - t
+print(json.dumps(out))
+"""
+
+
+def dryrun_phase(torch, cells: dict, card: str) -> dict:
+    """The dry run, in processes of its own started together: (1) the
+    card check, phi4-mini's train_4k / decode_32k and prefill_32k cells
+    at the CELL_CUTS shapes counted by `dryrun.depth_count` on fake CUDA
+    tensors in a fake world of one rank ((1, 1) mesh), held against the
+    cell phase's `analyze_step` of the same cells in this run (`cells`):
+    flops, collectives and argument bytes equal, the predicted peak
+    (argument + temp bytes) within PEAK_TOL of the measured
+    `max_memory_allocated`; (2) the production mesh, `python -m
+    repro_torch.launch.dryrun` for phi4-mini x the four STANDARD_SHAPES
+    on (32, 8) in a fake world of 256 (decode_32k through `python -m
+    repro_torch.launch.perf` over DRYRUN_VARIANTS, whose base row is the
+    cell), every cell ok or skipped and without a probe error, its
+    argument bytes equal to `hlo_analysis.argument_table`'s."""
+    from repro_torch.launch.dryrun import OUT_DIR
+    from repro_torch.launch.hlo_analysis import argument_table
+    from repro_torch.launch.perf import LOG as PERF_LOG
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.models import STANDARD_SHAPES
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    py = [sys.executable]
+    card_cuts = {"a": {k: CELL_CUTS[k] for k in ("train_4k", "decode_32k")},
+                 "b": {"prefill_32k": CELL_CUTS["prefill_32k"]}}
+    jobs = {f"card {k}": py + ["-c", _DRY_CARD, CELL_ARCH, json.dumps(v)]
+            for k, v in card_cuts.items()}
+    for shape in STANDARD_SHAPES:
+        if shape.name == "decode_32k":
+            jobs[shape.name] = py + [
+                "-m", "repro_torch.launch.perf", "--arch", CELL_ARCH,
+                "--shape", shape.name, "--force", "--variants",
+                *DRYRUN_VARIANTS]
+        else:
+            jobs[shape.name] = py + [
+                "-m", "repro_torch.launch.dryrun", "--arch", CELL_ARCH,
+                "--shape", shape.name, "--force"]
+    logs = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    t0 = time.perf_counter()
+    procs = {}
+    for k, cmd in jobs.items():
+        with open(logs / f"{k}.out", "w") as o, \
+                open(logs / f"{k}.err", "w") as e:
+            procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=o,
+                                        stderr=e)
+    outs, walls = {}, {}
+    try:
+        while len(walls) < len(procs):
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT:
+                late = sorted(set(procs) - set(walls))
+                fail(f"dryrun {late}: no result within {DRYRUN_TIMEOUT} s")
+            for k, proc in procs.items():
+                if k not in walls and proc.poll() is not None:
+                    walls[k] = time.perf_counter() - t0
+                    outs[k] = (logs / f"{k}.out").read_text()
+                    if proc.returncode:
+                        fail(f"dryrun {k}: exit {proc.returncode}: "
+                             f"{outs[k][-2000:]}"
+                             f"{(logs / f'{k}.err').read_text()[-3000:]}")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(logs, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+
+    # (1) the card check
+    got = {}
+    for k in card_cuts:
+        got.update(json.loads(outs[f"card {k}"].strip().splitlines()[-1]))
+    out = {"card": {}, "production": {}, "walls": walls, "phase_s": phase_s}
+    for name, cell in cells.items():
+        d = got[name]
+        pred, meas = d["peak_bytes"], cell["peak_gb"] * 1e9
+        ratio = pred / meas
+        print(f"dryrun card {name}: {CELL_ARCH} at the cell's cut ("
+              f"{cell['layers']} layers, batch {cell['batch']} of "
+              f"{cell['seq']}), fake CUDA tensors in a fake world of one "
+              f"rank, counted at depths {d['counted_at']} in "
+              f"{d['count_s']:.1f} s: flops {d['flops']:.6g} (cell "
+              f"{cell['flops']:.6g}), collectives "
+              f"{d['collectives']['total_ops']} ops "
+              f"{d['collectives']['total_bytes']} B (cell "
+              f"{cell['collectives']['total_ops']} ops "
+              f"{cell['collectives']['total_bytes']} B), argument bytes "
+              f"{d['argument_bytes']} (cell {cell['argument_bytes']}), bytes "
+              f"accessed {d['bytes_accessed']}, predicted peak "
+              f"{pred / 1e9:.3f} GB (argument {d['argument_bytes'] / 1e9:.3f}"
+              f" + temp {d['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}"
+              f"), measured {cell['peak_gb']:.3f} GB, ratio {ratio:.4f}; "
+              f"card {card}")
+        if d["flops"] != cell["flops"]:
+            fail(f"dryrun card {name}: {d['flops']} flops, the cell ran "
+                 f"{cell['flops']}")
+        for key in ("bytes_by_type", "counts_by_type"):
+            if d["collectives"][key] != cell["collectives"][key]:
+                fail(f"dryrun card {name}: collectives {key} "
+                     f"{d['collectives'][key]}, the cell's "
+                     f"{cell['collectives'][key]}")
+        if d["argument_bytes"] != cell["argument_bytes"]:
+            fail(f"dryrun card {name}: {d['argument_bytes']} argument "
+                 f"bytes, the cell held {cell['argument_bytes']}")
+        if abs(ratio - 1) > PEAK_TOL:
+            fail(f"dryrun card {name}: predicted peak {pred} B is "
+                 f"{ratio:.4f} of the measured {meas:.0f} B")
+        out["card"][name] = {**{k: d[k] for k in (
+            "flops", "bytes_accessed", "collectives", "memory_analysis",
+            "peak_bytes", "count_s", "counted_at")}, "measured_peak_gb":
+            cell["peak_gb"], "ratio": ratio}
+
+    # (2) the production mesh
+    table = {r["shape"]: r["fsdp"] for r in argument_table()
+             if r["arch"] == CELL_ARCH}
+    for shape in STANDARD_SHAPES:
+        tag = f"{CELL_ARCH}__{shape.name}__32x8"
+        r = json.loads((OUT_DIR / f"{tag}.json").read_text())
+        if not (r.get("ok") or r.get("skipped")) or "probe_error" in r:
+            fail(f"dryrun {tag}: {r.get('error') or r.get('probe_error')}")
+        out["production"][shape.name] = r
+        if r.get("skipped"):
+            print(f"dryrun {tag}: skipped ({r['reason']})")
+            continue
+        held = r["memory_analysis"]["argument_size_in_bytes"]
+        if held != table[shape.name]:
+            fail(f"dryrun {tag}: {held} argument bytes, argument_table "
+                 f"{table[shape.name]}")
+        roof = r["roofline"]
+        fits = "fits" if r["peak_bytes"] <= HBM_BYTES else "does not fit"
+        print(f"dryrun {tag}: {r['chips']} fake ranks, device "
+              f"{r['device']}, counted at depths {r['counted_at']} in "
+              f"{r['count_s']} s; argument bytes {held} (argument_table "
+              f"{table[shape.name]}), peak {r['peak_bytes'] / 1e9:.3f} GB "
+              f"beside HBM_BYTES {HBM_BYTES / 1e9:g} GB: {fits}; flops "
+              f"{r['flops']:.6g}, bytes accessed {r['bytes_accessed']}, "
+              f"collectives {r['collectives']['total_bytes']} B; roofline "
+              f"(probes) compute {roof['compute_s']:.6g} s, memory "
+              f"{roof['memory_s']:.6g} s, collective "
+              f"{roof['collective_s']:.6g} s, dominant {roof['dominant']}")
+    out["perf"] = json.loads(PERF_LOG.read_text())[-1]["rows"]
+    for row in out["perf"]:
+        if "error" in row:
+            fail(f"dryrun perf {row['variant']}: {row['error']}")
+        print(f"dryrun perf {CELL_ARCH} decode_32k {row['variant']}: bound "
+              f"{row['bound_s']:.6g} s (compute {row['compute_s']:.6g}, "
+              f"memory {row['memory_s']:.6g}, collective "
+              f"{row['collective_s']:.6g}, dominant {row['dominant']}), "
+              f"argument bytes {row['arg_bytes']}, temp bytes "
+              f"{row['temp_bytes']}")
+    print(f"dryrun: phase {phase_s:.1f} s; process walls " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + f"; card {card}")
+    return out
+
+
 def _check_engine_scan(torch, label, args, kw, outs):
     """A recorded E1 launch replayed from its input carry over its first
     SIM_REPLAY_EVENTS events, by the plain version and by E1 again: every
@@ -3929,7 +4126,7 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
     errs = {name: max(e, geo_errs.get(name, 0.0)) for name, e in errs.items()}
     print(f"phase 2: {time.perf_counter() - t_start:.1f} s")
 
-    # phases 3 to 5: twenty-nine paths, each with the launch counters from 0
+    # phases 3 to 5: thirty-one paths, each with the launch counters from 0
     from repro_torch.serving import ServeLoop
 
     rec = Recorder(torch)
@@ -4020,6 +4217,10 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
                               lambda: cell_phase(torch, device, card))
         print(f"cell: {time.perf_counter() - t0:.1f} s")
     _free_card(torch)
+    t0 = time.perf_counter()
+    multi["dryrun"] = drive("dryrun", lambda: dryrun_phase(
+        torch, multi["cell"], card))
+    print(f"dryrun: {time.perf_counter() - t0:.1f} s")
 
     reports = {}
     launchers = {

@@ -13,11 +13,28 @@ on the local shapes: the flops of one device, as XLA's `cost_analysis`
 of a partitioned module gives them.  The argument bytes a device holds
 are summed from the local shards of the placements (the reference's
 `memory_analysis().argument_size_in_bytes`).
+
+The same run gives the counterparts of XLA's "bytes accessed" and
+`memory_analysis`.  The port runs unfused eager ops, so what its step
+reads and writes is each op's inputs and outputs: `bytes_accessed` sums
+them over every op on local tensors, but for ops that move no data (a
+view, an op whose outputs all alias its inputs without writing them, an
+uninitialised allocation, a wait on a collective).  Memory is counted by
+storage: each storage an op creates is live from that op until the
+storage is freed (a finalizer on it), so `temp_size_in_bytes` is the
+peak of the bytes the step holds beyond its arguments (activations,
+saved tensors, gradients, and the outputs live at that peak), and a card
+holds at most `argument_size_in_bytes + temp_size_in_bytes`
+(`peak_bytes`).  Fake tensors (a dry run) have storages of the same
+sizes as real ones, so both give the same numbers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -88,10 +105,21 @@ def _collective(func, args, out):
     return kind, _nbytes(args[0])
 
 
+# ops that move no data: an output allocated and not written; the wait on
+# a collective and its autograd wrapper (on a fake tensor they return a
+# new storage, which stands for the collective's result, so it is kept)
+_NO_DATA = ("empty", "empty_like", "empty_strided", "new_empty",
+            "new_empty_strided", "wait_tensor", "_wrap_tensor_autograd")
+
+
 class _StepRecorder(TorchDispatchMode):
-    """Records the collectives and flops of ops on local tensors; ops on
-    DTensors are handed on to DTensor (returning NotImplemented), whose
-    own local ops then come back here."""
+    """Records the collectives, flops, bytes accessed and live storage
+    bytes of ops on local tensors; ops on DTensors, and on any other
+    tensor subclass but a FakeTensor (a collective's result waiting for
+    it, `AsyncCollectiveTensor`), are handed on to the subclass
+    (returning NotImplemented), whose own local ops then come back here.
+    Use it in a `with` block: leaving it detaches the finalizers of the
+    storages still live."""
 
     def __init__(self):
         super().__init__()
@@ -100,21 +128,65 @@ class _StepRecorder(TorchDispatchMode):
         self.registry = flop_registry
         self.records: list = []
         self.flops = 0
+        self.bytes_accessed = 0
+        self.live = 0                   # bytes of the storages ops created
+        self.peak = 0
+        self._owned: dict = {}          # storage key -> its finalizer
+        self._lock = threading.Lock()   # backward may free on another thread
+        self.paused = 0                 # inside DTensor's shape inference
+
+    def _free(self, key, n: int) -> None:
+        with self._lock:
+            self.live -= n
+            self._owned.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
+        from torch._subclasses.fake_tensor import FakeTensor
 
         kwargs = kwargs or {}
-        if any(issubclass(t, DTensor) for t in types):
+        if any(t is not torch.Tensor and not issubclass(t, FakeTensor)
+               for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
+        name = func._overloadpacket.__name__
+        # lift_fresh: a constant made on the host, which a real run
+        # allocates before the op and a fake one in it
+        if self.paused or name == "lift_fresh":
+            return out
         rec = _collective(func, args, out)
         if rec is not None:
             self.records.append(rec)
         count = self.registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)
+        ins = [*_leaves(args), *_leaves(kwargs)]
+        outs = list(_leaves(out))
+        # a storage's key: its StorageImpl, shared by every view of it
+        held = {t.untyped_storage()._cdata for t in ins}
+        new = {}
+        for t in outs:
+            st = t.untyped_storage()
+            if st._cdata not in held:
+                new[st._cdata] = st
+        with self._lock:
+            for key, st in new.items():
+                if key not in self._owned:
+                    n = st.nbytes()
+                    self._owned[key] = weakref.finalize(st, self._free, key,
+                                                        n)
+                    self.live += n
+            self.peak = max(self.peak, self.live)
+        if outs and name not in _NO_DATA and (new or
+                                              func._schema.is_mutable):
+            self.bytes_accessed += sum(_nbytes(t) for t in ins + outs)
         return out
+
+    def __exit__(self, *exc):
+        with self._lock:
+            for fin in self._owned.values():
+                fin.detach()
+            self._owned.clear()
+        return super().__exit__(*exc)
 
 
 def _leaves(tree):
@@ -166,17 +238,57 @@ def argument_bytes(arg_specs, in_shardings) -> int:
                                           strict=True))
 
 
+@contextlib.contextmanager
+def _without_shape_inference(rec: _StepRecorder):
+    """`rec` paused while DTensor infers an op's output shape: on a miss
+    of its sharding cache, DTensor runs the op once more on fake tensors
+    of the global shapes (`ShardingPropagator._propagate_tensor_meta*`),
+    which is no work of the step (a step's first run would otherwise
+    count each new op signature once more at its global size)."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+    name = next((n for n in ("_propagate_tensor_meta_non_cached",
+                             "_propagate_tensor_meta")
+                 if n in vars(ShardingPropagator)), None)
+    if name is None:
+        raise RuntimeError("this torch's DTensor has no shape-inference "
+                           "method that analyze_step knows to set aside")
+    infer = vars(ShardingPropagator)[name]
+
+    def paused(self, *a, **kw):
+        rec.paused += 1
+        try:
+            return infer(self, *a, **kw)
+        finally:
+            rec.paused -= 1
+
+    setattr(ShardingPropagator, name, paused)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, infer)
+
+
 def analyze_step(fn, *args) -> dict:
     """Run fn(*args) once and return {"flops": one device's flops,
-    "collectives": `collective_bytes` of what it ran, "argument_bytes":
-    `local_bytes(args)`, "out": fn's result}."""
+    "bytes_accessed": the bytes its ops read and wrote, "collectives":
+    `collective_bytes` of what it ran, "argument_bytes":
+    `local_bytes(args)`, "memory_analysis": {argument_size_in_bytes,
+    output_size_in_bytes (the result's local bytes), temp_size_in_bytes
+    (the peak of the storage bytes the step created and held)},
+    "peak_bytes": argument + temp, the most a device holds, "out": fn's
+    result}."""
     held = local_bytes(args)
     rec = _StepRecorder()
-    with rec:
+    with _without_shape_inference(rec), rec:
         out = fn(*args)
-    return {"flops": float(rec.flops),
+    return {"flops": float(rec.flops), "bytes_accessed": rec.bytes_accessed,
             "collectives": collective_bytes(rec.records),
-            "argument_bytes": held, "out": out}
+            "argument_bytes": held,
+            "memory_analysis": {"argument_size_in_bytes": held,
+                                "output_size_in_bytes": local_bytes(out),
+                                "temp_size_in_bytes": rec.peak},
+            "peak_bytes": held + rec.peak, "out": out}
 
 
 class _MeshShape:

@@ -77,7 +77,9 @@ def mesh_axes(mesh) -> dict[str, int]:
     duck-typed test meshes, `runtime.elastic.Grid`)."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
-        return dict(zip(names, mesh.mesh.shape, strict=True))
+        # sizes by `size(i)`: `mesh.mesh` builds a tensor, which a
+        # FakeTensorMode (a dry run) refuses
+        return {n: mesh.size(i) for i, n in enumerate(names)}
     return dict(mesh.shape)
 
 

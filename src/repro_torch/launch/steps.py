@@ -26,12 +26,14 @@ from ..models.whisper import Whisper, init_whisper
 from ..optim.adamw import (DYN_COUNTER_INIT, TrainState,
                            abstract_opt_state, make_train_step)
 from ..runtime.sharding import (NamedSharding, PartitionSpec, RuleSet,
-                                activation_sharding, is_dtensor, spec_for,
-                                tree_shardings, zero_shardings)
+                                activation_sharding, argmax_last,
+                                is_dtensor, local_shape_and_offset,
+                                spec_for, tree_shardings, zero_shardings)
 
 __all__ = ["CACHE_AXES", "INPUT_AXES", "CellStep", "batch_shardings",
            "build_cell", "cache_shardings", "make_prefill_step",
-           "make_serve_step", "make_train_step", "place_cell"]
+           "make_serve_step", "make_train_step", "place_cell",
+           "place_zeros"]
 
 # logical axes for model inputs, by name
 INPUT_AXES = {
@@ -102,7 +104,7 @@ def make_serve_step(model):
     def serve_step(token, cache, index: int, image_embeds=None):
         kw = {"image_embeds": image_embeds} if vlm else {}
         logits = model.decode_step(token, cache, index, **kw)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        next_token = argmax_last(logits).to(torch.int32)[:, None]
         return next_token, cache
 
     return serve_step
@@ -210,12 +212,10 @@ def _zeros(spec: torch.Tensor, sharding: NamedSharding, device):
     """A DTensor of `spec`'s shape and dtype, zero, each rank allocating
     only its shard."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset)
 
-    local, _ = compute_local_shape_and_global_offset(
-        spec.shape, sharding.mesh, sharding.placements)
-    t = torch.zeros(tuple(local), dtype=spec.dtype, device=device)
+    local, _ = local_shape_and_offset(spec.shape, sharding.mesh,
+                                      sharding.placements)
+    t = torch.zeros(local, dtype=spec.dtype, device=device)
     return DTensor.from_local(t, sharding.mesh, sharding.placements,
                               run_check=False, shape=spec.shape,
                               stride=torch.empty(spec.shape,
@@ -248,8 +248,6 @@ def _place_params(model, shardings: dict, params, seed: int, device):
     The model was built on the meta device; its meta parameters are
     replaced, not materialised (`to_empty` would allocate every full
     tensor)."""
-    from torch import nn
-
     cfg = model.config
     if params is None:
         if cfg.family == "encdec":
@@ -270,14 +268,20 @@ def _place_params(model, shardings: dict, params, seed: int, device):
                              f"wants {tuple(meta.shape)}")
         dt = _local(full.to(cfg.param_dtype), shardings[name], device)
         del full
-        head, _, leaf = name.rpartition(".")
-        owner = model.get_submodule(head) if head else model
-        owner.register_parameter(leaf, nn.Parameter(dt))
+        _set_parameter(model, name, dt)
         placed.add(name)
     missing = set(shardings) - placed
     if missing:
         raise ValueError(f"no values for {sorted(missing)[:8]}")
     model._decode = None
+
+
+def _set_parameter(model, name: str, value) -> None:
+    from torch import nn
+
+    head, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(head) if head else model
+    owner.register_parameter(leaf, nn.Parameter(value))
 
 
 def place_cell(fn: CellStep, arg_specs, in_shardings, values=(), *,
@@ -318,5 +322,37 @@ def place_cell(fn: CellStep, arg_specs, in_shardings, values=(), *,
         step=_place_tree(st.step, first_shard.step, 0, dev),
         dyn_counter=_place_tree(st.dyn_counter, first_shard.dyn_counter,
                                 DYN_COUNTER_INIT, dev),
+        per=getattr(model, "per", 1))
+    return (state, *rest)
+
+
+def place_zeros(fn: CellStep, arg_specs, in_shardings, *, index: int = 0,
+                device="cuda"):
+    """The cell's arguments as `place_cell` returns them, every one a
+    zero DTensor at its placements (each rank allocating only its
+    shards) and nothing drawn from a seed; the decode's index is the
+    Python int `index`.  Under a `FakeTensorMode` this allocates nothing:
+    the arguments of a dry run."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    model = fn.model
+    first = in_shardings[0]
+    pshard = first.params if fn.kind == "train" else first
+    for name, meta in list(model.named_parameters()):
+        _set_parameter(model, name, _zeros(meta, pshard[name], dev))
+    model._decode = None
+    own = dict(model.named_parameters())
+    rest = [_place_tree(spec, shard, None, dev)
+            for spec, shard in zip(arg_specs[1:], in_shardings[1:],
+                                   strict=True)]
+    if fn.kind == "decode":
+        rest[2] = index
+    if fn.kind != "train":
+        return (own, *rest)
+    st = arg_specs[0]
+    state = TrainState(params=own, **{
+        f: _place_tree(getattr(st, f), getattr(first, f), None, dev)
+        for f in ("m", "v", "step", "dyn_counter")},
         per=getattr(model, "per", 1))
     return (state, *rest)

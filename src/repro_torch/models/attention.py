@@ -13,12 +13,11 @@ from __future__ import annotations
 import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import Replicate, Shard
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
 
 from ..runtime.sharding import (constrain, from_local_at, is_dtensor,
-                                matmul, replicated_like, target_placements,
+                                local_shape_and_offset, matmul,
+                                replicated_like, target_placements,
                                 to_local_at)
 from .layers import apply_rope, rms_norm
 
@@ -219,7 +218,7 @@ def decode_on_shards(q, k, v, cache, index: int, k_chunk: int,
                for p in pl)
     ql = to_local_at(q, at)
     kcl, vcl = kc.to_local(), vc.to_local()
-    _, off = compute_local_shape_and_global_offset(kc.shape, mesh, pl)
+    _, off = local_shape_and_offset(kc.shape, mesh, pl)
     t0, tl, s = off[1], kcl.shape[1], q.shape[1]
     if k is not None:
         kl, vl = to_local_at(k, at), to_local_at(v, at)

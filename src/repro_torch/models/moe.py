@@ -24,13 +24,13 @@ from typing import NamedTuple
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
 from torch.distributed.tensor import Replicate, Shard
-from torch.distributed.tensor._utils import \
-    compute_local_shape_and_global_offset
 
-from ..runtime.sharding import (from_local_at, is_dtensor, replicated,
-                                replicated_like, sum_grad, sum_over,
-                                to_local_at)
+from ..runtime.sharding import (from_local_at, is_dtensor,
+                                local_shape_and_offset, mesh_group,
+                                replicated, replicated_like, sum_grad,
+                                sum_over, to_local_at)
 from .layers import MLP_AXES, mlp_apply, mlp_init
 
 # each weight's logical axes, as the reference's init names them
@@ -243,16 +243,14 @@ def _moe_on_mesh(p, cfg, x):
     w = {n: sum_grad(to_local_at(p[n], ep_at), mesh, split)
          for n in ("w1", "w2", "w3") if n in p}
     ne = w["w1"].shape[0]
-    e0 = compute_local_shape_and_global_offset(p["w1"].shape, mesh,
-                                               ep_at)[1][0]
+    e0 = local_shape_and_offset(p["w1"].shape, mesh, ep_at)[1][0]
     nc = -(-cap // _size(mesh, split))
     c0 = _coord(mesh, split) * nc
 
     # route this rank's tokens
     xl = to_local_at(x, x_at)
     bl, sl = xl.shape[:2]
-    b0, s0 = compute_local_shape_and_global_offset(x.shape, mesh,
-                                                   x_at)[1][:2]
+    b0, s0 = local_shape_and_offset(x.shape, mesh, x_at)[1][:2]
     n_tok = bl * sl
     xf = xl.reshape(n_tok, d)
     router = sum_grad(to_local_at(p["router"], replicated(p["router"])),
@@ -271,18 +269,26 @@ def _moe_on_mesh(p, cfg, x):
     lo = min(n_tok, _coord(mesh, rep) * per)
     hi = min(n_tok, lo + per)
     pe, pq = eidx[lo:hi].reshape(-1), place[lo:hi].reshape(-1)
-    kept = torch.nonzero(pq < cap)[:, 0]
-    dest = (_flat_rank(mesh, ep, pe[kept] // ne)
-            + _flat_rank(mesh, split, pq[kept] // nc))
-    srt = torch.sort(dest, stable=True)
-    pair = kept[srt.indices]
-    group = mesh._flatten().get_group() if mesh.ndim > 1 else \
-        mesh.get_group(0)
+    group = mesh_group(mesh)
     n_ranks = mesh.size()
-    send = torch.bincount(srt.values, minlength=n_ranks)
-    recv = funcol.wait_tensor(funcol.all_to_all_single(send, None, None,
-                                                       group))
-    send, recv = send.tolist(), recv.tolist()
+    if detect_fake_mode() is None:
+        kept = torch.nonzero(pq < cap)[:, 0]
+        dest = (_flat_rank(mesh, ep, pe[kept] // ne)
+                + _flat_rank(mesh, split, pq[kept] // nc))
+        srt = torch.sort(dest, stable=True)
+        pair = kept[srt.indices]
+        send = torch.bincount(srt.values, minlength=n_ranks)
+        recv = funcol.wait_tensor(funcol.all_to_all_single(send, None, None,
+                                                           group))
+        send, recv = send.tolist(), recv.tolist()
+    else:
+        # a dry run on fake tensors has no routing to count: every
+        # (expert, capacity row) cell is taken as full, the static E x C
+        # buffer the reference's dispatch moves whatever the routing; this
+        # rank's ne x nc cells come from, and go back to, every rank alike
+        base, extra = divmod(ne * nc, n_ranks)
+        send = recv = [base + (j < extra) for j in range(n_ranks)]
+        pair = torch.zeros(ne * nc, dtype=torch.int64, device=x.device)
     # as in `moe_apply`: a permutation of the repeat, whose gradient sums
     # each token's k rows in a fixed order
     rows = sum_grad(xf, mesh, rep)[lo:hi].repeat_interleave(k, dim=0)[pair]

@@ -249,6 +249,35 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def mesh_group(mesh):
+    """The process group of all of the mesh's ranks (its dims flattened
+    into one), made with every dispatch mode set aside: a new
+    `DeviceMesh` builds its rank tensor, which a `FakeTensorMode` (a dry
+    run) refuses."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if mesh.ndim == 1:
+        return mesh.get_group(0)
+    with _disable_current_modes():
+        return mesh._flatten().get_group()
+
+
+def local_shape_and_offset(shape, mesh, placements) -> tuple:
+    """(local shape, global offset) of this rank's shard of a tensor of
+    `shape` at `placements` on `mesh`, as DTensor computes them, with
+    every dispatch mode set aside: DTensor reads the mesh coordinate
+    through tensor ops on the host, which a `FakeTensorMode` (a dry run)
+    refuses as data-dependent, and which are no work of the step."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        local, off = compute_local_shape_and_global_offset(shape, mesh,
+                                                           placements)
+    return tuple(local), tuple(off)
+
+
 def replicated_like(t, ref):
     """`t`, a tensor the model makes for itself, as a DTensor replicated
     on the mesh of `ref` when `ref` is a DTensor; else `t` itself."""
@@ -419,6 +448,35 @@ def from_local_at(t, ref, target):
     return DTensor.from_local(t.contiguous(), mesh, tuple(target),
                               run_check=False, shape=torch.Size(shape),
                               stride=_contiguous_strides(shape))
+
+
+def argmax_last(x):
+    """`torch.argmax(x, dim=-1)`; for a DTensor, as DTensor's own argmax
+    does it over a split last dim (each rank's local argmax moved to its
+    global index, the (value, index) pairs all-gathered over each mesh
+    dim that splits the dim, the first largest kept), with the shard's
+    offset read outside any dispatch mode: DTensor's reads it through
+    host tensor ops, which a dry run's `FakeTensorMode` refuses."""
+    if not is_dtensor(x):
+        return torch.argmax(x, dim=-1)
+    x = reduce_partial(x)
+    mesh, pl, last = x.device_mesh, x.placements, x.dim() - 1
+    local = x.to_local()
+    idx = torch.argmax(local, dim=last, keepdim=True)
+    split = [i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == last]
+    if split:
+        val = local.gather(last, idx)
+        idx = idx + local_shape_and_offset(x.shape, mesh, pl)[1][last]
+        for i in reversed(split):          # the innermost shards first
+            group = mesh.get_group(i)
+            val = funcol.wait_tensor(funcol.all_gather_tensor(val, last,
+                                                              group))
+            idx = funcol.wait_tensor(funcol.all_gather_tensor(idx, last,
+                                                              group))
+        idx = idx.gather(last, torch.argmax(val, dim=last, keepdim=True))
+    at = tuple(Replicate() if i in split else p for i, p in enumerate(pl))
+    return from_local_at(idx[..., 0], x, at)
 
 
 def _contiguous_strides(shape) -> tuple:
