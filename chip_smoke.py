@@ -84,16 +84,18 @@ Phases, each of which makes the script exit non-zero when it fails:
      within 1e-5 relative, logits within 1e-4, next tokens and written
      cache rows torch.equal), then timed alone (wall, device time, busy
      share, peak memory): "cell" lines; then the dry run
-     (`launch/dryrun.py`), in processes of its own started together, each
-     in a fake world: the same three cells counted on fake CUDA tensors
-     in a world of one rank, their flops, collectives and argument bytes
-     equal to the "cell" lines' and their predicted peak (argument + temp
-     bytes) within 10% of the measured one, and phi4-mini's four
-     STANDARD_SHAPES on the (32, 8) mesh in a world of 256 through the
-     dry run's CLI (decode_32k through `launch/perf.py` over base, no_fsdp
-     and bf16_params), each ok or skipped with no probe error, its
-     argument bytes equal to `argument_table`'s, its peak beside 80 GB
-     and its roofline terms: "dryrun" lines; then
+     (`launch/dryrun.py`), in processes of its own, as many at once as
+     the host has cores, each in a fake world: the same three cells
+     counted on fake CUDA tensors in a world of one rank, their flops,
+     collectives and argument bytes equal to the "cell" lines' and their
+     predicted peak (argument + temp bytes) within 10% of the measured
+     one, phi4-mini's four STANDARD_SHAPES on the (32, 8) mesh in a world
+     of 256 through the dry run's CLI (decode_32k through
+     `launch/perf.py` over base, no_fsdp and bf16_params), each ok or
+     skipped with no probe error, its argument bytes equal to
+     `argument_table`'s, its peak beside 80 GB (train_4k's within it) and
+     its roofline terms, and mamba2-130m's and olmoe-1b-7b's train_4k on
+     (32, 8), ok with no probe error: "dryrun" lines; then
      the serve launcher at the full published phi4-mini-3.8B shape (32
      layers, random weights), once with pair and once with quad packing,
      with the wall time of model build, model decode and serve tier, and
@@ -3130,11 +3132,19 @@ def cell_phase(torch, device, card: str) -> dict:
 
 
 # the dry run (launch/dryrun.py) on the card's machine: phi4-mini's three
-# cells at CELL_CUTS counted in a fake world of one rank, and phi4-mini's
-# STANDARD_SHAPES on the (32, 8) mesh in a fake world of 256, each count
-# in a process of its own (the default process group is global), all
-# started together; a process that outlives DRYRUN_TIMEOUT fails the phase
+# cells at CELL_CUTS counted in a fake world of one rank, phi4-mini's
+# STANDARD_SHAPES and DRYRUN_TRAIN's train_4k on the (32, 8) mesh in a
+# fake world of 256, each count in a process of its own (the default
+# process group is global), as many at once as the host has cores, the
+# longest first (DRYRUN_ORDER); a process that outlives DRYRUN_TIMEOUT
+# fails the phase
 DRYRUN_TIMEOUT = 600
+# train cells whose count once failed on the card's torch: the SSM's and
+# the MoE's sums on a mesh (their probes too)
+DRYRUN_TRAIN = ("mamba2_130m", "olmoe_1b_7b")
+# the jobs by their count's wall on the card's host, longest first
+DRYRUN_ORDER = ("prefill_32k", "card b", "train_4k", "olmoe_1b_7b",
+                "mamba2_130m", "card a", "decode_32k", "long_500k")
 DRYRUN_VARIANTS = ("base", "no_fsdp", "bf16_params")
 PEAK_TOL = 0.10                 # predicted peak against the measured one
 _DRY_CARD = """
@@ -3171,7 +3181,10 @@ def dryrun_phase(torch, cells: dict, card: str) -> dict:
     on (32, 8) in a fake world of 256 (decode_32k through `python -m
     repro_torch.launch.perf` over DRYRUN_VARIANTS, whose base row is the
     cell), every cell ok or skipped and without a probe error, its
-    argument bytes equal to `hlo_analysis.argument_table`'s."""
+    argument bytes equal to `hlo_analysis.argument_table`'s, the train_4k
+    cell's peak within HBM_BYTES (FSDP gathers the weights, not the
+    batch); (3) DRYRUN_TRAIN's train_4k cells on (32, 8), each ok and
+    without a probe error."""
     from repro_torch.launch.dryrun import OUT_DIR
     from repro_torch.launch.hlo_analysis import argument_table
     from repro_torch.launch.perf import LOG as PERF_LOG
@@ -3194,23 +3207,31 @@ def dryrun_phase(torch, cells: dict, card: str) -> dict:
             jobs[shape.name] = py + [
                 "-m", "repro_torch.launch.dryrun", "--arch", CELL_ARCH,
                 "--shape", shape.name, "--force"]
+    for arch in DRYRUN_TRAIN:
+        jobs[arch] = py + ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", "train_4k", "--force"]
+    queue = sorted(jobs, key=lambda k: DRYRUN_ORDER.index(k)
+                   if k in DRYRUN_ORDER else len(DRYRUN_ORDER))
+    slots = max(1, os.cpu_count() or 1)
     logs = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     t0 = time.perf_counter()
-    procs = {}
-    for k, cmd in jobs.items():
-        with open(logs / f"{k}.out", "w") as o, \
-                open(logs / f"{k}.err", "w") as e:
-            procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=o,
-                                        stderr=e)
+    procs, starts = {}, {}
     outs, walls = {}, {}
     try:
-        while len(walls) < len(procs):
+        while len(walls) < len(jobs):
+            while queue and len(procs) - len(walls) < slots:
+                k = queue.pop(0)
+                starts[k] = time.perf_counter() - t0
+                with open(logs / f"{k}.out", "w") as o, \
+                        open(logs / f"{k}.err", "w") as e:
+                    procs[k] = subprocess.Popen(jobs[k], cwd=ROOT, env=env,
+                                                stdout=o, stderr=e)
             if time.perf_counter() - t0 > DRYRUN_TIMEOUT:
-                late = sorted(set(procs) - set(walls))
+                late = sorted(set(jobs) - set(walls))
                 fail(f"dryrun {late}: no result within {DRYRUN_TIMEOUT} s")
-            for k, proc in procs.items():
+            for k, proc in list(procs.items()):
                 if k not in walls and proc.poll() is not None:
-                    walls[k] = time.perf_counter() - t0
+                    walls[k] = time.perf_counter() - t0 - starts[k]
                     outs[k] = (logs / f"{k}.out").read_text()
                     if proc.returncode:
                         fail(f"dryrun {k}: exit {proc.returncode}: "
@@ -3287,6 +3308,9 @@ def dryrun_phase(torch, cells: dict, card: str) -> dict:
                  f"{table[shape.name]}")
         roof = r["roofline"]
         fits = "fits" if r["peak_bytes"] <= HBM_BYTES else "does not fit"
+        if shape.name == "train_4k" and r["peak_bytes"] > HBM_BYTES:
+            fail(f"dryrun {tag}: peak {r['peak_bytes']} B over HBM_BYTES "
+                 f"{HBM_BYTES}")
         print(f"dryrun {tag}: {r['chips']} fake ranks, device "
               f"{r['device']}, counted at depths {r['counted_at']} in "
               f"{r['count_s']} s; argument bytes {held} (argument_table "
@@ -3295,6 +3319,23 @@ def dryrun_phase(torch, cells: dict, card: str) -> dict:
               f"{r['flops']:.6g}, bytes accessed {r['bytes_accessed']}, "
               f"collectives {r['collectives']['total_bytes']} B; roofline "
               f"(probes) compute {roof['compute_s']:.6g} s, memory "
+              f"{roof['memory_s']:.6g} s, collective "
+              f"{roof['collective_s']:.6g} s, dominant {roof['dominant']}")
+    # (3) the train cells that once failed on the card's torch
+    for arch in DRYRUN_TRAIN:
+        tag = f"{arch}__train_4k__32x8"
+        r = json.loads((OUT_DIR / f"{tag}.json").read_text())
+        if not r.get("ok") or "probe_error" in r:
+            fail(f"dryrun {tag}: {r.get('error') or r.get('probe_error')}")
+        out["production"][arch] = r
+        roof = r["roofline"]
+        print(f"dryrun {tag}: {r['chips']} fake ranks, device "
+              f"{r['device']}, counted at depths {r['counted_at']} in "
+              f"{r['count_s']} s, probes without error; peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB beside HBM_BYTES "
+              f"{HBM_BYTES / 1e9:g} GB; flops {r['flops']:.6g}, collectives "
+              f"{r['collectives']['total_bytes']} B; roofline (probes) "
+              f"compute {roof['compute_s']:.6g} s, memory "
               f"{roof['memory_s']:.6g} s, collective "
               f"{roof['collective_s']:.6g} s, dominant {roof['dominant']}")
     out["perf"] = json.loads(PERF_LOG.read_text())[-1]["rows"]
@@ -3307,8 +3348,10 @@ def dryrun_phase(torch, cells: dict, card: str) -> dict:
               f"{row['collective_s']:.6g}, dominant {row['dominant']}), "
               f"argument bytes {row['arg_bytes']}, temp bytes "
               f"{row['temp_bytes']}")
-    print(f"dryrun: phase {phase_s:.1f} s; process walls " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in walls.items()) + f"; card {card}")
+    print(f"dryrun: phase {phase_s:.1f} s on {slots} host cores; process "
+          "walls (started at) " + ", ".join(
+              f"{k} {v:.1f} s ({starts[k]:.1f})" for k, v in walls.items())
+          + f"; card {card}")
     return out
 
 

@@ -30,8 +30,9 @@ full capacity.  The decode runs at index seq_len - 1.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3_8b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--multi-pod] [--force]
+  python -m repro_torch.launch.dryrun --all [--multi-pod] [--force] [--jobs 7]
   python -m repro_torch.launch.dryrun --arch ... --shape ... --variant no_fsdp
+  python -m repro_torch.launch.dryrun --arch ... --shape ... --peak-tensors 12
 
 The fake tensors live on `--device` (default "cuda", which raises without
 a card; `--device cpu` counts on a machine without one).
@@ -104,13 +105,15 @@ def _line(p2, p4, ns: int):
 
 
 def count_cell(cfg, spec, mesh, rules=None, opts=None, *,
-               device="cuda") -> dict:
+               device="cuda", peak_tensors: int = 0) -> dict:
     """One cell counted: built by `build_cell` on `mesh`, its arguments
     placed by `place_zeros` under a `FakeTensorMode` (any data-dependent
     op raises), its step run once under `analyze_step`.  Returns
     {flops, bytes_accessed, collectives, memory_analysis, peak_bytes,
-    argument_bytes}; the argument bytes are counted from the specs
-    (`argument_bytes`), the decode's index (a Python int here) included."""
+    argument_bytes} (and when asked for, `peak_tensors`: the largest
+    storages live at the peak, under the count's depth); the argument
+    bytes are counted from the specs (`argument_bytes`), the decode's
+    index (a Python int here) included."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     fn, specs, shards, _ = build_cell(cfg, spec, mesh, rules,
@@ -118,8 +121,10 @@ def count_cell(cfg, spec, mesh, rules=None, opts=None, *,
     with FakeTensorMode():
         args = place_zeros(fn, specs, shards, index=spec.seq_len - 1,
                            device=device)
-        info = analyze_step(fn, *args)
+        info = analyze_step(fn, *args, peak_tensors=peak_tensors)
     del info["out"], args
+    if peak_tensors:
+        info["peak_tensors"] = {str(_n_supers(cfg)): info["peak_tensors"]}
     held = argument_bytes(specs, shards)
     info["argument_bytes"] = held
     info["memory_analysis"]["argument_size_in_bytes"] = held
@@ -163,7 +168,7 @@ def probe_costs(cfg, spec, mesh, rules, opts=None, *, device="cuda") -> dict:
 
 
 def depth_count(cfg, spec, mesh, rules=None, opts=None, *,
-                device="cuda") -> dict:
+                device="cuda", peak_tensors: int = 0) -> dict:
     """The cell counted as `count_cell` counts it, but from two depths
     of its own config (its microbatches, remat and chunks): the counts
     at NS = 2 and 4 super-blocks, each quantity on the line through them
@@ -174,13 +179,17 @@ def depth_count(cfg, spec, mesh, rules=None, opts=None, *,
     NS, so the line gives them exactly, and the temp and output bytes of
     a stack of equal super-blocks are linear too (held against a
     full-depth count in PERF.md).  The argument bytes are the full
-    cell's, counted from its specs."""
+    cell's, counted from its specs.  `peak_tensors` (the largest storages
+    live at the peak) are those of each depth counted, by depth."""
     ns = _n_supers(cfg)
     if ns <= 4:
-        return {**count_cell(cfg, spec, mesh, rules, opts, device=device),
+        return {**count_cell(cfg, spec, mesh, rules, opts, device=device,
+                             peak_tensors=peak_tensors),
                 "counted_at": [ns]}
     at = [count_cell(cfg.replace(**_depth(cfg, k)), spec, mesh, rules, opts,
-                     device=device) for k in (2, 4)]
+                     device=device, peak_tensors=peak_tensors)
+          for k in (2, 4)]
+    tops = {k: v for c in at for k, v in c.pop("peak_tensors", {}).items()}
 
     def line(a, b):
         if isinstance(a, dict):
@@ -195,6 +204,8 @@ def depth_count(cfg, spec, mesh, rules=None, opts=None, *,
         "argument_size_in_bytes"] = held
     out["peak_bytes"] = held + out["memory_analysis"]["temp_size_in_bytes"]
     out["counted_at"] = [2, 4]
+    if tops:
+        out["peak_tensors"] = tops
     return out
 
 
@@ -227,15 +238,18 @@ def fake_world(size: int) -> None:
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              variant: str = "base", force: bool = False, *,
-             device="cuda", full_depth: bool = False) -> dict:
+             device="cuda", full_depth: bool = False,
+             peak_tensors: int = 0) -> dict:
     """Count one cell on the production mesh ((32, 8), or (2, 32, 8)
     with `multi_pod`) in a fake world of its 256 / 512 ranks, write its
     record and return it; a record already written is returned as it is
     unless `force`.  The count is `depth_count`'s, or with `full_depth`
     `count_cell`'s at the cell's own depth (what `depth_count` is held
-    against).  A failure is recorded (ok false, the error and its
-    traceback), never raised; a probe failure is recorded as
-    `probe_error` and the roofline then reads the count."""
+    against).  With `peak_tensors` the record also lists that many of
+    the largest storages live at the peak, by depth counted.  A failure
+    is recorded (ok false, the error and its traceback), never raised; a
+    probe failure is recorded as `probe_error` and the roofline then
+    reads the count."""
     from ..device import resolve_device
 
     mesh_name = "2x32x8" if multi_pod else "32x8"
@@ -270,11 +284,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     try:
         t0 = time.time()
         if full_depth:
-            rec.update(count_cell(cfg, spec, mesh, rules, opts, device=dev),
+            rec.update(count_cell(cfg, spec, mesh, rules, opts, device=dev,
+                                  peak_tensors=peak_tensors),
                        counted_at=[_n_supers(cfg)])
         else:
             rec.update(depth_count(cfg, spec, mesh, rules, opts,
-                                   device=dev))
+                                   device=dev, peak_tensors=peak_tensors))
         rec["count_s"] = round(time.time() - t0, 2)
         rec["ok"] = True
         try:
@@ -318,6 +333,46 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return rec
 
 
+def _sweep_in_processes(cells, variant: str, argv: list, jobs: int) -> list:
+    """Each (arch, shape, multi_pod) cell of `cells` counted by this
+    module at `variant` in a process of its own with the flags `argv`
+    (the default process group is global, so a process counts one mesh),
+    `jobs` at a time in the given order; each process's "[OK]" / "[FAIL]"
+    line (all its output if it failed) printed as it ends.  Returns the
+    records (a cell whose process wrote none: ok false)."""
+    import subprocess
+    import sys
+
+    queue, running, recs = list(cells), {}, []
+    while queue or running:
+        while queue and len(running) < jobs:
+            arch, shape, mp = cell = queue.pop(0)
+            running[cell] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--variant", variant,
+                 *(["--multi-pod"] if mp else []), *argv],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell, proc in list(running.items()):
+            if proc.poll() is None:
+                continue
+            del running[cell]
+            lines = proc.stdout.read().splitlines(keepends=True)
+            proc.stdout.close()
+            if proc.returncode == 0:
+                lines = [ln for ln in lines
+                         if ln.startswith(("[OK]", "[FAIL]"))]
+            print("".join(lines), end="", flush=True)
+            arch, shape, mp = cell
+            tag = f"{arch}__{shape}__{'2x32x8' if mp else '32x8'}" + (
+                f"__{variant}" if variant != "base" else "")
+            path = OUT_DIR / f"{tag}.json"
+            recs.append(json.loads(path.read_text()) if path.exists() else
+                        {"tag": tag, "ok": False,
+                         "error": f"exit {proc.returncode}"})
+        time.sleep(0.2)
+    return recs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default=None)
@@ -331,19 +386,30 @@ def main(argv=None) -> None:
                     help="device of the fake tensors (cuda needs a card)")
     ap.add_argument("--full-depth", action="store_true",
                     help="count at the cell's own depth, not from two")
+    ap.add_argument("--peak-tensors", type=int, default=0, metavar="N",
+                    help="record the N largest storages live at the peak")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --all: cells counted in this many processes "
+                         "at once")
     args = ap.parse_args(argv)
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     if args.all:
-        failures = 0
-        for arch in configs.ARCHS:
-            for spec in STANDARD_SHAPES:
-                for mp in meshes:
-                    rec = run_cell(arch, spec.name, mp, args.variant,
-                                   args.force, device=args.device,
-                                   full_depth=args.full_depth)
-                    failures += 0 if rec.get("ok") or rec.get("skipped") \
-                        else 1
+        cells = [(arch, spec.name, mp) for arch in configs.ARCHS
+                 for spec in STANDARD_SHAPES for mp in meshes]
+        if args.jobs > 1:
+            flags = ["--device", args.device, "--peak-tensors",
+                     str(args.peak_tensors)]
+            flags += ["--force"] * args.force
+            flags += ["--full-depth"] * args.full_depth
+            recs = _sweep_in_processes(cells, args.variant, flags,
+                                       args.jobs)
+        else:
+            recs = [run_cell(arch, shape, mp, args.variant, args.force,
+                             device=args.device, full_depth=args.full_depth,
+                             peak_tensors=args.peak_tensors)
+                    for arch, shape, mp in cells]
+        failures = sum(not (r.get("ok") or r.get("skipped")) for r in recs)
         print(f"dry-run sweep complete; failures={failures}")
         raise SystemExit(1 if failures else 0)
 
@@ -352,7 +418,8 @@ def main(argv=None) -> None:
     for mp in meshes:
         rec = run_cell(configs.canonical(args.arch), args.shape, mp,
                        args.variant, args.force, device=args.device,
-                       full_depth=args.full_depth)
+                       full_depth=args.full_depth,
+                       peak_tensors=args.peak_tensors)
         if not (rec.get("ok") or rec.get("skipped")):
             print(rec.get("traceback", rec.get("error")))
             raise SystemExit(1)

@@ -32,6 +32,7 @@ sizes as real ones, so both give the same numbers.
 from __future__ import annotations
 
 import contextlib
+import heapq
 import math
 import threading
 import weakref
@@ -119,10 +120,15 @@ class _StepRecorder(TorchDispatchMode):
     it, `AsyncCollectiveTensor`), are handed on to the subclass
     (returning NotImplemented), whose own local ops then come back here.
     Use it in a `with` block: leaving it detaches the finalizers of the
-    storages still live."""
+    storages still live.  With `top` > 0 it also keeps, at each new
+    peak, the `top` largest storages live then: the op that made each,
+    its shape, dtype and bytes (`peak_tensors`)."""
 
-    def __init__(self):
+    def __init__(self, top: int = 0):
         super().__init__()
+        self.top = top
+        self.peak_tensors: list = []
+        self._made: dict = {}           # storage key -> (op, shape, dtype, n)
         from torch.utils.flop_counter import flop_registry
 
         self.registry = flop_registry
@@ -139,6 +145,7 @@ class _StepRecorder(TorchDispatchMode):
         with self._lock:
             self.live -= n
             self._owned.pop(key, None)
+            self._made.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -167,14 +174,23 @@ class _StepRecorder(TorchDispatchMode):
         for t in outs:
             st = t.untyped_storage()
             if st._cdata not in held:
-                new[st._cdata] = st
+                new[st._cdata] = (st, t)
         with self._lock:
-            for key, st in new.items():
+            for key, (st, t) in new.items():
                 if key not in self._owned:
                     n = st.nbytes()
                     self._owned[key] = weakref.finalize(st, self._free, key,
                                                         n)
                     self.live += n
+                    if self.top:
+                        self._made[key] = (name, list(t.shape),
+                                           str(t.dtype).removeprefix(
+                                               "torch."), n)
+            if self.live > self.peak and self.top:
+                self.peak_tensors = [
+                    dict(zip(("op", "shape", "dtype", "bytes"), m))
+                    for m in heapq.nlargest(self.top, self._made.values(),
+                                            key=lambda m: m[3])]
             self.peak = max(self.peak, self.live)
         if outs and name not in _NO_DATA and (new or
                                               func._schema.is_mutable):
@@ -186,6 +202,7 @@ class _StepRecorder(TorchDispatchMode):
             for fin in self._owned.values():
                 fin.detach()
             self._owned.clear()
+            self._made.clear()
         return super().__exit__(*exc)
 
 
@@ -269,7 +286,7 @@ def _without_shape_inference(rec: _StepRecorder):
         setattr(ShardingPropagator, name, infer)
 
 
-def analyze_step(fn, *args) -> dict:
+def analyze_step(fn, *args, peak_tensors: int = 0) -> dict:
     """Run fn(*args) once and return {"flops": one device's flops,
     "bytes_accessed": the bytes its ops read and wrote, "collectives":
     `collective_bytes` of what it ran, "argument_bytes":
@@ -277,18 +294,22 @@ def analyze_step(fn, *args) -> dict:
     output_size_in_bytes (the result's local bytes), temp_size_in_bytes
     (the peak of the storage bytes the step created and held)},
     "peak_bytes": argument + temp, the most a device holds, "out": fn's
-    result}."""
+    result}; with `peak_tensors` > 0 also "peak_tensors", that many of
+    the largest storages live at the peak (op, shape, dtype, bytes)."""
     held = local_bytes(args)
-    rec = _StepRecorder()
+    rec = _StepRecorder(peak_tensors)
     with _without_shape_inference(rec), rec:
         out = fn(*args)
-    return {"flops": float(rec.flops), "bytes_accessed": rec.bytes_accessed,
+    info = {"flops": float(rec.flops), "bytes_accessed": rec.bytes_accessed,
             "collectives": collective_bytes(rec.records),
             "argument_bytes": held,
             "memory_analysis": {"argument_size_in_bytes": held,
                                 "output_size_in_bytes": local_bytes(out),
                                 "temp_size_in_bytes": rec.peak},
             "peak_bytes": held + rec.peak, "out": out}
+    if peak_tensors:
+        info["peak_tensors"] = rec.peak_tensors
+    return info
 
 
 class _MeshShape:

@@ -5,10 +5,15 @@ chunked cross-entropy and the decode logits."""
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..runtime.sharding import matmul, replicated_like, seq_whole, whole_dim
+from ..runtime.sharding import (from_local_at, is_dtensor,
+                                local_shape_and_offset, matmul,
+                                replicated, replicated_like, sum_over,
+                                target_placements, to_local_at)
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -87,15 +92,64 @@ def mlp_init(ini, d_model: int, d_ff: int, act: str) -> dict:
     return p
 
 
-def _xent_chunk(hc, yc, mc, wt):
-    """One chunk's summed NLL and label count, float32."""
-    logits = matmul(hc, wt.T).to(torch.float32)         # (B, c, V)
-    # on a mesh: DTensor's gather along a sharded vocab masks the wrong
-    # rows, so the chunk's logits are gathered whole on the vocab first
-    logits = whole_dim(logits, -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+def _xent_chunk(hc, yc, mc, wt, mesh=None, vocab=(), v0=0):
+    """One chunk's summed NLL and label count, float32: hc (b, c, D)
+    against wt (v, D), the columns of the vocab from `v0`.  On a mesh
+    these are this rank's shards (`_on_shards`) and the vocab's mesh dims
+    `vocab` give the logsumexp an all-reduce max and an all-reduce sum;
+    the label's logit is taken on the rank whose columns hold it (0
+    elsewhere) and summed over them.  Without vocab dims:
+    `torch.logsumexp` and `torch.gather`, as the unsharded step computes
+    them."""
+    logits = (hc @ wt.T).to(torch.float32)              # (b, c, v)
+    if vocab:
+        with torch.no_grad():
+            m = logits.amax(dim=-1)
+            for i in vocab:
+                m = funcol.wait_tensor(funcol.all_reduce(
+                    m, "max", mesh.get_group(i)))
+        lse = m + torch.log(sum_over(
+            torch.exp(logits - m[..., None]).sum(dim=-1), mesh, vocab))
+        idx = yc.long() - v0
+        mine = (idx >= 0) & (idx < logits.shape[-1])
+        gold = torch.gather(logits, -1,
+                            torch.where(mine, idx, 0)[..., None])[..., 0]
+        gold = sum_over(torch.where(mine, gold, 0.0), mesh, vocab)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def _on_shards(h, wt, labels, label_mask):
+    """The xent's operands on a mesh as this rank's local tensors: h's
+    rows of the batch as the rules split it (the sequence and D whole),
+    the embedding's rows of the vocab, gathered on every other mesh dim
+    (FSDP's all-gather of its D shards: the batch is never gathered),
+    and the labels and mask at h's rows.  Their gradients go back as
+    partial sums (the embedding's over the rows' mesh dims, h's over the
+    vocab's), which DTensor reduce-scatters to their shards.  Returns
+    (h, wt, labels, mask, mesh, vocab dims, rows dims, the vocab
+    offset)."""
+    h = h.redistribute(h.device_mesh,
+                       target_placements(h, ("batch", None, None)))
+    mesh, hp, wp = h.device_mesh, h.placements, wt.placements
+    big = [i for i in range(mesh.ndim) if mesh.size(i) > 1]
+    rows = tuple(i for i in big if isinstance(hp[i], Shard))
+    vocab = tuple(i for i in big if isinstance(wp[i], Shard)
+                  and wp[i].dim == 0)
+    if set(rows) & set(vocab):
+        raise ValueError(f"xent: the batch {hp} and the vocab {wp} split "
+                         "over one mesh dim")
+    w_at = tuple(Shard(0) if i in vocab else Replicate()
+                 for i in range(mesh.ndim))
+    wl = wt.redistribute(mesh, w_at).to_local(grad_placements=tuple(
+        Partial() if i in rows else p for i, p in enumerate(w_at)))
+    hl = h.to_local(grad_placements=tuple(
+        Partial() if i in vocab else p for i, p in enumerate(hp)))
+    v0 = local_shape_and_offset(wt.shape, mesh, w_at)[1][0]
+    return (hl, wl, to_local_at(labels, hp), to_local_at(label_mask, hp),
+            mesh, vocab, rows, v0)
 
 
 def chunked_softmax_xent(h, embed, labels, chunk: int = 512,
@@ -108,26 +162,33 @@ def chunked_softmax_xent(h, embed, labels, chunk: int = 512,
     its logits -> logsumexp -> NLL under `checkpoint`, so its (B, c, V)
     logits are recomputed in backward and never outlive the chunk.  The
     sums run in float32 in the reference's order: chunk by chunk, then
-    the remainder."""
+    the remainder.  On a mesh (DTensor h and embedding) every chunk runs
+    on this rank's rows of the batch and columns of the vocab
+    (`_on_shards`), and the rows' sums are added over the ranks at the
+    end: a rank holds (B / rows' ranks, c, V / vocab's ranks) logits."""
     b, s, _ = h.shape
-    h = seq_whole(h)
     chunk = min(chunk, s)
     n_chunks = s // chunk
     wt = embed.to(h.dtype)
     if label_mask is None:
         label_mask = replicated_like(torch.ones(
             labels.shape, dtype=torch.float32, device=h.device), h)
+    ref, mesh, vocab, rows, v0 = h, None, (), (), 0
+    if is_dtensor(h):
+        h, wt, labels, label_mask, mesh, vocab, rows, v0 = _on_shards(
+            h, wt, labels, label_mask)
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
     if s > n_chunks * chunk:
         bounds.append((n_chunks * chunk, s))
-    tot = cnt = replicated_like(torch.zeros((), dtype=torch.float32,
-                                            device=h.device), h)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo, hi in bounds:
         sl = (slice(None), slice(lo, hi))
         nll, n = checkpoint(_xent_chunk, h[sl], labels[sl], label_mask[sl],
-                            wt, use_reentrant=False)
+                            wt, mesh, vocab, v0, use_reentrant=False)
         tot, cnt = tot + nll, cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    loss = sum_over(tot, mesh, rows) / torch.clamp(
+        sum_over(cnt, mesh, rows), min=1.0)
+    return from_local_at(loss, ref, replicated(ref)) if mesh else loss
 
 
 def logits_last(h_last, embed):

@@ -37,8 +37,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..runtime.sharding import (is_dtensor, matmul, reduce_partial,
-                                replicated, replicated_like)
+from ..runtime.sharding import (constrain, is_dtensor, matmul,
+                                reduce_partial, reduce_to, replicated,
+                                replicated_like)
 from .attention import (ATTENTION_AXES, attention_apply, attention_init,
                         chunked_decode_attention, cross_attention,
                         decode_on_shards)
@@ -191,16 +192,19 @@ class Whisper(nn.Module):
     def _enc_block(self, tree, x):
         cfg = self.config
         w = tree.weights(x.dtype)
-        x = x + cross_attention(w["attn"], cfg, _ln(x, w["ln1"]))
-        return x + mlp_apply(w["mlp"], _ln(x, w["ln2"]), cfg.mlp_act)
+        x = _residual(x, cross_attention(w["attn"], cfg, _ln(x, w["ln1"])))
+        return _residual(x, mlp_apply(w["mlp"], _ln(x, w["ln2"]),
+                                      cfg.mlp_act))
 
     def _dec_block(self, tree, x, enc_out):
         cfg = self.config
         w = tree.weights(x.dtype)
-        x = x + attention_apply(w["self"], cfg, _ln(x, w["ln1"]), rope=False)
-        x = x + cross_attention(w["cross"], cfg, _ln(x, w["ln2"]),
-                                kv_x=enc_out)
-        return x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
+        x = _residual(x, attention_apply(w["self"], cfg, _ln(x, w["ln1"]),
+                                         rope=False))
+        x = _residual(x, cross_attention(w["cross"], cfg, _ln(x, w["ln2"]),
+                                         kv_x=enc_out))
+        return _residual(x, mlp_apply(w["mlp"], _ln(x, w["ln3"]),
+                                      cfg.mlp_act))
 
     def _remat(self) -> bool:
         return self.config.remat and torch.is_grad_enabled()
@@ -209,7 +213,10 @@ class Whisper(nn.Module):
         """frames (B, S_enc, d_model) stub embeddings -> (B, S_enc, D) in
         the compute dtype."""
         cfg = self.config
-        x = frames.to(cfg.dtype)
+        # on a mesh: laid out as the rules say, as the decoder LM's
+        # activations are (left as placed, the blocks' adds and norms ask
+        # DTensor for shard-to-partial moves)
+        x = constrain(frames.to(cfg.dtype), ("batch", "seq", "embed"))
         x = x + replicated_like(sinusoidal_positions(
             x.shape[1], cfg.d_model, x.device), x).to(x.dtype)
         for tree in self.enc.blocks:
@@ -225,7 +232,8 @@ class Whisper(nn.Module):
         # F.embedding: its gradient sums a repeated token's rows in a
         # fixed order (indexing's would scatter-add them)
         # on a mesh: the lookup in a vocab-sharded table is partial
-        x = reduce_partial(F.embedding(tokens, self.embed.to(cfg.dtype)))
+        x = constrain(reduce_partial(F.embedding(
+            tokens, self.embed.to(cfg.dtype))), ("batch", "seq", "embed"))
         x = x + self.pos_dec[:tokens.shape[1]].to(x.dtype)[None]
         for tree in self.dec.blocks:
             body = functools.partial(self._dec_block, tree)
@@ -337,6 +345,14 @@ class Whisper(nn.Module):
             x = x + mlp_apply(w["mlp"], _ln(x, w["ln3"]), cfg.mlp_act)
         x = _ln(x, wts["ln"])
         return logits_last(x[:, 0], emb)
+
+
+def _residual(x, y):
+    """x + y, a block's output y (on a mesh: partial over the ranks that
+    split its heads or its hidden units) reduced to x's placements first
+    by an explicit reduce-scatter or all-reduce (`reduce_to`), not by
+    DTensor, which may move x's sequence shard into a partial sum."""
+    return x + (reduce_to(y, x.placements) if is_dtensor(x) else y)
 
 
 def _decode_attend(q, k, v, kc, vc, index: int, length: int, k_chunk: int):

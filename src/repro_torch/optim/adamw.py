@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..runtime.sharding import is_dtensor, reduce_partial
+from ..runtime.sharding import batch_rows, is_dtensor, reduce_partial
 
 # elements of one parameter updated at a time
 _CHUNK = 1 << 24
@@ -202,9 +202,11 @@ def make_train_step(model, *, lr_peak=3e-4, lr_total=10_000,
     `DecoderLM`), whose parameters must be `state.params`.
 
     The batch (numpy arrays or tensors, moved to the model's device by
-    the model) is split into `mb` microbatches, mb = `microbatches` or
-    `cfg.microbatches` lowered until it divides the batch, as in the
-    reference; each microbatch's backward accumulates into the `.grad` of
+    the model) is split into `mb` microbatches of consecutive rows, mb =
+    `microbatches` or `cfg.microbatches` lowered until it divides the
+    batch, as in the reference (on a mesh, each rank's rows of a
+    microbatch come by an all-to-all, `batch_rows`, not by a gather of
+    the batch); each microbatch's backward accumulates into the `.grad` of
     the parameters (float32 where `param_dtype` is; no second accumulator
     as large as the parameters), which is then divided by mb.
     `grad_compress`: an optional callable grads -> grads.  The model's
@@ -227,7 +229,8 @@ def make_train_step(model, *, lr_peak=3e-4, lr_total=10_000,
         size = b // mb
         lsum = None
         for i in range(mb):
-            part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            part = {k: batch_rows(v, i * size, (i + 1) * size)
+                    for k, v in batch.items()}
             loss = model.loss(part)
             loss.backward()
             loss = _plain(loss.detach())

@@ -25,14 +25,22 @@ itself (RoPE tables, masks, offsets) a replicated DTensor on the mesh of
 the activation it meets; `to_local_at` / `from_local_at` bracket a
 region that runs on local shards (the attention core, the MoE, the SSM),
 where `sum_over` sums the ranks' parts of an output and `sum_grad` the
-gradient of what each rank holds whole but uses a part of; `matmul`,
-`reduce_partial`, `whole_dim` and `seq_whole` gather where DTensor has no
-working strategy (listed in PERF.md).
+gradient of what each rank holds whole but uses a part of; `sum_to` and
+`reduce_to` reduce a partial sum to a layout by explicit collectives;
+`fsdp_gather` gathers a trained weight where FSDP splits it along the
+rows it meets (never the rows); `batch_rows` takes a microbatch's rows
+by an all-to-all; `matmul`, `reduce_partial` and `seq_whole` gather
+where DTensor has no working strategy (listed in PERF.md).  No helper
+asks DTensor to move a shard into a partial sum, forward or backward:
+torch 2.11's DTensor refuses that move ("redistribute from S(d) to
+P(sum) not supported yet").
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import threading
 from dataclasses import dataclass
 
@@ -262,6 +270,69 @@ def mesh_group(mesh):
         return mesh._flatten().get_group()
 
 
+def _chunk_ranges(total: int, start: int, sizes) -> list:
+    """[lo, hi) of each coordinate's rows, row-major over mesh dims of
+    `sizes`, when `total` rows from `start` are split over them as
+    DTensor splits one tensor dim (torch.chunk's sizes, the first mesh
+    dim outermost)."""
+    out = []
+    for coord in itertools.product(*(range(k) for k in sizes)):
+        lo, n = start, total
+        for k, c in zip(sizes, coord, strict=True):
+            step = -(-n // k)
+            lo += min(c * step, n)
+            n = max(0, min(step, n - c * step))
+        out.append((lo, lo + n))
+    return out
+
+
+def batch_rows(x, lo: int, hi: int):
+    """Rows [lo, hi) of a batch of data `x` (no gradient).  For a DTensor
+    split on its dim 0, each rank's rows of the slice come from the ranks
+    that hold them by one all-to-all over the mesh dims that split the
+    rows (DTensor's own slice of a split dim gathers the whole batch on
+    every rank first): at x's placements when the slice's rows split
+    evenly over those ranks, else whole on each of them (DTensor
+    flattens no dim split unevenly).  Anything else: `x[lo:hi]`."""
+    if not is_dtensor(x):
+        return x[lo:hi]
+    mesh, pl = x.device_mesh, x.placements
+    dims = [i for i, p in enumerate(pl)
+            if isinstance(p, Shard) and p.dim == 0 and mesh.size(i) > 1]
+    if not dims:
+        return x[lo:hi]
+    sizes = [mesh.size(i) for i in dims]
+    have = _chunk_ranges(x.shape[0], 0, sizes)
+    if (hi - lo) % math.prod(sizes) == 0:
+        want = _chunk_ranges(hi - lo, lo, sizes)
+    else:
+        want = [(lo, hi)] * len(have)
+        pl = tuple(Replicate() if i in dims else p for i, p in enumerate(pl))
+    me = 0
+    for i in dims:
+        me = me * mesh.size(i) + mesh.get_local_rank(i)
+    (a, b), (c, d) = have[me], want[me]
+    send = [max(0, min(b, w1) - max(a, w0)) for w0, w1 in want]
+    recv = [max(0, min(h1, d) - max(h0, c)) for h0, h1 in have]
+    local = x.to_local()
+    rows = torch.cat([local[max(a, w0) - a:][:n]
+                      for (w0, _), n in zip(want, send, strict=True)])
+    if len(dims) == 1:
+        group = mesh.get_group(dims[0])
+    else:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            group = mesh[tuple(mesh.mesh_dim_names[i] for i in dims)
+                         ]._flatten().get_group()
+    got = funcol.wait_tensor(funcol.all_to_all_single(rows, recv, send,
+                                                      group))
+    shape = (hi - lo, *x.shape[1:])
+    return DTensor.from_local(got, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
 def local_shape_and_offset(shape, mesh, placements) -> tuple:
     """(local shape, global offset) of this rank's shard of a tensor of
     `shape` at `placements` on `mesh`, as DTensor computes them, with
@@ -306,15 +377,6 @@ def reduce_partial(x):
     return _gather_where(x, lambda i, p: False)
 
 
-def whole_dim(x, dim: int):
-    """DTensor `x` with tensor dim `dim` gathered whole and any partial
-    placement reduced (the other shards kept); anything else as it is."""
-    if is_dtensor(x):
-        dim %= x.dim()
-    return _gather_where(x, lambda i, p: isinstance(p, Shard)
-                         and p.dim == dim)
-
-
 def seq_whole(x):
     """A (B, S, ...) DTensor with its sequence (dim 1) gathered whole and
     its shards over mesh dims of one rank dropped (they hold the whole
@@ -344,15 +406,35 @@ class _GradAtOutput(torch.autograd.Function):
         return g.redistribute(ctx.mesh, ctx.placements)
 
 
+def fsdp_gather(w, x):
+    """DTensor `w`, a weight being trained (grad mode on, `w` requiring
+    grad), gathered on each mesh dim (of more than one rank) that splits
+    it and also splits x's rows, any dim of x but its last: FSDP
+    all-gathers the weight, so that a product keeps x's batch shard and
+    the weight's gradient comes back to its shard by a reduce-scatter
+    (left to itself, DTensor may instead gather x's batch and leave the
+    product partial, the batch's whole product on every rank).  Anything
+    else as it is: without autograd (prefill, decode) DTensor's own
+    choice stands, which moves a decode's few rows, not the weights."""
+    if not (is_dtensor(w) and is_dtensor(x) and w.requires_grad
+            and torch.is_grad_enabled()):
+        return w
+    rows = {i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim < x.dim() - 1
+            and x.device_mesh.size(i) > 1}
+    return _gather_where(w, lambda i, p: i in rows and isinstance(p, Shard))
+
+
 def matmul(x, w):
     """`x @ w`.  On a mesh: x's rows made safe to flatten (`seq_whole`),
-    and the product's gradient brought back to the product's own
-    placements before the matmul's backward flattens it (the gradient
-    arriving from the residual stream is sharded on batch and sequence
-    at once)."""
+    `w` gathered where FSDP splits it along x's rows (`fsdp_gather`), and
+    the product's gradient brought back to the product's own placements
+    before the matmul's backward flattens it (the gradient arriving from
+    the residual stream is sharded on batch and sequence at once)."""
     if not is_dtensor(x):
         return x @ w
-    return _GradAtOutput.apply(seq_whole(x) @ w)
+    x = seq_whole(x)
+    return _GradAtOutput.apply(x @ fsdp_gather(w, x))
 
 
 def _all_reduce(t, mesh, dims):
@@ -396,15 +478,86 @@ def sum_grad(t, mesh, dims):
     return _SumGrad.apply(t, mesh, tuple(dims)) if dims else t
 
 
+class _SumTo(torch.autograd.Function):
+    """Local `t`, a part of a sum over the mesh dims `dims`, summed into
+    the layout `target` gives those dims: a reduce-scatter on tensor dim
+    d where it is `Shard(d)`, an all-reduce where it is `Replicate()`,
+    the mesh dims in their order (DTensor nests a dim's shards the first
+    mesh dim outermost).  Backward: the all-gathers, in reverse order (a
+    reduce-scatter's gradient is the gathered gradient; an all-reduce's
+    is the gradient itself, the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims, target):
+        ctx.mesh, ctx.dims, ctx.target = mesh, dims, target
+        t = t.contiguous()
+        for i in dims:
+            group = mesh.get_group(i)
+            if isinstance(target[i], Shard):
+                t = funcol.reduce_scatter_tensor(t, "sum", target[i].dim,
+                                                 group)
+            else:
+                t = funcol.all_reduce(t, "sum", group)
+            t = funcol.wait_tensor(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for i in reversed(ctx.dims):
+            if isinstance(ctx.target[i], Shard):
+                g = funcol.wait_tensor(funcol.all_gather_tensor(
+                    g, ctx.target[i].dim, ctx.mesh.get_group(i)))
+        return g, None, None, None
+
+
 def sum_to(t, ref, dims, at, target):
     """Local tensor `t`, this rank's shard at `at` placements of a part of
     a sum over the ranks of the mesh dims `dims`, as the DTensor of the
-    sum at `target` placements on `ref`'s mesh (a reduce-scatter where
-    `target` shards a summed mesh dim, an all-reduce where it replicates
-    it); its gradient is the gradient at `target`, gathered."""
-    part = tuple(Partial() if i in dims else p for i, p in enumerate(at))
-    return from_local_at(t, ref, part).redistribute(ref.device_mesh,
-                                                    tuple(target))
+    sum at `target` placements on `ref`'s mesh: each summed mesh dim
+    reduced straight into its target placement by an explicit collective
+    (`_SumTo`: a reduce-scatter where `target` shards it, an all-reduce
+    where it replicates it), the other mesh dims then redistributed from
+    `at` to `target` (moves without a partial sum).  The sum has `ref`'s
+    global shape.  Its gradient is the gradient at `target`, gathered.  A
+    plain `ref`: `t` itself."""
+    if not is_dtensor(ref):
+        return t
+    mesh = ref.device_mesh
+    dims = tuple(i for i in dims if mesh.size(i) > 1)
+    target = tuple(target)
+    for i in dims:
+        if isinstance(target[i], Shard) and any(
+                isinstance(at[j], Shard) and at[j].dim == target[i].dim
+                for j in range(i + 1, mesh.ndim)):
+            raise ValueError(f"sum_to: mesh dim {i} would split tensor dim "
+                             f"{target[i].dim} outside a later mesh dim's "
+                             f"split of it ({tuple(at)} -> {target})")
+    mid = tuple(target[i] if i in dims else p for i, p in enumerate(at))
+    out = from_local_at(_SumTo.apply(t, mesh, dims, target) if dims else t,
+                        ref, mid, ref.shape)
+    return out if mid == target else out.redistribute(mesh, target)
+
+
+def reduce_to(y, target):
+    """DTensor `y`, partial (a sum) on some mesh dims, at `target`
+    placements: each partial dim reduced straight into its target
+    placement (`sum_to`: a reduce-scatter or an all-reduce) instead of
+    by DTensor's redistribute, whose backward of a partial-to-shard move
+    asks for a shard-to-partial one.  A `y` with no partial placement is
+    redistributed to `target`; anything else is returned as it is."""
+    if not is_dtensor(y):
+        return y
+    target = tuple(target)
+    dims = [i for i, p in enumerate(y.placements) if p.is_partial()]
+    if not dims:
+        return y if y.placements == target else y.redistribute(
+            y.device_mesh, target)
+    if any(y.placements[i] != Partial("sum") for i in dims):
+        raise ValueError(f"reduce_to: only a partial sum reduces here, "
+                         f"not {y.placements}")
+    at = unpartial(y)
+    return sum_to(y.to_local(grad_placements=at), y, dims, at, target)
 
 
 def unpartial(x) -> tuple:
@@ -432,18 +585,21 @@ def to_local_at(x, target):
     return x.redistribute(x.device_mesh, tuple(target)).to_local()
 
 
-def from_local_at(t, ref, target):
+def from_local_at(t, ref, target, shape=None):
     """The inverse of `to_local_at`: `t`, a local shard, as the DTensor
     at `target` placements on `ref`'s mesh; `t` itself when `ref` is a
-    plain tensor.  The global shape is the local one scaled by the mesh
-    dims that shard it, so every rank's shard must be the same size."""
+    plain tensor.  The global shape is `shape`, or else the local one
+    scaled by the mesh dims that shard it (every rank's shard then must
+    be the same size)."""
     if not is_dtensor(ref):
         return t
     mesh = ref.device_mesh
-    shape = list(t.shape)
-    for i, p in enumerate(target):
-        if isinstance(p, Shard):
-            shape[p.dim] *= mesh.size(i)
+    if shape is None:
+        shape = list(t.shape)
+        for i, p in enumerate(target):
+            if isinstance(p, Shard):
+                shape[p.dim] *= mesh.size(i)
+    shape = list(shape)
     # contiguous: DTensor's reshape of the result runs `view` on it
     return DTensor.from_local(t.contiguous(), mesh, tuple(target),
                               run_check=False, shape=torch.Size(shape),

@@ -987,3 +987,204 @@ if RANK == 0:
                                    err_msg=name)
         if kind == "ssm":
             assert not np.array_equal(want, cache[name]), name
+
+
+# the wrappers that see every DTensor redistribution a rank runs: the
+# local move (forward, and the ops' implicit moves) under each name it is
+# imported by, and the backward of an explicit one before torch
+# normalises it (torch 2.11's DTensor runs a backward shard -> partial
+# move as asked, and refuses it)
+SHARD_TO_PARTIAL_HOOK = """
+import torch.distributed.tensor._api as _api
+import torch.distributed.tensor._dispatch as _dispatch
+import torch.distributed.tensor._redistribute as _redist
+from torch.distributed.tensor import Partial, Shard
+MOVES = []
+
+
+def _shard_to_partial(where, cur, tgt):
+    bad = [f"{c} -> {t}" for c, t in zip(cur, tgt, strict=True)
+           if isinstance(c, Shard) and isinstance(t, Partial)]
+    if bad:
+        MOVES.append([where, bad])
+
+
+_local = _redist.redistribute_local_tensor
+
+
+def _local_hook(local, current_spec, target_spec, **kw):
+    _shard_to_partial("forward", current_spec.placements,
+                      target_spec.placements)
+    return _local(local, current_spec, target_spec, **kw)
+
+
+for _m in (_redist, _dispatch, _api):
+    _m.redistribute_local_tensor = _local_hook
+_back = _redist._redistribute_backward
+
+
+def _back_hook(grad_output, previous_spec, *a, **kw):
+    _shard_to_partial("backward", grad_output.placements,
+                      previous_spec.placements)
+    return _back(grad_output, previous_spec, *a, **kw)
+
+
+_redist._redistribute_backward = _back_hook
+"""
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_130m",
+                                  "olmoe_1b_7b", "zamba2_2_7b"])
+def test_train_step_moves_no_shard_into_a_partial_sum(tmp_path, arch):
+    """One train step, forward and backward, of the arch's smoke cell on
+    2 x 2 gloo ranks, at its own config and at the dry run's probe config
+    (one microbatch, no remat), with every DTensor redistribution watched:
+    no mesh dim goes from a shard to a partial sum (torch 2.11's DTensor
+    refuses that move: whisper's residual add and the SSM's and MoE's
+    sums on a mesh asked for it), and each loss is finite."""
+    from repro_torch import configs
+    from repro_torch.models import smoke_config
+
+    cfg = smoke_config(configs.get(arch))
+    rng = np.random.default_rng(43)
+    data = {k: rng.integers(0, cfg.vocab, (CELL_B, CELL_S)).astype(np.int32)
+            for k in ("tokens", "labels")}
+    if cfg.family == "encdec":
+        data["frames"] = rng.standard_normal(
+            (CELL_B, CELL_S, cfg.d_model)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", **data)
+    run_world(SHARD_TO_PARTIAL_HOOK + f"""
+import json
+import numpy as np
+from repro_torch import configs
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_cell
+from repro_torch.models import ShapeSpec, smoke_config
+mesh = make_host_mesh(2, device_type="cpu")
+smoke = smoke_config(configs.get({arch!r}))
+out = {{}}
+for name, cfg in (("own", smoke),
+                  ("probe", smoke.replace(microbatches=1, remat=False))):
+    MOVES.clear()
+    fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", {CELL_S},
+                                                     {CELL_B}, "train"),
+                                      mesh)
+    _, m = fn(*place_cell(fn, specs, shards, (dict(np.load(
+        OUT + "/in.npz")),), seed=1, device="cpu"))
+    out[name] = {{"moves": list(MOVES), "loss": float(m["loss"])}}
+json.dump(out, open(OUT + f"/moves{{RANK}}.json", "w"))
+""", 4, tmp_path)
+    import json
+    import math
+    for rank in range(4):
+        got = json.loads((tmp_path / f"moves{rank}.json").read_text())
+        for name, r in got.items():
+            assert r["moves"] == [], (rank, name, r["moves"][:4])
+            assert math.isfinite(r["loss"]), (rank, name)
+
+
+# the vocab-sharded xent: (B, S, D, V), the chunk (one chunk and a
+# remainder of S - chunk), on 2 x 2 ranks
+XENT_SHAPE, XENT_CHUNK = (4, 48, 16, 64), 32
+
+
+@pytest.mark.parametrize("mask", ["some", "zero"])
+def test_vocab_sharded_xent_matches_the_reference(tmp_path, mask):
+    """`chunked_softmax_xent` on 2 x 2 gloo ranks: h (B, S, D) split on
+    batch ("data") and sequence ("model"), the tied embedding (V, D) on
+    vocabulary ("model") and, as FSDP splits it, on D ("data"); labels on
+    every vocab shard, a chunk and a remainder, a label mask with zeros
+    (or all zero).  The loss and the gradients of h and the embedding
+    equal the reference's `chunked_softmax_xent` and its `jax.grad`
+    within 1e-5."""
+    import jax
+
+    from repro.models.layers import chunked_softmax_xent as r_xent
+
+    b, s, d, v = XENT_SHAPE
+    rng = np.random.default_rng(47)
+    h = rng.standard_normal((b, s, d)).astype(np.float32)
+    emb = rng.standard_normal((v, d)).astype(np.float32)
+    labels = rng.integers(0, v, (b, s)).astype(np.int32)
+    keep = (rng.random((b, s)) > 0.3) if mask == "some" else np.zeros((b, s))
+    keep = keep.astype(np.float32)
+    assert {int(x) // (v // 2) for x in labels.flat} == {0, 1}
+    np.savez(tmp_path / "in.npz", h=h, emb=emb, labels=labels, mask=keep)
+    run_world(f"""
+import numpy as np
+from torch.distributed.tensor import Shard, distribute_tensor
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.layers import chunked_softmax_xent
+mesh = make_host_mesh(2, device_type="cpu")
+d = {{k: torch.from_numpy(v) for k, v in np.load(OUT + "/in.npz").items()}}
+h = distribute_tensor(d["h"], mesh, (Shard(0), Shard(1))).requires_grad_()
+emb = distribute_tensor(d["emb"], mesh, (Shard(1), Shard(0)))
+emb.requires_grad_()
+rows = (Shard(0), Shard(1))
+loss = chunked_softmax_xent(h, emb, distribute_tensor(d["labels"], mesh,
+                                                      rows),
+                            chunk={XENT_CHUNK},
+                            label_mask=distribute_tensor(d["mask"], mesh,
+                                                         rows))
+loss.backward()
+got = {{"loss": loss.detach().full_tensor().numpy(),
+       "gh": h.grad.full_tensor().numpy(),
+       "ge": emb.grad.full_tensor().numpy()}}
+if RANK == 0:
+    np.savez(OUT + "/got.npz", **got)
+""", 4, tmp_path)
+
+    def ref(h, e):
+        return r_xent(h, e, jnp.asarray(labels), chunk=XENT_CHUNK,
+                      label_mask=jnp.asarray(keep))
+
+    loss, (gh, ge) = jax.value_and_grad(ref, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(emb))
+    got = np.load(tmp_path / "got.npz")
+    np.testing.assert_allclose(got["loss"], np.asarray(loss), **CELL_TOL)
+    np.testing.assert_allclose(got["gh"], np.asarray(gh), **CELL_TOL)
+    np.testing.assert_allclose(got["ge"], np.asarray(ge), **CELL_TOL)
+    if mask == "zero":
+        assert float(loss) == 0.0 and not np.asarray(ge).any()
+
+
+def test_batch_rows_moves_a_microbatch_without_the_whole_batch(tmp_path):
+    """`batch_rows` on 2 x 2 gloo ranks: a (6, 4, 3) batch split on its
+    rows over "data" (and its dim 1 over "model"), or over both mesh dims
+    at once, sliced at consecutive rows as the train step's microbatches
+    are: every slice's full tensor equals the plain slice, at the batch's
+    placements where its rows split evenly over the ranks that split the
+    batch (else whole on each of them), moved by one all-to-all a slice
+    and no all-gather."""
+    run_world("""
+import json
+import math
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.launch.hlo_analysis import analyze_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.runtime.sharding import batch_rows
+mesh = make_host_mesh(2, device_type="cpu")
+full = torch.arange(6 * 4 * 3, dtype=torch.float32).reshape(6, 4, 3)
+out = []
+for pl in ((Shard(0), Shard(1)), (Shard(0), Shard(0))):
+    x = distribute_tensor(full, mesh, pl)
+    for lo, hi in ((0, 3), (3, 6), (0, 2), (2, 4), (4, 6), (1, 2), (5, 6),
+                   (0, 6)):
+        r = analyze_step(batch_rows, x, lo, hi)
+        part = r["out"]
+        n = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                      if p == Shard(0))
+        want = pl if (hi - lo) % n == 0 else tuple(
+            Replicate() if p == Shard(0) else p for p in pl)
+        assert part.placements == want, (pl, lo, hi, part.placements)
+        assert torch.equal(part.full_tensor(), full[lo:hi]), (pl, lo, hi)
+        out.append(r["collectives"]["counts_by_type"])
+if RANK == 0:
+    json.dump(out, open(OUT + "/counts.json", "w"))
+""", 4, tmp_path)
+    import json
+    counts = json.loads((tmp_path / "counts.json").read_text())
+    assert len(counts) == 16
+    for c in counts:
+        assert c["all-to-all"] == 1
+        assert sum(c.values()) == 1, c

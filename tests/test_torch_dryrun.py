@@ -207,7 +207,11 @@ def test_moe_cell_counts_full_capacity_on_a_fake_world(olmoe_mini):
     (expert, capacity row) cell is taken as full, so each MoE layer of
     each microbatch moves this rank's ne x nc rows out and back and their
     two gradients (d floats each) and their (expert, row) pairs (two
-    int64), and nothing else goes by all-to-all."""
+    int64).  Besides, each microbatch's rows of tokens and labels come by
+    one all-to-all each (`batch_rows`): 2 rows, which do not split over 4
+    data ranks, so each takes both, and rank 0, which holds them for the
+    first microbatch (its 64 of the 128 positions, int32), sends them to
+    all 4.  Nothing else goes by all-to-all."""
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import super_block_spec
 
@@ -221,9 +225,12 @@ def test_moe_cell_counts_full_capacity_on_a_fake_world(olmoe_mini):
         super_block_spec(cfg).count("moe")
     rows = ne * nc
     per_layer = 4 * rows * cfg.d_model * 4 + rows * 2 * 8
+    batch = 2 * data * (8 // data) * (128 // model) * 4
+    assert 8 // mb == 8 // data and (8 // mb) % data
     c = olmoe_mini["collectives"]
-    assert c["bytes_by_type"]["all-to-all"] == layers * mb * per_layer
-    assert c["counts_by_type"]["all-to-all"] == layers * mb * 5
+    assert c["bytes_by_type"]["all-to-all"] == layers * mb * per_layer + \
+        batch
+    assert c["counts_by_type"]["all-to-all"] == layers * mb * 5 + 2 * mb
 
 
 def test_mini_dry_run_counts_flops_and_collectives(olmoe_mini):
@@ -306,6 +313,64 @@ print(json.dumps({{"full": count_cell(cfg, spec, mesh, device="cpu"),
     assert abs(temp[1] / temp[0] - 1) <= 0.05
 
 
+# a train cell with phi4-mini's full vocabulary: (batch, seq) on (4, 2)
+XENT_CELL = (16, 128)
+
+
+def test_xent_logits_stay_on_the_local_batch_and_vocab_shard():
+    """phi4-mini at smoke width, two layers, its full 200,064-token
+    vocabulary, a train cell of 16 x 128 on a (4, 2) mesh, counted on
+    fake tensors in a fake world of 8: the largest float32 (b, c, v)
+    tensor any op makes on a rank (the xent chunk's logits, their
+    exponentials, their gradient) holds at most B/4 x c x V/2 x 4 B, this
+    rank's rows of the batch and columns of the vocab; an embedding that
+    FSDP splits on "data" is gathered for the product, not the batch."""
+    out = _fake(f"""
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch import configs
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.hlo_analysis import (_StepRecorder, _leaves,
+                                             _without_shape_inference)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_cell, place_zeros
+from repro_torch.models import ShapeSpec, smoke_config
+V = configs.get("phi4_mini_3_8b").vocab
+
+
+class Logits(_StepRecorder):
+    big = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is not NotImplemented and not self.paused:
+            for t in _leaves(out):
+                if (t.dtype == torch.float32 and t.dim() == 3
+                        and t.shape[-1] >= V // 2):
+                    self.big = max(self.big, t.untyped_storage().nbytes())
+        return out
+
+
+fake_world(8)
+mesh = make_host_mesh(2, device_type="cpu")
+cfg = smoke_config(configs.get("phi4_mini_3_8b")).replace(
+    vocab=V, n_layers=2, microbatches=1)
+fn, specs, shards, _ = build_cell(cfg, ShapeSpec("t", {XENT_CELL[1]},
+                                                 {XENT_CELL[0]}, "train"),
+                                  mesh)
+rec = Logits()
+with FakeTensorMode():
+    args = place_zeros(fn, specs, shards, device="cpu")
+    with _without_shape_inference(rec), rec:
+        fn(*args)
+print(json.dumps({{"big": rec.big, "vocab": V, "chunk": cfg.xent_chunk,
+                  "mesh": list(mesh.shape)}}))
+""")
+    b, s = XENT_CELL
+    v, c = out["vocab"], min(out["chunk"], s)
+    assert out["mesh"] == [4, 2] and v == 200_064
+    assert 0 < out["big"] <= b // 4 * c * (v // 2) * 4
+
+
 def test_bytes_accessed_and_temp_bytes_by_hand():
     """relu(a @ b), a (4, 8) and b (8, 16) float32: the matmul reads 128 +
     512 B and writes 256, the relu reads and writes 256; the product and
@@ -331,6 +396,43 @@ def test_bytes_accessed_and_temp_bytes_by_hand():
     for r in (real, fake):
         assert r["collectives"]["total_ops"] == 0
         assert {k: r[k] for k in want} == want
+
+
+def test_peak_tensors_are_the_largest_storages_live_at_the_peak():
+    """`analyze_step(..., peak_tensors=2)` of relu(a @ b) with a (4, 8)
+    and b (8, 16) float32: at the peak the product and the result are
+    live, 256 B each, made by `mm` and `relu`; `count_cell` records them
+    by depth in a dry run of lm2m's train cell, largest first."""
+    def f(a, b):
+        return torch.relu(a @ b)
+
+    r = analyze_step(f, torch.randn(4, 8), torch.randn(8, 16),
+                     peak_tensors=2)
+    assert sorted(t["op"] for t in r["peak_tensors"]) == ["mm", "relu"]
+    assert all(t["shape"] == [4, 16] and t["dtype"] == "float32"
+               and t["bytes"] == 256 for t in r["peak_tensors"])
+    assert sum(t["bytes"] for t in r["peak_tensors"]) == \
+        r["memory_analysis"]["temp_size_in_bytes"]
+    assert "peak_tensors" not in analyze_step(f, torch.randn(4, 8),
+                                              torch.randn(8, 16))
+    out = _fake("""
+from repro_torch.launch.dryrun import depth_count, fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import PRESETS
+from repro_torch.models import ShapeSpec
+fake_world(4)
+r = depth_count(PRESETS["lm2m"], ShapeSpec("t", 64, 4, "train"),
+                make_host_mesh(2, device_type="cpu"), device="cpu",
+                peak_tensors=5)
+print(json.dumps({"tops": r["peak_tensors"], "temp": r["memory_analysis"][
+    "temp_size_in_bytes"], "at": r["counted_at"]}))
+""")
+    tops = out["tops"]
+    assert list(tops) == [str(n) for n in out["at"]]
+    for top in tops.values():
+        sizes = [t["bytes"] for t in top]
+        assert len(top) == 5 and sizes == sorted(sizes, reverse=True)
+        assert 0 < sum(sizes) <= out["temp"]
 
 
 def test_run_cell_on_the_production_mesh():
@@ -448,6 +550,32 @@ print(json.dumps({{"code": code, "rec": rec}}))
     assert rec["ok"] is False and "no cell here" in rec["error"]
     assert "Traceback" in rec["traceback"] and "boom" in rec["traceback"]
     assert "roofline" not in rec
+
+
+def test_sweep_runs_each_cell_in_a_process_of_its_own(tmp_path):
+    """`--all --jobs N`'s runner: each cell counted by the module in a
+    process of its own, N at a time; the records come back in the order
+    the processes end (a skip is a record), and a cell whose process
+    dies without one (an unknown arch) is ok false with its exit code."""
+    out = _fake(f"""
+from pathlib import Path
+from repro_torch.launch import dryrun
+recs = dryrun._sweep_in_processes(
+    [("phi4_mini_3_8b", "long_500k", False), ("no_such_arch", "decode_32k",
+                                              False),
+     ("qwen3_8b", "long_500k", False)], "base",
+    ["--device", "cpu", "--force"], 2)
+print(json.dumps(recs))
+""", timeout=120)
+    by_tag = {r["tag"]: r for r in out}
+    assert sorted(by_tag) == ["no_such_arch__decode_32k__32x8",
+                              "phi4_mini_3_8b__long_500k__32x8",
+                              "qwen3_8b__long_500k__32x8"]
+    assert by_tag["no_such_arch__decode_32k__32x8"] == {
+        "tag": "no_such_arch__decode_32k__32x8", "ok": False,
+        "error": "exit 1"}
+    for arch in ("phi4_mini_3_8b", "qwen3_8b"):
+        assert by_tag[f"{arch}__long_500k__32x8"]["skipped"] is True
 
 
 def test_fake_world_is_remade_at_a_new_size_and_refuses_a_real_one():
