@@ -1210,7 +1210,7 @@ def run_launcher(torch, label: str, argv: list, *, config=None,
     rows = [row for tc in report["traffic"].values() for ev in tc.values()
             for row in ev.values()]
     if not rows or any(v < 0 for row in rows for v in row.values()):
-        fail(f"launcher {label}: missing or negative ledger rows (int32 "
+        fail(f"launcher {label}: missing or negative ledger rows ("
              f"accumulator overflow): {report['traffic']}")
     if "--slots" in argv:
         kv = report["traffic"].get("kv", {})
@@ -2024,7 +2024,7 @@ def serve_attend_phase(torch, packing: str, device, *, slots=8,
           "from the mean of its V (the weights matter)")
     if (loop.cache.state["traffic"] < 0).any():
         fail(f"serve attend {packing}: a ledger accumulator went negative "
-             "(int32 overflow)")
+             "(overflow)")
     return {"loop": loop, "max_abs_err": worst, "spread": spread,
             "single_vs_batched": single_err, "view": (s, st, mk)}
 
@@ -2152,7 +2152,7 @@ def serve_churn_phase(torch, hot: str, spill: str, device, card: str, *,
         fail(f"serve churn {hot}/{spill}: spill saving {saving}")
     if (loop.cache.state["traffic"] < 0).any():
         fail(f"serve churn {hot}/{spill}: a ledger accumulator went "
-             "negative (int32 overflow)")
+             "negative (overflow)")
     ms = {name: {"n": len(w), "median_ms": 1e3 * statistics.median(w),
                  "max_ms": 1e3 * max(w)} for name, w in walls.items()}
     print(f"serve churn {hot}/{spill}: {n} sequences in {CHURN_SLOTS} slots, "

@@ -103,9 +103,9 @@ def kv_repack_device(traffic, lay, *, lanes: int, slot_bytes: int,
                      strip_bytes: int):
     """Device form of `kv_repack_event` (same byte model), added into a
     `device_totals` accumulator in place.  Returns the accumulator and the
-    packed-group count (0-d int32 tensor)."""
+    packed-group count (0-d int64 tensor)."""
     groups = lay.numel()
-    lay_n = lay.sum().to(torch.int32)
+    lay_n = lay.sum()
     raw = groups * lanes * slot_bytes
     comp = (lay_n * (slot_bytes + strip_bytes)
             + (groups - lay_n) * (lanes * slot_bytes))

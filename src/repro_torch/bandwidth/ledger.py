@@ -10,10 +10,11 @@ Two accumulation paths:
 
   * host path — `Ledger.record(...)`: plain Python ints;
   * device path — `device_totals()` / `device_record(...)`: an
-    (N_EVENTS, 3) int32 tensor that lives in a cache's state on the device
-    and is folded into the host ledger with `Ledger.absorb(...)`.  int32,
-    as in the reference: one window holds at most 2 GiB per event class,
-    so long-running consumers fold at report boundaries.
+    (N_EVENTS, 3) int64 tensor that lives in a cache's state on the device
+    and is folded into the host ledger with `Ledger.absorb(...)`.  The
+    reference's is int32 and wraps past 2 GiB an event class in a window,
+    which one serve step over long sessions passes; the totals are equal
+    below that.
 """
 
 from __future__ import annotations
@@ -157,9 +158,10 @@ class Ledger:
 # --------------------------------------------------------- device accumulator
 
 def device_totals(device="cuda") -> torch.Tensor:
-    """A fresh (N_EVENTS, 3) int32 zero accumulator of [raw_bytes,
-    compressed_bytes, count] on `device`."""
-    return torch.zeros((N_EVENTS, 3), dtype=torch.int32, device=device)
+    """A fresh (N_EVENTS, 3) int64 zero accumulator of [raw_bytes,
+    compressed_bytes, count] on `device` (the reference's is int32: one
+    serve step of 32 long sessions reads more than 2^31 bytes)."""
+    return torch.zeros((N_EVENTS, 3), dtype=torch.int64, device=device)
 
 
 def device_record(totals, event, raw, compressed=None, count=1):
@@ -171,9 +173,8 @@ def device_record(totals, event, raw, compressed=None, count=1):
 
     def cell(x):    # a Python int is filled on the device, not copied
         if torch.is_tensor(x):
-            return x.to(totals.device).to(torch.int32).reshape(())
-        return torch.full((), x, dtype=torch.int64,
-                          device=totals.device).to(torch.int32)
+            return x.to(totals.device, torch.int64).reshape(())
+        return torch.full((), x, dtype=torch.int64, device=totals.device)
 
     delta = torch.stack([cell(x) for x in (raw, comp, count)])
     totals[e] += delta

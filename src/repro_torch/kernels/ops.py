@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..compression.framing import DEFAULT_MARKER_KEY, DOMAIN_PAIR, DOMAIN_QUAD
 from . import bdi_pack
 from . import ref as _ref
@@ -193,11 +194,15 @@ def decode_attention_fused(q, cache, valid_per_page, predictor=None, *,
     cram (B,) int32)."""
     pv = physical_view if lanes == 2 else physical_view_quad
     pred = cache["packed_mask"] if predictor is None else predictor
-    slots, strips, markers, valid = pv(cache, valid_per_page)
-    out, byts = cram_decode_attention_batched(
-        q, slots.contiguous(), strips.contiguous(), markers.contiguous(),
-        valid, pred, lanes=lanes, block_groups=block_groups,
-        shared_cache=cache["slots"].dim() == 4)
+    with obs.span("cache.view"):
+        slots, strips, markers, valid = pv(cache, valid_per_page)
+        slots, strips = slots.contiguous(), strips.contiguous()
+        markers = markers.contiguous()
+    with obs.span("cache.k3"):
+        out, byts = cram_decode_attention_batched(
+            q, slots, strips, markers, valid, pred, lanes=lanes,
+            block_groups=block_groups,
+            shared_cache=cache["slots"].dim() == 4)
     return out, byts[:, 0], byts[:, 1]
 
 
@@ -278,8 +283,10 @@ def hbm_bytes_moved(cache, valid_per_page, predictor=None,
     columns."""
     raw, cram = hbm_bytes_moved_device(cache, valid_per_page, predictor,
                                        lanes)
-    raw_i, cram_i = int(raw.sum()), int(cram.sum())
+    with obs.d2h(2):
+        raw_h, cram_h = raw.cpu().numpy(), cram.cpu().numpy()
+    raw_i = int(raw_h.sum(dtype=np.int64))
+    cram_i = int(cram_h.sum(dtype=np.int64))
     return {"raw_bytes": raw_i, "cram_bytes": cram_i,
-            "raw_per_seq": raw.cpu().numpy(),
-            "cram_per_seq": cram.cpu().numpy(),
+            "raw_per_seq": raw_h, "cram_per_seq": cram_h,
             "saving": 1.0 - cram_i / max(raw_i, 1)}

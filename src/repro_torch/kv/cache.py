@@ -19,9 +19,10 @@ re-packs O(new groups); the incremental state is bit-identical to a
 from-scratch `reference_rebuild` under the gate of the last repack.
 
 Accounting is device-resident: the decode kernel emits the (raw, cram)
-bytes of the layout it walked, and every per-step tally lands in int32
+bytes of the layout it walked, and every per-step tally lands in int64
 accumulators in the state (`traffic` is a `bandwidth.device_totals`
-tensor); `sync_ledger` folds them into the host `Ledger`.
+tensor; the reference's are int32, equal below 2^31); `sync_ledger` folds
+them into the host `Ledger`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from .. import obs
 from ..bandwidth import Ledger
 from ..bandwidth.adapters import (kv_read_device, kv_repack_device,
                                   kv_window_fold)
@@ -59,12 +61,23 @@ class KVStats:
     pack_pairs_processed: int = 0  # sequences x groups run through repack
 
 
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """`x` as a tensor (of `dtype`) on `device`.  A host array (not a
+    tensor, or a CPU tensor bound for a card) counts as one `host.h2d`
+    crossing."""
+    if torch.is_tensor(x) and (not x.is_cpu
+                               or torch.device(device).type == "cpu"):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    t = torch.as_tensor(x, dtype=dtype)
+    with obs.h2d(t.nbytes):
+        return t.to(device)
+
+
 def kv_bits(k, v, device) -> torch.Tensor:
     """k/v (..., n_kv, d) floats -> (..., n_kv, 2d) int16 bf16 bit patterns
     (K || V), converted on `device`."""
     def bits(x):
-        return (torch.as_tensor(x).to(device).to(torch.bfloat16)
-                .view(torch.int16))
+        return to_device(x, device).to(torch.bfloat16).view(torch.int16)
     return torch.cat([bits(k), bits(v)], dim=-1)
 
 
@@ -142,10 +155,10 @@ class CRAMKVCache:
                                   device=dev),
             "markers": torch.from_numpy(markers.view(np.int32).copy()).to(dev),
             "traffic": device_totals(dev),
-            "pred_hits": zeros((b,), torch.int32),
-            "pred_misses": zeros((b,), torch.int32),
-            "packed_n": zeros((), torch.int32),
-            "raw_n": zeros((), torch.int32),
+            "pred_hits": zeros((b,), torch.int64),
+            "pred_misses": zeros((b,), torch.int64),
+            "packed_n": zeros((), torch.int64),
+            "raw_n": zeros((), torch.int64),
         }
         # uniform appends: one host-side dirty mask covers every sequence
         self._dirty = np.zeros(self.n_groups, bool)
@@ -191,17 +204,19 @@ class CRAMKVCache:
     def stats(self) -> KVStats:
         """Host dispatch counters merged with the device tallies."""
         st = self.state
-        return replace(
-            self._host_stats,
-            packed_pairs=int(st["packed_n"]),
-            raw_pairs=int(st["raw_n"]),
-            predictor_hits=int(st["pred_hits"].sum()),
-            predictor_misses=int(st["pred_misses"].sum()))
+        with obs.d2h():
+            packed, raw, hits, misses = torch.stack([
+                st["packed_n"], st["raw_n"], st["pred_hits"].sum(),
+                st["pred_misses"].sum()]).tolist()
+        return replace(self._host_stats, packed_pairs=packed,
+                       raw_pairs=raw, predictor_hits=hits,
+                       predictor_misses=misses)
 
     def sync_ledger(self) -> None:
         """Window fold: absorb the device traffic accumulator into the host
         ledger, then reset it."""
-        tot = self.state["traffic"].cpu().numpy()
+        with obs.d2h():
+            tot = self.state["traffic"].cpu().numpy()
         if tot.any():
             kv_window_fold(self.ledger, tot)
             self.state["traffic"] = device_totals(self.device)
@@ -257,11 +272,13 @@ class CRAMKVCache:
             self.n_kv, self.d2)
 
     def _tensor(self, x, dtype=None):
-        """Host array -> tensor on the cache's device.  The copy to a card
-        does not wait for it: the host bytes are staged at the call, so
-        the decode step never blocks on the card's queue."""
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(
-            self.device, non_blocking=True)
+        """Host array -> tensor on the cache's device, copied without
+        pinning: a small copy is staged at the call, a large one from
+        pageable memory may wait for the card's queue (the `host.sync`
+        span around it shows which)."""
+        t = torch.as_tensor(np.asarray(x), dtype=dtype)
+        with obs.h2d(t.nbytes):
+            return t.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------- packing
     def enabled(self) -> np.ndarray:
@@ -270,7 +287,9 @@ class CRAMKVCache:
             return np.zeros(self.batch, bool)
         if self.policy == "static":
             return np.ones(self.batch, bool)
-        return self.state["counter"].cpu().numpy() >= ENABLE_THRESHOLD
+        with obs.d2h():
+            counter = self.state["counter"].cpu().numpy()
+        return counter >= ENABLE_THRESHOLD
 
     def _pack_window(self, win, idx_t, enabled):
         """Dispatch the gathered dirty window to the layout's kernels."""
@@ -388,8 +407,8 @@ class CRAMKVCache:
         pred = st["predictor"][:, :n]
         live = valid.reshape(pm.shape[0], n, self.group_lanes).sum(-1) > 0
         mis = pred != pm
-        st["pred_hits"] += ((~mis) & live).sum(1).to(torch.int32)
-        st["pred_misses"] += (mis & live).sum(1).to(torch.int32)
+        st["pred_hits"] += ((~mis) & live).sum(1)
+        st["pred_misses"] += (mis & live).sum(1)
         kv_read_device(st["traffic"], raw_seq, cram_seq)
         st["predictor"].copy_(observe_layout(st["packed_mask"]))
         raw_t, cram_t = raw_seq.sum(), cram_seq.sum()

@@ -15,6 +15,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..runtime.sharding import (constrain, from_local_at, is_dtensor,
                                 local_shape_and_offset, matmul,
                                 replicated_like, target_placements,
@@ -52,8 +53,9 @@ def _q_chunk_state(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
     for j in range(kb.shape[0]):
         kc, vc = kb[j], vb[j]
         if g > 1:
-            kc = torch.repeat_interleave(kc, g, dim=2)
-            vc = torch.repeat_interleave(vc, g, dim=2)
+            with obs.span("attn.kv_repeat"):
+                kc = torch.repeat_interleave(kc, g, dim=2)
+                vc = torch.repeat_interleave(vc, g, dim=2)
         bias = torch.zeros((q_chunk, kb.shape[2]), dtype=torch.float32,
                            device=dev)
         if causal:
@@ -62,7 +64,8 @@ def _q_chunk_state(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
         if kv_length is not None:
             bias = bias + torch.where(k_pos[j][None, :] < kv_length, 0.0,
                                       NEG_INF)
-        bm, bl, bo = _block_attend(qc, kc, vc, bias)
+        with obs.span("attn.block"):
+            bm, bl, bo = _block_attend(qc, kc, vc, bias)
         m_new = torch.maximum(m, bm)
         alpha = torch.exp(m - m_new)
         beta = torch.exp(bm - m_new)
@@ -128,6 +131,7 @@ def decode_attention_state(q, k_cache, v_cache, length,
     return m[..., 0], l[..., 0], o[:, :, 0]
 
 
+@obs.span("attn.decode")
 def chunked_decode_attention(q, k_cache, v_cache, length,
                              k_chunk: int = 2048):
     """Single-token decode: q (B,Hq,D) against cache (B,T,Hkv,D) with

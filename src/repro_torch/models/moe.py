@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch._guards import detect_fake_mode
 from torch.distributed.tensor import Replicate, Shard
 
+from .. import obs
 from ..runtime.sharding import (from_local_at, is_dtensor,
                                 local_shape_and_offset, mesh_group,
                                 replicated, replicated_like, sum_grad,
@@ -105,6 +106,7 @@ def _ffn(p, cfg, buf):
     return torch.bmm(h, p["w2"])
 
 
+@obs.span("moe.apply")
 def moe_apply(p, cfg, x):
     """x: (B, S, D) -> (y, aux_loss); `p` holds the weights in x's
     dtype.  On a mesh (DTensor x and weights): `_moe_on_mesh`."""
@@ -114,29 +116,34 @@ def moe_apply(p, cfg, x):
     t, e, k = b * s, cfg.n_experts, cfg.top_k
     cap = capacity(cfg, t)
     xf = x.reshape(t, d)
-    logits = (xf @ p["router"]).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    r = moe_route(probs, k, cap)
+    with obs.span("moe.route"):
+        logits = (xf @ p["router"]).to(torch.float32)
+        probs = torch.softmax(logits, dim=-1)
+        r = moe_route(probs, k, cap)
 
-    # Switch-style load-balancing loss
-    first = torch.zeros(e, dtype=torch.float32, device=x.device)
-    first.index_add_(0, r.eidx[:, 0], torch.ones(t, device=x.device))
-    aux = e * torch.sum(first / t * probs.mean(0))
+        # Switch-style load-balancing loss
+        first = torch.zeros(e, dtype=torch.float32, device=x.device)
+        first.index_add_(0, r.eidx[:, 0], torch.ones(t, device=x.device))
+        aux = e * torch.sum(first / t * probs.mean(0))
 
     spare = e * cap
-    buf = x.new_zeros((spare + 1, d))
-    # row i * k + c of the repeat is token i's c-th choice, so this is
-    # xf[order // k] through a permutation: its gradient sums each
-    # token's k rows in a fixed order (a gather of repeated rows would
-    # scatter-add them, in no fixed order on several threads)
-    buf[torch.where(r.keep, r.dest, spare)] = \
-        xf.repeat_interleave(k, dim=0)[r.order]
-    out = _ffn(p, cfg, buf[:spare].reshape(e, cap, d)).reshape(spare, d)
+    with obs.span("moe.dispatch"):
+        buf = x.new_zeros((spare + 1, d))
+        # row i * k + c of the repeat is token i's c-th choice, so this
+        # is xf[order // k] through a permutation: its gradient sums each
+        # token's k rows in a fixed order (a gather of repeated rows would
+        # scatter-add them, in no fixed order on several threads)
+        buf[torch.where(r.keep, r.dest, spare)] = \
+            xf.repeat_interleave(k, dim=0)[r.order]
+    with obs.span("moe.experts"):
+        out = _ffn(p, cfg, buf[:spare].reshape(e, cap, d)).reshape(spare, d)
 
-    g_sorted = r.gates.reshape(t * k)[r.order]
-    contrib = out[r.dest] * (g_sorted * r.keep)[:, None].to(x.dtype)
-    by_token = torch.empty_like(contrib).index_copy_(0, r.order, contrib)
-    y = by_token.reshape(t, k, d).sum(1)
+    with obs.span("moe.combine"):
+        g_sorted = r.gates.reshape(t * k)[r.order]
+        contrib = out[r.dest] * (g_sorted * r.keep)[:, None].to(x.dtype)
+        by_token = torch.empty_like(contrib).index_copy_(0, r.order,
+                                                         contrib)
+        y = by_token.reshape(t, k, d).sum(1)
     if cfg.shared_expert_ff:
         y = y + mlp_apply(p["shared"], xf, cfg.mlp_act)
     return y.reshape(b, s, d), aux

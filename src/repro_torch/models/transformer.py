@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..device import resolve_device
 from ..runtime.sharding import (constrain, is_dtensor, reduce_partial,
                                 replicated, replicated_like)
@@ -382,6 +383,7 @@ class DecoderLM(nn.Module):
                                    chunk=self.config.xent_chunk)
         return nll + 0.01 * aux
 
+    @obs.span("model.decode_step")
     @torch.no_grad()
     def decode_step(self, token, cache: dict, index: int,
                     image_embeds=None):

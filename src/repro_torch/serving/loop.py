@@ -40,10 +40,12 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .. import obs
 from ..bandwidth import AutoTuner, Ledger
 from ..compression.framing import DEFAULT_MARKER_KEY
 from ..compression.gate import COUNTER_INIT
 from ..kernels.ref import MARKER_LANES
+from ..kv.cache import to_device
 from .shard import shard_kv_attend
 from .slots import SlotKVCache
 from .spill import SpillStore
@@ -145,6 +147,7 @@ class ServeLoop:
         return ((self.clock, self.clock, seq_id)
                 < (cold.last_step, cold.admitted_at, cold.seq_id))
 
+    @obs.span("serve.admit")
     def admit(self, seq_id, k=None, v=None, *, prompt=None) -> SequenceSlot:
         """Join a sequence mid-flight: k/v (T, n_kv, d) prefill its slot
         through the incremental append; `prompt=(k, v)` takes the fused
@@ -181,6 +184,7 @@ class ServeLoop:
         or straight into the spill tier (see `admit`)."""
         return self.admit(seq_id, prompt=(k, v))
 
+    @obs.span("serve.retire")
     def retire(self, seq_id) -> None:
         """Finish a sequence: its lane resets and returns to the free pool,
         or its spill payload is dropped."""
@@ -192,6 +196,7 @@ class ServeLoop:
             insort(self._free, rec.slot)
         self.counts["retired"] += 1
 
+    @obs.span("serve.evict")
     def evict(self, seq_id=None, *,
               protect: frozenset = frozenset()) -> SequenceSlot:
         """Spill one active sequence compressed: `seq_id`, or the coldest
@@ -204,6 +209,7 @@ class ServeLoop:
         self.counts["evicted"] += 1
         return rec
 
+    @obs.span("serve.wake")
     def wake(self, seq_id, *,
              protect: frozenset = frozenset()) -> SequenceSlot:
         """Restore a spilled sequence into a free slot, evicting the
@@ -219,6 +225,7 @@ class ServeLoop:
         return rec
 
     # ------------------------------------------------------------ serving
+    @obs.span("serve.step")
     def step(self, kv_by_seq: dict) -> dict:
         """One decode step: `{seq_id: (k, v)}` with k/v (T, n_kv, d), all
         the same T.  Spilled sequences named here are woken first, and
@@ -242,10 +249,8 @@ class ServeLoop:
             assert not rec.spilled and rec.slot >= 0, (sid, rec)
             slot_ids.append(rec.slot)
         dev = self.cache.device
-        k = torch.stack([torch.as_tensor(kv_by_seq[sid][0], device=dev)
-                         for sid in ids])
-        v = torch.stack([torch.as_tensor(kv_by_seq[sid][1], device=dev)
-                         for sid in ids])
+        k = torch.stack([to_device(kv_by_seq[sid][0], dev) for sid in ids])
+        v = torch.stack([to_device(kv_by_seq[sid][1], dev) for sid in ids])
         if self.fused:
             self.cache.megastep(slot_ids, k, v, budget=self.migrate_budget)
         else:
@@ -274,6 +279,7 @@ class ServeLoop:
             out.update(self.step({s: kv_by_seq[s] for s in wave}))
         return out
 
+    @obs.span("serve.attend")
     def attend(self, q_by_seq: dict, *, shard: "bool | str" = "auto") -> dict:
         """Batched decode-attend for `{seq_id: q}` with q (Hq, d): one kernel
         launch over the whole slot axis (one a shard where `shard`, passed
@@ -283,8 +289,8 @@ class ServeLoop:
         for sid in ids:
             assert not self.seqs[sid].spilled, f"seq {sid} is spilled"
         dev = self.cache.device
-        rows = {sid: torch.as_tensor(q_by_seq[sid], dtype=torch.float32,
-                                     device=dev) for sid in ids}
+        rows = {sid: to_device(q_by_seq[sid], dev, torch.float32)
+                for sid in ids}
         q = torch.zeros((self.n_slots,) + tuple(rows[ids[0]].shape),
                         dtype=torch.float32, device=dev)
         for sid in ids:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..device import device_list, on_device
 from ..kernels import ops as kops
 
@@ -30,7 +31,8 @@ def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto",
     one query row per slot.  Returns (B, Hq, d) float32 on the cache's
     device.  No bandwidth accounting here — callers charge the step
     explicitly."""
-    cache.repack()
+    with obs.span("cache.repack"):
+        cache.repack()
     q = torch.as_tensor(q, device=cache.device)
     if q.dim() == 2:
         q = q[None]

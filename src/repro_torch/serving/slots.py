@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..bandwidth import Ledger
 from ..compression.framing import DEFAULT_MARKER_KEY
 from ..compression.gate import COUNTER_INIT, ENABLE_THRESHOLD
@@ -96,7 +97,9 @@ class SlotKVCache(CRAMKVCache):
             return np.zeros(self.batch, bool)
         if self.policy == "static":
             return np.ones(self.batch, bool)
-        return self.state["counter"].cpu().numpy() >= ENABLE_THRESHOLD
+        with obs.d2h():
+            counter = self.state["counter"].cpu().numpy()
+        return counter >= ENABLE_THRESHOLD
 
     def refresh_gate(self) -> np.ndarray:
         """Re-sample the per-slot target gate (an observation boundary)."""
@@ -172,6 +175,7 @@ class SlotKVCache(CRAMKVCache):
                 + torch.arange(t, device=self.device)[None, :])
         self.state["pages"][rows, cols] = kv
 
+    @obs.span("cache.append")
     def append_active(self, slot_ids, k, v):
         """One decode step for a subset of slots: k/v (S, T, n_kv, d) rows
         aligned with `slot_ids`, each at its slot's own position."""
@@ -231,6 +235,7 @@ class SlotKVCache(CRAMKVCache):
         self._applied_b[:, idx] = enabled[:, None]
         self._last_enabled = enabled.copy()
 
+    @obs.span("cache.lay_window")
     def _lay_window(self, idx: np.ndarray, fresh_pages: bool):
         """Shared tail of `megastep` / `prefill_slot`: pack the padded dirty
         window under the frozen gate, scatter it, book the repack bytes and
@@ -261,6 +266,7 @@ class SlotKVCache(CRAMKVCache):
         self._last_enabled = enabled.copy()
 
     # ----------------------------------------------------- fused megastep
+    @obs.span("cache.megastep")
     def megastep(self, slot_ids, k, v, *, budget: int = 0) -> dict:
         """One serve decode step: append k/v (S, T, n_kv, d) rows to
         `slot_ids`, re-lay the dirty window (+ up to `budget` migration
@@ -273,16 +279,18 @@ class SlotKVCache(CRAMKVCache):
             self.migration_quantum(budget)
         idx = np.nonzero(self._dirty_b.any(0))[0]
         self._lay_window(idx, fresh_pages=False)
-        n = self._active_bucket()
-        valid = self._valid(n)
-        st = self.state
-        raw_seq, cram_seq = kops.hbm_bytes_moved_device(
-            kernel_cache_slice(st, n), valid,
-            predictor=st["predictor"][:, :n], lanes=self.group_lanes)
-        self._absorb_step(raw_seq, cram_seq, valid, n)
+        with obs.span("cache.book"):
+            n = self._active_bucket()
+            valid = self._valid(n)
+            st = self.state
+            raw_seq, cram_seq = kops.hbm_bytes_moved_device(
+                kernel_cache_slice(st, n), valid,
+                predictor=st["predictor"][:, :n], lanes=self.group_lanes)
+            self._absorb_step(raw_seq, cram_seq, valid, n)
         return {"raw_per_seq": raw_seq, "cram_per_seq": cram_seq}
 
     # ------------------------------------------------------ fused prefill
+    @obs.span("cache.prefill")
     def prefill_slot(self, slot: int, k, v, *, budget: int = 0) -> dict:
         """Install a whole prompt k/v (T, n_kv, d) into one slot: one
         scatter, one bulk pack of every touched group (`prefill_pack`), the
@@ -360,8 +368,10 @@ class SlotKVCache(CRAMKVCache):
         else:
             build = (kops.build_cram_cache if self.packing == "pair"
                      else kops.build_cram_cache_quad)
+            with obs.d2h():
+                host = pages.cpu()
             packed = {k: v.to(self.device)
-                      for k, v in build(pages.cpu(), key=self.key).items()}
+                      for k, v in build(host, key=self.key).items()}
             if applied.all():
                 c = {k: packed[k] for k in raw}
             else:

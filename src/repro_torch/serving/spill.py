@@ -43,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..bandwidth import Ledger
 from ..bandwidth.adapters import kv_spill_event
 from ..compression import pagepack
@@ -147,7 +148,7 @@ class SpillStore:
             return
         self._inflight_pages[cap["seq_id"]] = cap["n_pages"]
         self._inflight[cap["seq_id"]] = self._worker().submit(
-            self._encode, cap)
+            obs.bind(self._encode), cap)
 
     # ------------------------------------------------------------- evict
     def evict(self, cache: SlotKVCache, slot: int, seq_id: int) -> None:
@@ -208,13 +209,16 @@ class SpillStore:
         avail = min(gs * self.lanes, cache.max_pages)
         pages = torch.zeros((gs * self.lanes, page, cache.n_kv, cache.d2),
                             dtype=torch.int16)
-        pages[:avail] = _host(cache.pages_view()[slot, :avail])
         gh = cache.slot_groups(slot)
+        with obs.d2h(3):
+            pages[:avail] = _host(cache.pages_view()[slot, :avail])
+            counter = int(cache.state["counter"][slot])
+            predictor = _host(cache.state["predictor"][slot, :gh])
         cap = {
             "seq_id": seq_id, "tokens": tokens, "n_pages": n_pages,
             "gs": gs, "pages": pages,
-            "counter": int(cache.state["counter"][slot]),
-            "predictor": _host(cache.state["predictor"][slot, :gh]),
+            "counter": counter,
+            "predictor": predictor,
             "uncounted": cache._uncounted_b[slot, :gh].copy(),
             "gate": bool(cache._gate_b[slot]),
             "hot_packing": cache.packing,
@@ -223,6 +227,7 @@ class SpillStore:
         cache.reset_slot(slot)
         return cap
 
+    @obs.span("spill.encode")
     def _encode(self, cap: dict) -> SpilledSeq:
         """Re-encode a captured slot under the spill packing: CPU tensors
         only, safe on the background worker.  All groups pack in one
@@ -312,6 +317,7 @@ class SpillStore:
             return fut.result()
         return self._store[seq_id]
 
+    @obs.span("spill.decode")
     def _decode_pages(self, p: SpilledSeq, page: int) -> torch.Tensor:
         """Payload -> logical pages (n_groups*lanes, page, Hkv, D2) on the
         host: the pure half of a restore, runnable on the worker."""
@@ -349,8 +355,8 @@ class SpillStore:
             return False
         if not self.async_spill:
             return False
-        fut = self._worker().submit(
-            lambda: self._decode_pages(self._payload(seq_id), page))
+        fut = self._worker().submit(obs.bind(
+            lambda: self._decode_pages(self._payload(seq_id), page)))
         self._prefetched[seq_id] = fut
         return True
 
