@@ -174,7 +174,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      on a copy of the inputs that launch was given (K7 in chunks of 2^20
      lines over every line; E1 over the first 256 events of each launch,
      from its input carry): bit-exact for K1, K2, K4, K5, K7 and E1, within
-     atol = rtol = 2e-3 for K3 (bytes exact) and K6;
+     atol = rtol = 2e-3 for K3 (bytes exact) and K6.  A1's launches (the
+     model's decode attention, one or two a layer that attends the cache
+     in every decode step) are counted, not copied: a copy of each
+     layer's cache would not fit beside the model.  Its output is held
+     against the plain version on the CPU through the models by the "zoo
+     parity" and "whisper parity" lines, and at the decode cells' shapes
+     in phase 7;
   7. timings of every kernel at the shapes phases 3 to 5 gave it, beside
      its plain version, its bound and, for K3 and K6,
      scaled_dot_product_attention on the materialised K/V: device time
@@ -204,7 +210,12 @@ Phases, each of which makes the script exit non-zero when it fails:
      the sweep's first 2,000 events beside its plain version ("timing
      [engine]"), and each lane's own time in one more launch of the
      sweep, from the device clock at its first and last event, with the
-     five slowest lanes and the slowest of each row ("engine lanes").
+     five slowest lanes and the slowest of each row ("engine lanes");
+     A1, the model's decode attention, at the two decode cells' shapes,
+     first against its plain version in float32 ("gqa decode"), then
+     beside its byte bound, the plain chunk loop and
+     `scaled_dot_product_attention` ("timing [gqa-decode]": two
+     launches a call with several splits, one with one).
      Every timing row carries `kernels_per_call`: the device operations
      one call of the wrapper puts on the card after a warm-up, counted
      from torch.profiler's record of the CUDA calls that enqueue them;
@@ -218,10 +229,12 @@ serving, serve attend pair and quad, the small serve attend, serve churn
 pair and quad, page codec pair and quad, scan, trace simulator, the
 sharded attend, the sharded sweep);
 the launch counters are set to 0 just before each and read just after it,
-and every kernel a path runs must have launched in it.  The last two lines are
-the kernels' JSON record and {"ok": true, "device": {...}}.  It needs one
-CUDA card and a checkout of the repository around it.  `--report PATH`
-also writes the full report as JSON.
+and every kernel a path runs must have launched in it.  A1 must launch
+once a layer that attends the cache in each of the path's decode steps on
+the card (`decode_step` of a model; layers counted from its cache).  The
+last two lines are the kernels' JSON record and {"ok": true, "device":
+{...}}.  It needs one CUDA card and a checkout of the repository around
+it.  `--report PATH` also writes the full report as JSON.
 """
 
 from __future__ import annotations
@@ -279,14 +292,16 @@ KERNELS = {
 PACK_OUTPUTS = ("slots", "overflow", "strips", "lay", "fit")
 SCAN_OUTPUTS = ("sizes", "fpc", "bdi", "status")
 # the paths of the main path, each with the kernels it must launch
+# (A1, "gqa_decode", wherever a model decodes through its own cache on the
+# card)
 PATHS = {
-    "launcher_pair": ("pack_pair",),
-    "launcher_quad": ("pack_quad",),
+    "launcher_pair": ("pack_pair", "gqa_decode"),
+    "launcher_quad": ("pack_quad", "gqa_decode"),
     # the README's spill command: --kv-policy auto gates both tiers off on
-    # random-weight KV, so no kernel is required; the same command with
-    # --kv-policy dynamic --kv-packing pair must pack
-    "launcher_spill": (),
-    "launcher_spill_pair": ("pack_pair",),
+    # random-weight KV, so only the model's decode attention is required;
+    # the same command with --kv-policy dynamic --kv-packing pair must pack
+    "launcher_spill": ("gqa_decode",),
+    "launcher_spill_pair": ("pack_pair", "gqa_decode"),
     "serve_attend_pair": ("pack_pair", "decode_attention_pair",
                           "decode_single_pair"),
     "serve_attend_quad": ("pack_quad", "decode_attention_quad",
@@ -300,22 +315,24 @@ PATHS = {
     "scan": ("compress_scan",),
     "trace_sim": ("engine_scan",),
     # the model zoo at full width (ZOO_RUNS): each family's first attention
-    # cache through the serve tier; mamba2 has none, so no kernel
-    "zoo_olmoe_pair": ("pack_pair",),
-    "zoo_olmoe_quad_spill": ("pack_quad",),
-    "zoo_zamba2_pair": ("pack_pair",),
+    # cache through the serve tier, and the model's decode attention; mamba2
+    # has no attention, so no kernel
+    "zoo_olmoe_pair": ("pack_pair", "gqa_decode"),
+    "zoo_olmoe_quad_spill": ("pack_quad", "gqa_decode"),
+    "zoo_zamba2_pair": ("pack_pair", "gqa_decode"),
     "zoo_mamba2": (),
-    "zoo_vision_pair": ("pack_pair",),
-    "zoo_maverick_pair": ("pack_pair",),
+    "zoo_vision_pair": ("pack_pair", "gqa_decode"),
+    "zoo_maverick_pair": ("pack_pair", "gqa_decode"),
     # training (TRAIN_RUNS and the launcher's README example) runs no
     # kernel of the port: the reference's training path has no pallas_call
     "train_phi4": (),
     "train_zamba2": (),
     "train_launcher": (),
-    # whisper-base on both launchers: no kernel, as in the reference (its
-    # serve launcher runs no serve tier for the encdec family)
+    # whisper-base on both launchers: no serve tier (the reference's serve
+    # launcher runs none for the encdec family); its decoder's self and
+    # cross attention decode through A1
     "whisper_train": (),
-    "whisper_serve": (),
+    "whisper_serve": ("gqa_decode",),
     # the multi-device runtime: the sharded attend and the sharded sweep
     # launch one K3 / E1 a shard; the DP step, GPipe and elastic
     # re-meshing run no kernel of the port (the reference's have no
@@ -326,8 +343,10 @@ PATHS = {
     "multi_gpipe": (),
     "multi_elastic": (),
     # the model cell: its steps reach none of K1-K7 or E1 (the reference's
-    # model steps have no pallas_call)
-    "multi_cell": (),
+    # model steps have no pallas_call); decode_32k's attention is A1, a
+    # launch a layer on the rank's shard (`decode_on_shards`) and in the
+    # unsharded step it is held against
+    "multi_cell": ("gqa_decode",),
     # the dry run counts cells on fake tensors: no kernel
     "dryrun": (),
 }
@@ -352,12 +371,16 @@ def kernel_resources(cuda_lib) -> list[str]:
     funcs = ("window_fit_kernel", "window_write_kernel", "pack_pages_kernel",
              "unpack_pages_kernel", "cram_decode_kernel",
              "cram_decode_single_kernel", "cram_decode_combine",
-             "compress_scan_kernel", "engine_scan_kernel")
+             "compress_scan_kernel", "engine_scan_kernel",
+             "gqa_decode_split_kernel", "gqa_decode_merge_kernel")
     lines = []
     for r in cuda_lib.ptxas_report():
         mangled = r["kernel"]
         name = next((f for f in funcs if f"{len(f)}{f}" in mangled), mangled)
         args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[-1])
+        if name == "gqa_decode_split_kernel":     # the K/V element type
+            args.insert(0, "bf16" if "bfloat16" in mangled
+                        else "f16" if "6__half" in mangled else "f32")
         label = f"{name}<{', '.join(args)}>" if args else name
         lines.append(f"{label}: {r['registers']} registers, spill stores "
                      f"{r['spill_stores']} B, loads {r['spill_loads']} B")
@@ -451,15 +474,21 @@ def pair_fit_stats(sizes) -> tuple[float, float]:
 
 class Recorder:
     """Keeps a copy of the inputs and outputs of every launch a CUDA
-    wrapper makes while a path is driven, with the path and the ServeLoop
-    call it came from ("prefill", "step_all", "attend" or "other"), and
-    counts the ServeLoop calls of each path on the card (a twin loop on
-    the CPU, which launches nothing, is not counted)."""
+    wrapper makes while a path is driven (or, for a wrapper made with
+    `copy=False`, only that it launched), with the path and the ServeLoop
+    or model call it came from ("prefill", "step_all", "attend",
+    "model_step" or "other"), and counts the ServeLoop calls and the
+    models' decode steps of each path on the card (a twin on the CPU, or
+    a step on fake tensors, which launches nothing, is not counted)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.calls: list = []
         self.loop_calls: dict = {}
+        # path -> models' decode steps on the card, and the set of the
+        # counts of layers whose attention reads the cache in them
+        self.model_steps: dict = {}
+        self.attending: dict = {}
         self.path = None
         self.part = "other"
 
@@ -472,19 +501,43 @@ class Recorder:
             return {k: self._clone(v) for k, v in x.items()}
         return x
 
-    def wrap(self, name_of, fn, launches: dict):
+    def wrap(self, name_of, fn, launches: dict, copy: bool = True):
         def wrapped(*args, **kw):
             if self.path is None:
                 return fn(*args, **kw)
-            inputs = [self._clone(a) for a in args]
+            inputs = [self._clone(a) for a in args] if copy else None
             before = sum(launches.values())
             outs = fn(*args, **kw)
             if sum(launches.values()) > before:
                 self.calls.append({
                     "name": name_of(args, kw), "path": self.path,
                     "part": self.part, "args": inputs, "kw": dict(kw),
-                    "outs": self._clone(outs)})
+                    "outs": self._clone(outs) if copy else None})
             return outs
+        return wrapped
+
+    def wrap_model_step(self, fn):
+        """A model's `decode_step(token, cache, index, ...)`: counted with
+        the layers that attend its cache (`attending_layers`) where the
+        token is a tensor on the card, its launches in part
+        "model_step"."""
+        from torch._subclasses.fake_tensor import is_fake
+
+        def wrapped(model, token, cache, *args, **kw):
+            # a DTensor's local shard, read without an op (the cell's
+            # step runs under analyze_step's dispatch mode)
+            local = getattr(token, "_local_tensor", token)
+            if (self.path is not None and local.device.type == "cuda"
+                    and not is_fake(local)):
+                self.model_steps[self.path] = (
+                    self.model_steps.get(self.path, 0) + 1)
+                self.attending.setdefault(self.path, set()).add(
+                    attending_layers(cache))
+            outer, self.part = self.part, "model_step"
+            try:
+                return fn(model, token, cache, *args, **kw)
+            finally:
+                self.part = outer
         return wrapped
 
     def wrap_part(self, part: str, fn):
@@ -512,6 +565,19 @@ class Recorder:
             return None
         first = max(by_shape.values(), key=len)[0]
         return first["args"], first["kw"]
+
+
+def attending_layers(cache: dict) -> int:
+    """The layers whose attention reads a model's decode cache in one
+    step: the leading (layers) dim of each self ("k") and cross ("xk") K
+    cache in it, nested dicts walked."""
+    n = 0
+    for key, x in cache.items():
+        if isinstance(x, dict):
+            n += attending_layers(x)
+        elif key in ("k", "xk"):
+            n += x.shape[0]
+    return n
 
 
 def _tensors(args):
@@ -3661,6 +3727,8 @@ def check_main_path(torch, rec) -> dict:
     |difference|."""
     seen: dict = {}
     for i, c in enumerate(rec.calls):
+        if c["args"] is None:       # counted, not copied (A1)
+            continue
         name = c["name"]
         label = f"{name} launch {i} ({c['path']}, {c['part']})"
         err, shape, how = MAIN_PATH_CHECKS[name](torch, label, c["args"],
@@ -3670,6 +3738,10 @@ def check_main_path(torch, rec) -> dict:
         s["calls"] += 1
         s["shapes"].add(shape)
         s["max_abs_err"] = max(s["max_abs_err"], err)
+    counted = sum(c["args"] is None for c in rec.calls)
+    print(f"main-path check: gqa_decode: {counted} launches counted, not "
+          "copied (held against the plain version by the zoo and whisper "
+          "parity lines and in phase 7)")
     for name, s in seen.items():
         s["shapes"] = sorted(s["shapes"])
         print(f"main-path check: {name}: {s['calls']} launches at "
@@ -3965,6 +4037,103 @@ def long_context_rows(torch, device) -> dict:
     return rows
 
 
+# A1 at the decode cells' shapes: (name, B, T, length, Hkv, Hq, head_dim)
+GQA_SHAPES = (("phi4_decode_ctx2k", 48, 3072, 2304, 8, 24, 128),
+              ("olmoe_decode_chat", 1024, 256, 192, 16, 16, 128))
+
+
+def _gqa_bound(q, k, length) -> tuple[float, str]:
+    """A1's floor: the valid K/V rows of every sequence, q and the output
+    once at 3.35 TB/s, or 4 x valid positions x Hq x head_dim FLOPs at the
+    float32 rate, whichever is longer."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    moved = (2 * b * length * hkv * d * k.element_size()
+             + 2 * b * hq * d * q.element_size())
+    return max(_bound(moved),
+               (4.0 * b * length * hq * d / 67e12 * 1e3, "float32 flops"))
+
+
+def _gqa_plain(torch, q, k, v, length):
+    """The port's decode attention before A1: the plain chunk loop in 1,024
+    position chunks, normalised and cast as `chunked_decode_attention`
+    does off the card."""
+    from repro_torch.models.attention import decode_attention_state_plain
+
+    m, l, o = decode_attention_state_plain(q, k, v, length, 1024)
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def gqa_decode_rows(torch, device) -> dict:
+    """A1 (`kernels/gqa_decode.py`, through `models/attention.py`'s two
+    entries) at the two decode cells' shapes, bf16
+    K/V and q: its output (largest |difference| over the largest value)
+    and its state (over the rms) against the plain version in float32 on
+    the same inputs, then its device time beside its byte bound (the valid K/V rows,
+    q and the output once), the plain chunk loop the port ran before it
+    (bf16, 1,024-position chunks) and `scaled_dot_product_attention`
+    over the valid rows (`library_ms`, a yardstick the port never
+    calls)."""
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.models import attention
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    for name, b, t, length, hkv, hq, d in GQA_SHAPES:
+        g = torch.Generator(device=device).manual_seed(7)
+        q = torch.randn((b, hq, d), generator=g, device=device).to(bf16)
+        k = torch.randn((b, t, hkv, d), generator=g, device=device).to(bf16)
+        v = torch.randn((b, t, hkv, d), generator=g, device=device).to(bf16)
+        pm, pl, po = attention.decode_attention_state_plain(
+            q.to(f32), k.to(f32), v.to(f32), length, t)
+        m, l, o = attention.decode_attention_state(q, k, v, length)
+        out = attention.chunked_decode_attention(q, k, v, length)
+        want = po / pl[..., None]
+
+        def rel(got, ref):
+            return float((got.to(f32) - ref).abs().max()
+                         / ref.pow(2).mean().sqrt())
+
+        # the output is rounded to bf16: within 2^-8 of the largest value
+        errs = {"out": float((out.to(f32) - want).abs().max()
+                             / want.abs().max()),
+                "m": rel(m, pm), "l": rel(l, pl), "o": rel(o, po)}
+        if errs["out"] > 2.0 ** -8 or max(errs["m"], errs["l"],
+                                          errs["o"]) > 2e-5:
+            fail(f"gqa decode {name}: differs from the plain version in "
+                 f"float32: {errs}")
+        width, splits = gd.split_geometry(b, hkv, hq, t)
+        print(f"gqa decode {name}: B {b} T {t} length {length} Hkv {hkv} "
+              f"Hq {hq} head_dim {d}, {splits} splits of {width}: "
+              f"against the float32 plain version: output |diff| / max "
+              f"{errs['out']:.3e} (bf16), |diff| / rms m {errs['m']:.3e}, l "
+              f"{errs['l']:.3e}, o {errs['o']:.3e}")
+        del pm, pl, po, want
+        q4 = q[:, :, None]
+        kv = (k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2))
+        spec = {"shape": (b, t, hkv, d),
+                "kernel": lambda q=q, k=k, v=v, n=length:
+                    attention.chunked_decode_attention(q, k, v, n),
+                "plain": lambda q=q, k=k, v=v, n=length:
+                    _gqa_plain(torch, q, k, v, n),
+                "library": lambda q4=q4, kv=kv:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        q4, *kv, enable_gqa=True),
+                "bound": _gqa_bound(q, k, length)}
+        rows[name] = measure(torch, "gqa_decode", spec)
+        rows[name].update(errs=errs, splits=splits, width=width,
+                          length=length)
+        del q, k, v, q4, kv
+        torch.cuda.empty_cache()
+    print_rows("gqa-decode", rows)
+    for name, r in rows.items():
+        want = 1 if r["splits"] == 1 else 2
+        if r["kernels_per_call"] != want:
+            fail(f"gqa decode {name}: {r['kernels_per_call']} device "
+                 f"operations a call, expected {want}")
+    return rows
+
+
 def prefill_window_rows(torch, device) -> dict:
     """K1 and K2 at the prefill window (B = 8 sequences, W = 8 groups,
     64 groups at the phi4 KV geometry; compressible, incompressible and
@@ -4108,7 +4277,8 @@ def main(argv=None) -> int:
     ap.add_argument("--report", type=pathlib.Path, default=None,
                     help="also write the full report (launcher reports, "
                          "every timing) as JSON to this path")
-    report_path = ap.parse_args(argv).report
+    opts = ap.parse_args(argv)
+    report_path = opts.report
     import torch
 
     sys.stdout.reconfigure(line_buffering=True)
@@ -4137,6 +4307,7 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
     from repro_torch.kernels import compress_scan as cs
     from repro_torch.kernels import cram_attention as ca
     from repro_torch.kernels import engine_scan as es
+    from repro_torch.kernels import gqa_decode as gd
 
     card = gpu_line()
     kind = torch.cuda.get_device_name(0)
@@ -4195,9 +4366,17 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
                                      cs.compress_scan_cuda, cs.LAUNCHES)
     es.engine_scan_cuda = rec.wrap(lambda a, kw: "engine_scan",
                                    es.engine_scan_cuda, es.LAUNCHES)
-    launches = (bdi_pack.LAUNCHES, ca.LAUNCHES, cs.LAUNCHES, es.LAUNCHES)
+    gd.gqa_decode_cuda = rec.wrap(lambda a, kw: "gqa_decode",
+                                  gd.gqa_decode_cuda, gd.LAUNCHES, copy=False)
+    launches = (bdi_pack.LAUNCHES, ca.LAUNCHES, cs.LAUNCHES, es.LAUNCHES,
+                gd.LAUNCHES)
     for part in ("prefill", "step_all", "attend"):
         setattr(ServeLoop, part, rec.wrap_part(part, getattr(ServeLoop, part)))
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.models.whisper import Whisper
+
+    for cls in (DecoderLM, Whisper):
+        cls.decode_step = rec.wrap_model_step(cls.decode_step)
     by_path: dict = {}
 
     def drive(path, fn):
@@ -4218,15 +4397,29 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
             fail(f"{path}: {len(calls)} launches recorded, counters say "
                  f"{got}")
         steps = rec.loop_calls.get((path, "step_all"), 0)
+        # A1 in the models' decode steps: once a layer that attends the
+        # cache (a merge launch is not a call)
+        model_steps = rec.model_steps.get(path, 0)
+        layers = rec.attending.get(path, set())
+        a1 = sum(c["name"] == "gqa_decode" and c["part"] == "model_step"
+                 for c in calls)
+        if len(layers) > 1 or a1 != model_steps * sum(layers):
+            fail(f"{path}: {a1} A1 calls in {model_steps} decode steps "
+                 f"whose caches are read by {sorted(layers)} layers")
         by_path[path] = {}
         for name in PATHS[path]:
             mine = [c for c in calls if c["name"] == name]
             prefill = sum(c["part"] == "prefill" for c in mine)
-            decode = sum(c["part"] in ("step_all", "attend") for c in mine)
+            if name == "gqa_decode":
+                n, decode = model_steps, a1
+            else:
+                n = steps
+                decode = sum(c["part"] in ("step_all", "attend")
+                             for c in mine)
             by_path[path][name] = {
                 "launches": got[name], "prefill": prefill,
-                "decode_steps": steps,
-                "per_decode_step": decode / steps if steps else None}
+                "decode_steps": n,
+                "per_decode_step": decode / n if n else None}
         print(f"launches [{path}]: {by_path[path]}")
         return result
 
@@ -4389,7 +4582,8 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
         "zoo-window": zoo_window_rows(torch, rec, device),
         "geometry": geometry_rows(torch, geo_inputs),
         "bulk-group": bulk_group_rows(torch, device),
-        "engine": engine_rows(torch, device, plain_event_ms)}
+        "engine": engine_rows(torch, device, plain_event_ms),
+        "gqa-decode": gqa_decode_rows(torch, device)}
     print(f"phase 7: {time.perf_counter() - t0:.1f} s")
     for phase in ("page-codec", "bulk-group"):
         for name in ("pack_pair_group", "pack_quad_group"):

@@ -65,6 +65,9 @@ SIGNATURES = {
     "cram_compress_scan": [_P, _L, _U, _P, _P],
     # &EngineArgs, dynamic shared memory bytes, refusal flags, stream
     "cram_engine_scan": [_P, _L, _P, _P],
+    # q, k, v, q_sb, q_sh, B, T, hkv, hq, D, kv_type, q_type, length,
+    # width, splits, state, part_m, part_l, part_o, m, l, o, stream
+    "cram_gqa_decode": [_P, _P, _P, _L, _L] + [_I] * 11 + [_P] * 7,
 }
 
 _state: dict = {"lib": None, "build_seconds": None}
@@ -72,6 +75,16 @@ _state: dict = {"lib": None, "build_seconds": None}
 # observers of the kernel wrappers' calls (the launch audit's recorder);
 # empty outside an audit
 OBSERVERS: list = []
+# observers of the FLOPs a kernel computes, which no aten op shows to a
+# dispatch mode (`launch/hlo_analysis.analyze_step`'s recorder); empty
+# outside it
+FLOP_OBSERVERS: list = []
+
+
+def count_flops(n: float) -> None:
+    """Report `n` FLOPs a kernel launch computed to FLOP_OBSERVERS."""
+    for observe in FLOP_OBSERVERS:
+        observe(n)
 
 
 def kernel_wrapper(launch_key):

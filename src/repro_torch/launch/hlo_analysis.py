@@ -141,6 +141,10 @@ class _StepRecorder(TorchDispatchMode):
         self._lock = threading.Lock()   # backward may free on another thread
         self.paused = 0                 # inside DTensor's shape inference
 
+    def add_flops(self, n: float) -> None:
+        """FLOPs of a kernel launch, which no aten op shows."""
+        self.flops += n
+
     def _free(self, key, n: int) -> None:
         with self._lock:
             self.live -= n
@@ -287,7 +291,8 @@ def _without_shape_inference(rec: _StepRecorder):
 
 
 def analyze_step(fn, *args, peak_tensors: int = 0) -> dict:
-    """Run fn(*args) once and return {"flops": one device's flops,
+    """Run fn(*args) once and return {"flops": one device's flops (the
+    aten ops' and those the port's kernels report),
     "bytes_accessed": the bytes its ops read and wrote, "collectives":
     `collective_bytes` of what it ran, "argument_bytes":
     `local_bytes(args)`, "memory_analysis": {argument_size_in_bytes,
@@ -296,10 +301,16 @@ def analyze_step(fn, *args, peak_tensors: int = 0) -> dict:
     "peak_bytes": argument + temp, the most a device holds, "out": fn's
     result}; with `peak_tensors` > 0 also "peak_tensors", that many of
     the largest storages live at the peak (op, shape, dtype, bytes)."""
+    from ..kernels import cuda_lib
+
     held = local_bytes(args)
     rec = _StepRecorder(peak_tensors)
-    with _without_shape_inference(rec), rec:
-        out = fn(*args)
+    cuda_lib.FLOP_OBSERVERS.append(rec.add_flops)
+    try:
+        with _without_shape_inference(rec), rec:
+            out = fn(*args)
+    finally:
+        cuda_lib.FLOP_OBSERVERS.remove(rec.add_flops)
     info = {"flops": float(rec.flops), "bytes_accessed": rec.bytes_accessed,
             "collectives": collective_bytes(rec.records),
             "argument_bytes": held,

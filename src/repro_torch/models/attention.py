@@ -6,7 +6,9 @@ online-softmax (max, denom, acc) state, in the reference's order of
 operations and with its -1e30 masking; GQA repeats each KV head for its
 G query heads, chunk by chunk.  Under autograd each q-chunk is recomputed
 in backward (the reference's `jax.checkpoint` of its q-chunk body), so
-the scores of one chunk at a time are live."""
+the scores of one chunk at a time are live.  Decode on the card launches
+one kernel instead (`kernels/gqa_decode.py`, A1), with this chunk loop as
+its plain version."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from .. import obs
+from ..kernels import cuda_lib, gqa_decode
 from ..runtime.sharding import (constrain, from_local_at, is_dtensor,
                                 local_shape_and_offset, matmul,
                                 replicated_like, target_placements,
@@ -111,12 +114,10 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0, k_offset=0,
     return out.permute(1, 0, 3, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
-def decode_attention_state(q, k_cache, v_cache, length,
-                           k_chunk: int = 2048):
-    """Single-token decode before the normalisation: q (B,Hq,D) against
-    cache (B,T,Hkv,D) with `length` valid positions -> the online
-    softmax's (m, l, o), (B,Hq) / (B,Hq) / (B,Hq,D) float32 (a decode
-    whose cache is split over ranks combines them)."""
+def decode_attention_state_plain(q, k_cache, v_cache, length,
+                                 k_chunk: int = 2048):
+    """A1's plain version: the chunk loop of `_q_chunk_state` over every
+    `k_chunk` positions of the cache, masked by `length`."""
     b, hq, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     assert hq % hkv == 0
@@ -131,12 +132,41 @@ def decode_attention_state(q, k_cache, v_cache, length,
     return m[..., 0], l[..., 0], o[:, :, 0]
 
 
+def _on_card(q) -> bool:
+    """A CUDA query launches A1 (which refuses a cache elsewhere); one on
+    the CPU or with no storage (a dry run's FakeTensor, a meta tensor)
+    runs the plain version."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return q.device.type == "cuda" and not is_fake(q)
+
+
+@cuda_lib.kernel_wrapper("gqa_decode")
+def decode_attention_state(q, k_cache, v_cache, length,
+                           k_chunk: int = 2048):
+    """Single-token decode before the normalisation: q (B,Hq,D) against
+    cache (B,T,Hkv,D) with `length` valid positions -> the online
+    softmax's (m, l, o), (B,Hq) / (B,Hq) / (B,Hq,D) float32 (a decode
+    whose cache is split over ranks combines them).  `k_chunk` is the
+    plain version's chunk; A1 ignores it."""
+    if _on_card(q):
+        return gqa_decode.gqa_decode_cuda(q, k_cache, v_cache, length,
+                                          state=True)
+    return decode_attention_state_plain(q, k_cache, v_cache, length, k_chunk)
+
+
 @obs.span("attn.decode")
+@cuda_lib.kernel_wrapper("gqa_decode")
 def chunked_decode_attention(q, k_cache, v_cache, length,
                              k_chunk: int = 2048):
     """Single-token decode: q (B,Hq,D) against cache (B,T,Hkv,D) with
-    `length` valid positions -> (B,Hq,D) in q's dtype."""
-    m, l, o = decode_attention_state(q, k_cache, v_cache, length, k_chunk)
+    `length` valid positions -> (B,Hq,D) in q's dtype (on the card A1
+    normalises and casts too)."""
+    if _on_card(q):
+        return gqa_decode.gqa_decode_cuda(q, k_cache, v_cache, length,
+                                          state=False)
+    m, l, o = decode_attention_state_plain(q, k_cache, v_cache, length,
+                                           k_chunk)
     return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -26,9 +26,21 @@ CTA of a group's cluster sees, 1,024 groups at the phi4 geometry and
 65,539 groups of one vector, an image whose line count is not a multiple
 of the kernel's block).
 
+A1 (the model's decode attention, `kernels/gqa_decode.py`, launched by
+`models/attention.py:decode_attention_state` and
+`chunked_decode_attention` on CUDA tensors) holds its state and output
+within 2e-5 of the rms of its plain version run in
+float32 on the same inputs (the output also within its dtype's
+rounding), over bf16, fp16 and float32, head_dim 8 to 256, groups of 1
+to 12, lengths 0, 1, a split's edge, T - 1, T and past T, one split and
+many; two halves of a cache combine to the whole; a tiny dense and a
+tiny GQA decoder decode the same tokens through it as through the plain
+path.
+
 The CPU half at the end runs here too: a wrapper given CPU tensors runs
 the plain version and counts no launch, and the CUDA entry refuses a CPU
-tensor before it builds anything.
+tensor before it builds anything; tensors with no storage (FakeTensor,
+meta) take A1's plain version.
 """
 
 import importlib.util
@@ -47,10 +59,12 @@ from repro_torch.kernels import bdi_pack
 from repro_torch.kernels import compress_scan as cs
 from repro_torch.kernels import cram_attention as ca
 from repro_torch.kernels import engine_scan as es
+from repro_torch.kernels import gqa_decode as gd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import strip_is_packed
 from repro_torch.kv import synthetic_kv_stream
 from repro_torch.kv.cache import kv_bits
+from repro_torch.models import attention
 
 torch.set_num_threads(1)
 
@@ -892,12 +906,203 @@ def test_engine_scan_kernel_refuses_an_unpackable_evict_table(cuda, column,
     assert es.LAUNCHES["engine_scan"] == before
 
 
+# ----------------------------------------- A1: the model's decode attention
+
+GQA_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+# float32 sums in another order, exp2 by ex2.approx (2^-22 relative) and q
+# scaled in float32 where the plain version scales it in q's dtype: the
+# state and the normalised output within 2e-5 of the rms of what they are
+# compared with, in every input dtype, since the kernel computes in float32
+# from the inputs' exact float32 values
+GQA_TOL = 2e-5
+# the output rounded to its dtype: half an ulp of the largest value
+GQA_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11,
+             torch.float32: 0.0}
+
+
+def _gqa_inputs(b, t, hkv, g, hd, dtype, device, seed=0, q_dtype=None):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, hkv * g, hd), generator=gen)
+    k = torch.randn((b, t, hkv, hd), generator=gen)
+    v = torch.randn((b, t, hkv, hd), generator=gen)
+    return (q.to(device=device, dtype=q_dtype or dtype),
+            k.to(device=device, dtype=dtype), v.to(device=device, dtype=dtype))
+
+
+def _gqa_plain32(q, k, v, length):
+    """The plain version in float32 on the same inputs (one chunk)."""
+    f = torch.float32
+    return attention.decode_attention_state_plain(q.to(f), k.to(f), v.to(f),
+                                                  length, k.shape[1])
+
+
+def _rel(got, want) -> float:
+    scale = want.to(torch.float32).pow(2).mean().sqrt().clamp_min(1e-30)
+    return float((got.to(torch.float32) - want.to(torch.float32)).abs().max()
+                 / scale)
+
+
+def _check_gqa(q, k, v, length):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, l, o = attention.decode_attention_state(q, k, v, length)
+    out = attention.chunked_decode_attention(q, k, v, length)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    if length <= 0:
+        assert bool((m == -1e30).all()) and not l.any() and not o.any()
+        assert not out.any()
+        return
+    pm, pl, po = _gqa_plain32(q, k, v, length)
+    assert _rel(m, pm) <= GQA_TOL, (length, _rel(m, pm))
+    assert _rel(l, pl) <= GQA_TOL, (length, _rel(l, pl))
+    assert _rel(o, po) <= GQA_TOL, (length, _rel(o, po))
+    want = po / pl[..., None]
+    err = float((out.to(torch.float32) - want).abs().max())
+    limit = (GQA_ROUND[q.dtype] * float(want.abs().max())
+             + GQA_TOL * float(want.pow(2).mean().sqrt()))
+    assert err <= limit, (length, err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GQA_DTYPES)
+@pytest.mark.parametrize("hd", [8, 64, 80, 128, 256])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+def test_gqa_decode_kernel_matches_plain(cuda, dtype, hd, g):
+    """Many splits of a cache whose length is not a multiple of the split
+    width: lengths 0, 1, a split's edge and one past it, T - 1, T and
+    beyond T (clamped)."""
+    b, t, hkv = 3, 1000, 2
+    width, splits = gd.split_geometry(b, hkv, hkv * g, t)
+    assert splits > 1 and t % width
+    q, k, v = _gqa_inputs(b, t, hkv, g, hd, dtype, cuda, seed=hd + g)
+    for length in (0, 1, width, width + 1, t - 1, t, t + 5):
+        _check_gqa(q, k, v, length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", GQA_DTYPES)
+@pytest.mark.parametrize("g,hd", [(1, 128), (3, 64), (12, 80)])
+def test_gqa_decode_kernel_one_split(cuda, dtype, g, hd):
+    """B x Hkv past the launch's CTA target: one split, no merge; a head
+    group of 12 runs in two chunks of query heads."""
+    b, t, hkv = 4300, 100, 1
+    assert gd.split_geometry(b, hkv, hkv * g, t)[1] == 1
+    q, k, v = _gqa_inputs(b, t, hkv, g, hd, dtype, cuda)
+    for length in (0, 1, 63, 99, 100):
+        _check_gqa(q, k, v, length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.bfloat16)])
+def test_gqa_decode_kernel_mixed_dtypes(cuda, q_dtype, kv_dtype):
+    """q and K/V of different types (whisper's float32 cross K/V under a
+    bf16 config); a q with strides of its own (a slice of a wider row)."""
+    q, k, v = _gqa_inputs(5, 300, 4, 3, 64, kv_dtype, cuda,
+                          q_dtype=q_dtype)
+    _check_gqa(q, k, v, 217)
+    wide = torch.zeros((5, 12, 128), dtype=q_dtype, device=cuda)
+    wide[..., 32:96] = q
+    _check_gqa(wide[..., 32:96], k, v, 217)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [1, 150, 299, 300, 450, 600])
+def test_gqa_decode_halves_combine_to_the_whole(cuda, length):
+    """The states of the two halves of a cache, combined as
+    `decode_on_shards` combines them (a max and two weighted sums), equal
+    the kernel over the whole cache; a half with no valid position weighs
+    nothing."""
+    q, k, v = _gqa_inputs(4, 600, 2, 4, 128, torch.bfloat16, cuda)
+    half = 300
+    states = [attention.decode_attention_state(
+        q, k[:, sl].contiguous(), v[:, sl].contiguous(), length - off)
+        for sl, off in ((slice(0, half), 0), (slice(half, None), half))]
+    top = torch.maximum(states[0][0], states[1][0])
+    w = [torch.exp(s[0] - top) for s in states]
+    l = sum(s[1] * wi for s, wi in zip(states, w, strict=True))
+    o = sum(s[2] * wi[..., None] for s, wi in zip(states, w, strict=True))
+    m_all, l_all, o_all = attention.decode_attention_state(q, k, v, length)
+    assert _rel(top, m_all) <= GQA_TOL
+    assert _rel(l, l_all) <= GQA_TOL
+    assert _rel(o / l[..., None], o_all / l_all[..., None]) <= GQA_TOL
+
+
+@pytest.mark.cuda
+def test_gqa_decode_kernel_refuses_what_it_cannot_run(cuda):
+    before = dict(gd.LAUNCHES)
+    q, k, v = _gqa_inputs(2, 64, 2, 2, 16, torch.bfloat16, cuda)
+    odd = _gqa_inputs(2, 64, 2, 2, 12, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention.decode_attention_state(*odd, 10)
+    wide = _gqa_inputs(1, 8, 1, 1, 264, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        attention.chunked_decode_attention(*wide, 4)
+    kt = k.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.decode_attention_state(q, kt, v, 10)
+    with pytest.raises(ValueError, match="Python int"):
+        attention.decode_attention_state(q, k, v, torch.tensor(10))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        attention.chunked_decode_attention(q, k.cpu(), v.cpu(), 10)
+    with pytest.raises(ValueError, match="whole number of groups"):
+        attention.decode_attention_state(q[:, :3].contiguous(), k, v, 10)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.decode_attention_state(q, k, v.to(torch.float16), 10)
+    assert gd.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_kv_heads", [4, 1])
+def test_decode_steps_through_the_kernel_equal_the_plain_path(cuda,
+                                                              monkeypatch,
+                                                              n_kv_heads):
+    """A tiny dense decoder (4 query heads over 4 KV heads) and a tiny GQA
+    one (over 1) decode 12 greedy steps on the card through the kernel and
+    through the plain chunk loop: the same tokens, the logits within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch import configs, obs
+    from repro_torch.models import build
+
+    cfg = dataclasses.replace(configs.get_smoke("phi4_mini_3_8b"),
+                              n_kv_heads=n_kv_heads)
+    model = build(cfg, device=cuda, seed=0)
+    tok0 = torch.tensor([[3], [11], [7]], device=cuda)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(attention, "_on_card", lambda q: False)
+        cache = model.init_cache(3, 64)
+        tok, toks, logits = tok0, [], []
+        launches = gd.LAUNCHES["gqa_decode"]
+        for i in range(12):
+            out = model.decode_step(tok, cache, i)
+            tok = torch.argmax(out, -1, keepdim=True)
+            toks.append(tok)
+            logits.append(out)
+        launched = gd.LAUNCHES["gqa_decode"] - launches
+        assert launched == (0 if plain else 12 * cfg.n_layers)
+        runs.append((torch.cat(toks, 1), torch.stack(logits)))
+        # under a profiler the port counts one engagement a layer
+        obs.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            model.decode_step(tok, cache, 12)
+        counted = obs.snapshot()["counts"].get("attn.gqa_decode", 0)
+        assert counted == (0 if plain else cfg.n_layers)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
+
+
 # ------------------------------------------------- the CPU half (runs here)
 
 def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     rng = np.random.default_rng(1)
     cpu = torch.device("cpu")
-    before = {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES}
+    before = {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES,
+              **gd.LAUNCHES}
     win = _window(rng, 2, 2, 2, 4, 2, 8, cpu).contiguous()
     mk = torch.zeros((2, 2), dtype=torch.int16)
     enabled = torch.tensor([True, False])
@@ -931,7 +1136,15 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     chunked = _e1_run(small, flags, params, trace, cpu, [7, 8])
     assert all(torch.equal(a, b) for a, b in zip(whole, chunked, strict=True))
     assert es.LAUNCHES["engine_scan"] == e1
-    assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES} == before
+    q, k, v = _gqa_inputs(2, 64, 2, 3, 16, torch.bfloat16, cpu)
+    state = attention.decode_attention_state(q, k, v, 40, 32)
+    want = attention.decode_attention_state_plain(q, k, v, 40, 32)
+    assert all(torch.equal(a, b) for a, b in zip(state, want, strict=True))
+    out = attention.chunked_decode_attention(q, k, v, 40, 32)
+    assert out.dtype == q.dtype and torch.equal(out, (
+        want[2] / torch.clamp(want[1], min=1e-30)[..., None]).to(q.dtype))
+    assert {**bdi_pack.LAUNCHES, **ca.LAUNCHES, **cs.LAUNCHES,
+            **gd.LAUNCHES} == before
 
 
 @pytest.mark.parametrize("groups,nvec,sms", [
@@ -988,3 +1201,74 @@ def test_cuda_entry_refuses_cpu_tensors_before_building():
         bdi_pack.unpack_pages_cuda(page, page[0], 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cs.compress_scan_cuda(torch.zeros((2, 64), dtype=torch.uint8))
+    q, k, v = _gqa_inputs(1, 8, 1, 2, 16, torch.bfloat16, "cpu")
+    for state in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            gd.gqa_decode_cuda(q, k, v, 4, state=state)
+
+
+def test_tensors_without_storage_run_the_plain_decode_attention(monkeypatch):
+    """A dry run's FakeTensors and meta tensors take the plain chunk loop
+    of the decode attention and never reach the kernel's build; a fake
+    tensor on "cuda" is routed there too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import cuda_lib
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    before = dict(gd.LAUNCHES)
+    with FakeTensorMode():
+        assert not attention._on_card(torch.empty((2, 6, 16), device="cuda"))
+        q = torch.empty((2, 6, 16), dtype=torch.bfloat16)
+        k = torch.empty((2, 64, 2, 16), dtype=torch.bfloat16)
+        out = attention.chunked_decode_attention(q, k, k, length=40,
+                                                 k_chunk=32)
+        m, l, o = attention.decode_attention_state(q, k, k, 40, 32)
+    assert out.shape == (2, 6, 16) and out.dtype == torch.bfloat16
+    assert m.shape == l.shape == (2, 6) and o.shape == (2, 6, 16)
+    q = torch.empty((2, 6, 16), device="meta")
+    k = torch.empty((2, 64, 2, 16), device="meta")
+    out = attention.chunked_decode_attention(q, k, k, 40, 32)
+    m, l, o = attention.decode_attention_state(q, k, k, 40, 32)
+    assert out.is_meta and out.shape == (2, 6, 16)
+    assert o.is_meta and o.dtype == torch.float32
+    assert gd.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,hkv,hq,t", [
+    (48, 8, 24, 3072),     # phi4-mini's decode cell: 10 splits of 320
+    (1024, 16, 16, 256),   # OLMoE's: one split
+    (2, 8, 96, 100), (1, 1, 1, 1), (3, 2, 6, 1000), (1, 1, 1, 100_000),
+    (4300, 1, 12, 100)])
+def test_gqa_decode_splits_cover_the_cache_once(b, hkv, hq, t):
+    """The split rule: whole runs of SPLIT_QUANTUM positions, the last
+    split non-empty, at most MAX_SPLITS, and no more splits than the
+    launch needs for its CTA target; the rule sees the shapes alone."""
+    width, splits = gd.split_geometry(b, hkv, hq, t)
+    assert width % gd.SPLIT_QUANTUM == 0
+    assert (splits - 1) * width < t <= splits * width
+    assert 1 <= splits <= gd.MAX_SPLITS
+    chunks = -(-(hq // hkv) // gd.MAX_GROUP)
+    if splits > 1:
+        assert b * hkv * chunks * (splits - 1) < gd.TARGET_CTAS
+
+
+def test_analyze_step_counts_the_flops_a_kernel_reports():
+    """A kernel's FLOPs, which no aten op shows, reach `analyze_step`'s
+    count (A1 reports q.k and p.v over the valid positions), and only
+    while it records."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.hlo_analysis import analyze_step
+
+    a, b = torch.ones((4, 8)), torch.ones((8, 2))
+
+    def step(x, y):
+        cuda_lib.count_flops(1000.0)
+        return x @ y
+
+    assert analyze_step(step, a, b)["flops"] == 2 * 4 * 8 * 2 + 1000
+    assert cuda_lib.FLOP_OBSERVERS == []
+    cuda_lib.count_flops(5.0)       # no observer: nothing to count
