@@ -87,7 +87,8 @@ def make_prefill_step(model):
     @torch.no_grad()
     def prefill_step(batch):
         h = model.forward(batch)
-        return logits_last(h[:, -1], model.embed.to(h.dtype))
+        head = getattr(model, "out_head", model.embed)
+        return logits_last(h[:, -1], head.to(h.dtype))
 
     return prefill_step
 

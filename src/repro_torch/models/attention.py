@@ -204,8 +204,8 @@ def _project(p, cfg, x, kv_src):
     k = matmul(kv_src, p["wk"].to(kv_dt)).reshape(b, t, hkv, hd)
     v = matmul(kv_src, p["wv"].to(kv_dt)).reshape(b, t, hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 

@@ -16,7 +16,8 @@ import torch
 @dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"   # dense | moe | ssm | hybrid | encdec | vlm
+    # dense | moe | ssm | hybrid | encdec | vlm | pattern
+    family: str = "dense"
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -27,13 +28,20 @@ class ModelConfig:
     mlp_act: str = "swiglu"  # swiglu | relu2 | gelu
     qk_norm: bool = False
     rope_theta: float = 10_000.0
-    tie_embeddings: bool = True
+    tie_embeddings: bool = True   # False: an output head of its own
+    rope: bool = True        # False: attention blocks rotate neither q nor k
+    norm_eps: float = 1e-6   # every RMS norm's epsilon
     # --- MoE ---
     n_experts: int = 0
     top_k: int = 1
     moe_every: int = 1          # a MoE MLP every k-th layer (1 = all layers)
     shared_expert_ff: int = 0   # llama4-style always-on shared expert
     capacity_factor: float = 1.25
+    # softmax: top-k of the softmax, gates renormalised over the k;
+    # sigmoid_bias: top-k of sigmoid scores plus a per-expert bias
+    # (`moe.bias`), gates the chosen unbiased scores renormalised
+    router: str = "softmax"
+    routed_scale: float = 1.0   # the routed experts' sum times this
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -41,8 +49,14 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_conv: int = 4
     ssm_chunk: int = 128
+    ssm_inner: int = 0          # d_inner; 0 -> ssm_expand * d_model
+    ssm_norm_groups: int = 1    # the gated norm's groups over d_inner
+    ssm_conv_bias: bool = False
     # --- hybrid (zamba2): shared attention block every k ssm layers ---
     attn_every: int = 0
+    # --- pattern: one block a character, "M" ssm, "E" MoE with no
+    # attention, "*" attention with no MLP (n_layers = its length) ---
+    layer_pattern: str = ""
     # --- enc-dec (whisper) ---
     enc_layers: int = 0
     dec_layers: int = 0
@@ -71,7 +85,7 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
-        return self.ssm_expand * self.d_model
+        return self.ssm_inner or self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
@@ -112,6 +126,17 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_layers=2 * max(cfg.attn_every, 1),
                   ssm_state=min(cfg.ssm_state, 32), ssm_headdim=32,
                   ssm_chunk=32, attn_every=max(cfg.attn_every, 1))
+    elif cfg.family == "pattern":
+        # every kind of block once, in the order the pattern first has it
+        pattern = "".join(sorted(set(cfg.layer_pattern),
+                                 key=cfg.layer_pattern.index))
+        kw.update(n_layers=len(pattern), layer_pattern=pattern,
+                  n_experts=min(cfg.n_experts, 8), top_k=min(cfg.top_k, 4),
+                  d_ff=64, shared_expert_ff=64 if cfg.shared_expert_ff else 0,
+                  ssm_state=min(cfg.ssm_state, 32), ssm_headdim=32,
+                  ssm_chunk=32, ssm_inner=0,
+                  ssm_ngroups=min(cfg.ssm_ngroups, 2),
+                  ssm_norm_groups=min(cfg.ssm_norm_groups, 2))
     elif cfg.family == "encdec":
         kw.update(enc_layers=2, dec_layers=2, n_layers=2)
     elif cfg.family == "vlm":

@@ -2,7 +2,12 @@
 `repro.models.moe`).
 
 Top-k routing -> a stable sort by expert -> a static (E, C, D) dispatch
-buffer -> batched expert matmuls -> weighted combine.  Tokens beyond an
+buffer -> batched expert matmuls -> weighted combine.  The router is a
+softmax (`cfg.router` "softmax": the top-k probabilities, renormalised)
+or sigmoid scores whose top-k is taken after a per-expert bias is added
+("sigmoid_bias", DeepSeek-V3's and Nemotron-H's: logits in float32, the
+gates the chosen experts' unbiased scores, renormalised); either way the
+gates are then multiplied by `cfg.routed_scale`.  Tokens beyond an
 expert's capacity C = int(T * k / E * capacity_factor + 0.999) lose that
 expert's contribution, as in the reference: at decode T is the batch, so
 olmoe-1b-7b at batch 4 has C = 1 and two tokens that pick one expert in a
@@ -35,7 +40,7 @@ from ..runtime.sharding import (from_local_at, is_dtensor,
 from .layers import MLP_AXES, mlp_apply, mlp_init
 
 # each weight's logical axes, as the reference's init names them
-MOE_AXES = {"router": ("embed", "experts"),
+MOE_AXES = {"router": ("embed", "experts"), "bias": ("experts",),
             "w1": ("experts", "embed", "mlp"),
             "w2": ("experts", "mlp", "embed"),
             "w3": ("experts", "embed", "mlp"),
@@ -48,6 +53,8 @@ def moe_init(ini, cfg) -> dict:
          "w1": ini.normal((e, d, f)), "w2": ini.normal((e, f, d))}
     if cfg.mlp_act == "swiglu":
         p["w3"] = ini.normal((e, d, f))
+    if cfg.router == "sigmoid_bias":
+        p["bias"] = ini.zeros((e,))
     if cfg.shared_expert_ff:
         p.update({f"shared.{k}": v for k, v in mlp_init(
             ini, d, cfg.shared_expert_ff, cfg.mlp_act).items()})
@@ -70,23 +77,54 @@ class Routing(NamedTuple):
     dest: torch.Tensor    # (T*k,) dispatch row e * cap + rank (0 if dropped)
 
 
-def _top_k(probs, k: int):
+def _top_k(probs, k: int, bias=None):
     """probs (T, E) -> (gates, eidx) (T, k): the k largest by falling
-    probability, ties to the lower expert, gates normalised over the k."""
-    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eidx = srt.values[:, :k], srt.indices[:, :k]
+    probability (plus `bias` (E,), which picks the experts but is not in
+    the gates), ties to the lower expert, gates normalised over the k."""
+    if bias is None:
+        srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, eidx = srt.values[:, :k], srt.indices[:, :k]
+    else:
+        eidx = torch.sort(probs + bias, dim=-1, descending=True,
+                          stable=True).indices[:, :k]
+        gates = probs.gather(1, eidx)
     return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx
 
 
+def _choose(cfg, xf, p: dict):
+    """xf (T, D), the router's weights `p` (router, and bias for
+    sigmoid_bias) -> (probs (T, E) float32, gates (T, k) float32, eidx
+    (T, k)): the router's scores and the experts they choose."""
+    if cfg.router == "sigmoid_bias":
+        probs = torch.sigmoid(xf.to(torch.float32)
+                              @ p["router"].to(torch.float32))
+        gates, eidx = _top_k(probs, cfg.top_k,
+                             p["bias"].to(torch.float32))
+    elif cfg.router == "softmax":
+        probs = torch.softmax((xf @ p["router"]).to(torch.float32), dim=-1)
+        gates, eidx = _top_k(probs, cfg.top_k)
+    else:
+        raise ValueError(f"unknown router {cfg.router!r}")
+    if cfg.routed_scale != 1.0:
+        gates = gates * cfg.routed_scale
+    return probs, gates, eidx
+
+
 def moe_route(probs, k: int, cap: int) -> Routing:
-    """probs (T, E) float32 -> the routing of `moe_apply`."""
-    t, _ = probs.shape
-    gates, eidx = _top_k(probs, k)
+    """probs (T, E) float32 -> the softmax router's routing of
+    `moe_apply`."""
+    return _routing(*_top_k(probs, k), cap)
+
+
+def _routing(gates, eidx, cap: int) -> Routing:
+    """The chosen experts `eidx` (T, k) and their `gates` -> each (token,
+    choice) pair's place in its expert's rows of capacity `cap`."""
+    t, k = eidx.shape
     flat_e = eidx.reshape(t * k)
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
     # the first sorted position of each expert is its exclusive prefix sum
-    rank = (torch.arange(t * k, device=probs.device)
+    rank = (torch.arange(t * k, device=eidx.device)
             - torch.searchsorted(sorted_e, sorted_e))
     keep = rank < cap
     dest = sorted_e * cap + torch.where(keep, rank, 0)
@@ -117,9 +155,8 @@ def moe_apply(p, cfg, x):
     cap = capacity(cfg, t)
     xf = x.reshape(t, d)
     with obs.span("moe.route"):
-        logits = (xf @ p["router"]).to(torch.float32)
-        probs = torch.softmax(logits, dim=-1)
-        r = moe_route(probs, k, cap)
+        probs, gates, eidx = _choose(cfg, xf, p)
+        r = _routing(gates, eidx, cap)
 
         # Switch-style load-balancing loss
         first = torch.zeros(e, dtype=torch.float32, device=x.device)
@@ -260,10 +297,9 @@ def _moe_on_mesh(p, cfg, x):
     b0, s0 = local_shape_and_offset(x.shape, mesh, x_at)[1][:2]
     n_tok = bl * sl
     xf = xl.reshape(n_tok, d)
-    router = sum_grad(to_local_at(p["router"], replicated(p["router"])),
-                      mesh, tok)
-    probs = torch.softmax((xf @ router).to(torch.float32), dim=-1)
-    gates, eidx = _top_k(probs, k)
+    rp = {n: sum_grad(to_local_at(p[n], replicated(p[n])), mesh, tok)
+          for n in ("router", "bias") if n in p}
+    probs, gates, eidx = _choose(cfg, xf, rp)
     first = torch.zeros(e, dtype=torch.float32, device=x.device)
     first.index_add_(0, eidx[:, 0], torch.ones(n_tok, device=x.device))
     aux = e * torch.sum(sum_over(first, mesh, tok) / t

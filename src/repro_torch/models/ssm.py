@@ -14,6 +14,11 @@ softplus is `logaddexp(dt, 0)`, the formula of `jax.nn.softplus`
 (max(x, 0) + log1p(exp(-|x|))); `F.softplus` switches to the identity
 above 20, which differs from it by under 2.1e-9, below float32's
 resolution there, but is not the same code path.
+
+Where the config asks, the depthwise conv adds a bias (`ssm_conv_bias`)
+and the gated RMS norm is taken over each of `ssm_norm_groups` equal
+groups of d_inner (Mamba-2's grouped norm; one group is the whole
+width).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 
+from .. import obs
 from ..runtime.sharding import (batch_only, is_dtensor, replicated,
                                 sum_grad, sum_over, sum_to, to_local_at,
                                 unpartial)
@@ -34,13 +40,15 @@ SSM_AXES = {"wz": ("embed", "mlp"), "wx": ("embed", "mlp"),
             "wdt": ("embed", None), "conv_x": (None, "mlp"),
             "conv_B": (None, None), "conv_C": (None, None),
             "A_log": (None,), "D": (None,), "dt_bias": (None,),
-            "norm": ("mlp",), "out": ("mlp", "embed")}
+            "norm": ("mlp",), "out": ("mlp", "embed"),
+            "conv_x_bias": ("mlp",), "conv_B_bias": (None,),
+            "conv_C_bias": (None,)}
 
 
 def ssm_init(ini, cfg) -> dict:
     d, din = cfg.d_model, cfg.d_inner
     h, n, g, k = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_conv
-    return {
+    p = {
         "wz": ini.normal((d, din)),
         "wx": ini.normal((d, din)),
         "wB": ini.normal((d, g * n)),
@@ -55,13 +63,18 @@ def ssm_init(ini, cfg) -> dict:
         "norm": ini.ones((din,)),
         "out": ini.normal((din, d)),
     }
+    if cfg.ssm_conv_bias:
+        p.update(conv_x_bias=ini.zeros((din,)),
+                 conv_B_bias=ini.zeros((g * n,)),
+                 conv_C_bias=ini.zeros((g * n,)))
+    return p
 
 
-def _causal_conv(x, w, state=None):
+def _causal_conv(x, w, state=None, bias=None):
     """Depthwise causal conv.  x: (B, S, C) compute dtype; w: (K, C) in
     x's dtype; state: (B, K-1, C) trailing context (decode), overwritten
-    in place with the new context, or None: zeros before the sequence.
-    Returns y (B, S, C)."""
+    in place with the new context, or None: zeros before the sequence;
+    bias: (C,) in x's dtype, or None.  Returns y (B, S, C)."""
     k, s = w.shape[0], x.shape[1]
     if state is None:
         pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
@@ -71,6 +84,8 @@ def _causal_conv(x, w, state=None):
     y = xp[:, 0:s] * w[0]
     for i in range(1, k):
         y = y + xp[:, i:i + s] * w[i]
+    if bias is not None:
+        y = y + bias
     if state is not None and k > 1:
         state.copy_(xp[:, -(k - 1):])
     return y
@@ -104,9 +119,9 @@ def _ssd(p, cfg, x):
     nc, hpg = s // c, nh // g
     f32 = torch.float32
     z, xin, b_, c_, dt = _project(p, cfg, x)
-    xin = F.silu(_causal_conv(xin, p["conv_x"]))
-    b_ = F.silu(_causal_conv(b_, p["conv_B"]))
-    c_ = F.silu(_causal_conv(c_, p["conv_C"]))
+    xin = F.silu(_causal_conv(xin, p["conv_x"], None, p.get("conv_x_bias")))
+    b_ = F.silu(_causal_conv(b_, p["conv_B"], None, p.get("conv_B_bias")))
+    c_ = F.silu(_causal_conv(c_, p["conv_C"], None, p.get("conv_C_bias")))
 
     a_neg = -torch.exp(p["A_log"].to(f32))                  # (H,)
     xh = xin.reshape(bsz, nc, c, nh, hp).to(f32)
@@ -151,7 +166,18 @@ def ssm_apply(p, cfg, x):
     `_on_mesh`."""
     if is_dtensor(x):
         return _on_mesh(p, cfg, x, None)
-    return rms_norm(_ssd(p, cfg, x), p["norm"]) @ p["out"]
+    return _gated_norm(_ssd(p, cfg, x), p["norm"], cfg.ssm_norm_groups,
+                       cfg.norm_eps) @ p["out"]
+
+
+def _gated_norm(v, w, groups: int, eps: float = 1e-6):
+    """The RMS norm of the gated output v (..., d_inner), over each of
+    `groups` equal groups of its last dim; w (d_inner,)."""
+    if groups == 1:
+        return rms_norm(v, w, eps)
+    shape = v.shape
+    return rms_norm(v.reshape(*shape[:-1], groups, shape[-1] // groups),
+                    w.reshape(groups, -1), eps).reshape(shape)
 
 
 def ssm_init_cache(cfg, batch: int, device, lead=()) -> dict:
@@ -176,9 +202,12 @@ def _decode(p, cfg, x, cache):
     n, hp = cfg.ssm_state, cfg.ssm_headdim
     hpg = nh // g
     z, xin, b_, c_, dt = _project(p, cfg, x)
-    xin = F.silu(_causal_conv(xin, p["conv_x"], cache["conv_x"]))
-    b_ = F.silu(_causal_conv(b_, p["conv_B"], cache["conv_B"]))
-    c_ = F.silu(_causal_conv(c_, p["conv_C"], cache["conv_C"]))
+    xin = F.silu(_causal_conv(xin, p["conv_x"], cache["conv_x"],
+                              p.get("conv_x_bias")))
+    b_ = F.silu(_causal_conv(b_, p["conv_B"], cache["conv_B"],
+                             p.get("conv_B_bias")))
+    c_ = F.silu(_causal_conv(c_, p["conv_C"], cache["conv_C"],
+                             p.get("conv_C_bias")))
 
     a_neg = -torch.exp(p["A_log"].to(torch.float32))
     dt1 = dt[:, 0]                                          # (B, H)
@@ -202,7 +231,10 @@ def ssm_decode_step(p, cfg, x, cache):
     writing its shard)."""
     if is_dtensor(x):
         return _on_mesh(p, cfg, x, cache)
-    return rms_norm(_decode(p, cfg, x, cache), p["norm"]) @ p["out"]
+    obs.count("ssm.decode")
+    with obs.span("ssm.decode"):
+        return _gated_norm(_decode(p, cfg, x, cache), p["norm"],
+                           cfg.ssm_norm_groups, cfg.norm_eps) @ p["out"]
 
 
 # on a mesh: the dim of each weight and decode-state leaf that runs along
@@ -228,6 +260,9 @@ def _on_mesh(p, cfg, x, cache):
     the heads.  Otherwise every rank runs all heads.  The decode state is
     read and written at the same split, each rank writing its shard back
     into the cache through `to_local()`."""
+    if cfg.ssm_norm_groups > 1 or cfg.ssm_conv_bias:
+        raise NotImplementedError("a grouped gated norm or a conv bias on "
+                                  "a mesh")
     mesh = x.device_mesh
     bat = batch_only(x if cache is None else cache["h"])
     nh, g = cfg.ssm_heads, cfg.ssm_ngroups
@@ -267,9 +302,10 @@ def _on_mesh(p, cfg, x, cache):
             c.to_local().copy_(new.redistribute(mesh,
                                                 c.placements).to_local())
     if tp:
-        v = _rms_norm_split(v, local["norm"], mesh, tp, cfg.d_inner)
+        v = _rms_norm_split(v, local["norm"], mesh, tp, cfg.d_inner,
+                             cfg.norm_eps)
     else:
-        v = rms_norm(v, local["norm"])
+        v = rms_norm(v, local["norm"], cfg.norm_eps)
     return sum_to(v @ local["out"], x, tp, bat, unpartial(x))
 
 

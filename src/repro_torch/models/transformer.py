@@ -13,6 +13,9 @@ of block kinds), as in the reference:
              uses, with a KV cache of its own in each)
   vlm     : ["dense"]*(cross_every-1)+["cross"] x n_layers/cross_every
             ("cross" = cross-attention to the image embeddings + MLP)
+  pattern : one kind a character of `layer_pattern` x 1: "M" ssm, "E"
+            "moe_only" (a MoE with no attention), "*" "attn_only"
+            (attention with no MLP), each x + mixer(rms_norm(x, ln1))
 
 The reference stacks every position's parameters on a leading
 (n_supers,) axis and scans it with `lax.scan`; here each layer is one
@@ -30,6 +33,9 @@ change of a parameter (an optimizer step, a restore); training drops it.
 The decode cache has the reference's stacked layout: `b{j}` for each
 super-block position j, every leaf with a leading (n_supers,) axis, and
 `decode_step` updates it in place.
+
+With `tie_embeddings=False` the model holds an output head of its own
+(`head`, (V, D)), which the decode step's logits and the loss read.
 """
 
 from __future__ import annotations
@@ -60,7 +66,11 @@ from .threefry import ReferenceInitializer
 # norms, the SSM's A_log / D / dt_bias and the cross gate keep param_dtype
 COMPUTE_WEIGHTS = frozenset({
     "wq", "wk", "wv", "wo", "w1", "w2", "w3", "router", "wz", "wx", "wB",
-    "wC", "wdt", "out", "conv_x", "conv_B", "conv_C"})
+    "wC", "wdt", "out", "conv_x", "conv_B", "conv_C", "conv_x_bias",
+    "conv_B_bias", "conv_C_bias"})
+
+# a `layer_pattern` character's block kind
+PATTERN_KINDS = {"M": "ssm", "E": "moe_only", "*": "attn_only"}
 
 
 def super_block_spec(cfg: ModelConfig) -> list[str]:
@@ -77,6 +87,8 @@ def super_block_spec(cfg: ModelConfig) -> list[str]:
     if fam == "vlm":
         k = max(cfg.cross_attn_every, 1)
         return ["dense"] * (k - 1) + ["cross"]
+    if fam == "pattern":
+        return [PATTERN_KINDS[c] for c in cfg.layer_pattern]
     raise ValueError(f"unknown family {fam!r}")
 
 
@@ -95,6 +107,10 @@ def _block_init(ini, cfg: ModelConfig, kind: str) -> dict:
     ln = {"ln1": ini.ones((cfg.d_model,))}
     if kind == "ssm":
         return {**ln, **_prefixed("ssm", ssm_init(ini, cfg))}
+    if kind == "moe_only":
+        return {**ln, **_prefixed("moe", moe_init(ini, cfg))}
+    if kind == "attn_only":
+        return {**ln, **_prefixed("attn", attention_init(ini, cfg))}
     attn = "xattn" if kind == "cross" else "attn"
     p = {**ln, **_prefixed(attn, attention_init(ini, cfg))}
     if kind == "cross":
@@ -131,6 +147,8 @@ def iter_lm(cfg: ModelConfig, generator: torch.Generator | None,
     per = len([k for k in spec if k != "shared"])
     yield "embed", ini.normal((cfg.vocab, cfg.d_model), scale=0.02)
     yield "final_ln", ini.ones((cfg.d_model,))
+    if not cfg.tie_embeddings:
+        yield "head", ini.normal((cfg.vocab, cfg.d_model), scale=0.02)
     for s in range(n_supers(cfg)):
         for j, kind in enumerate(spec):
             if kind != "shared":
@@ -179,7 +197,8 @@ def lm_param_axes(cfg: ModelConfig) -> dict[str, tuple]:
     """{state-dict name: logical axes} of `init_lm`'s parameters: the
     reference's axes tree (`init_lm(...)[1]`) with the stacked "layers"
     axis dropped, keyed as the port's state dict."""
-    top = {"embed": ("vocab", "embed"), "final_ln": ("embed",)}
+    top = {"embed": ("vocab", "embed"), "final_ln": ("embed",),
+           "head": ("vocab", "embed")}
     out = {}
     for key in init_lm(cfg, None, "meta"):
         head, _, rest = key.partition(".")
@@ -194,14 +213,14 @@ def lm_param_axes(cfg: ModelConfig) -> dict[str, tuple]:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     """Stacked decode cache: per super-block position `b{j}`, {"attn":
     {k, v}} (each (n_supers, B, max_len, Hkv, hd) in the compute dtype)
-    for dense, moe and shared blocks, {"ssm": {conv_x, conv_B, conv_C,
-    h}} (float32, leading (n_supers, B)) for ssm blocks, {} for cross
-    blocks."""
+    for dense, moe, shared and attn_only blocks, {"ssm": {conv_x, conv_B,
+    conv_C, h}} (float32, leading (n_supers, B)) for ssm blocks, {} for
+    cross and moe_only blocks."""
     ns = n_supers(cfg)
     shape = (ns, batch, max_len, cfg.n_kv_heads, cfg.hd)
     cache = {}
     for j, kind in enumerate(super_block_spec(cfg)):
-        if kind in ("dense", "moe", "shared"):
+        if kind in ("dense", "moe", "shared", "attn_only"):
             cache[f"b{j}"] = {"attn": {
                 "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}
@@ -246,8 +265,9 @@ def _subtree(params: dict, prefix: str) -> dict:
 
 
 class DecoderLM(nn.Module):
-    """The decoder: embedding (tied with the output head), one ParamTree
-    per layer (`blocks`), the hybrid's `shared` block and a final norm.
+    """The decoder: embedding (tied with the output head unless the
+    config unties it: `head`), one ParamTree per layer (`blocks`), the
+    hybrid's `shared` block and a final norm.
     The counterpart of the reference's `Model`: `loss(batch)`,
     `forward(batch)`, `init_cache`, `decode_step`, with the weights held
     by the module instead of passed in."""
@@ -259,6 +279,8 @@ class DecoderLM(nn.Module):
         self.per = len([k for k in self.spec if k != "shared"])
         self.embed = nn.Parameter(params["embed"])
         self.final_ln = nn.Parameter(params["final_ln"])
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(params["head"])
         self.blocks = nn.ModuleList([
             ParamTree(_subtree(params, f"blocks.{i}."))
             for i in range(cfg.n_layers)])
@@ -276,12 +298,20 @@ class DecoderLM(nn.Module):
             self._decode = None
             dt = self.config.dtype
             with torch.no_grad():
+                emb = self.embed.detach().to(dt)
                 self._decode = (versions, {
-                    "embed": self.embed.detach().to(dt),
+                    "embed": emb,
+                    "head": (emb if self.config.tie_embeddings
+                             else self.head.detach().to(dt)),
                     "blocks": [blk.weights(dt) for blk in self.blocks],
                     "shared": (self.shared.weights(dt)
                                if "shared" in self.spec else None)})
         return self._decode[1]
+
+    @property
+    def out_head(self):
+        """The output head's (V, D) weight: `head`, or the embedding."""
+        return self.embed if self.config.tie_embeddings else self.head
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         return init_cache(self.config, batch, max_len, self.embed.device)
@@ -293,24 +323,33 @@ class DecoderLM(nn.Module):
         the decode path at position `index`."""
         cfg = self.config
         if kind == "ssm":
-            h = rms_norm(x, w["ln1"])
+            h = rms_norm(x, w["ln1"], cfg.norm_eps)
             if cache is None:
                 return x + ssm_apply(w["ssm"], cfg, h), None
             state = {k: v[s] for k, v in cache["ssm"].items()}
             return x + ssm_decode_step(w["ssm"], cfg, h, state), None
+        if kind == "moe_only":
+            y, aux = moe_apply(w["moe"], cfg,
+                                rms_norm(x, w["ln1"], cfg.norm_eps))
+            return x + y, aux
         if kind == "cross":
-            h = cross_attention(w["xattn"], cfg, rms_norm(x, w["ln1"]),
+            h = cross_attention(w["xattn"], cfg,
+                                rms_norm(x, w["ln1"], cfg.norm_eps),
                                 kv_x=image_embeds)
             x = x + torch.tanh(w["gate"]).to(x.dtype) * h
-            return x + mlp_apply(w["mlp"], rms_norm(x, w["ln2"]),
+            return x + mlp_apply(w["mlp"],
+                                 rms_norm(x, w["ln2"], cfg.norm_eps),
                                  cfg.mlp_act), None
         kv = None
         if cache is not None:
             kv = {"k": cache["attn"]["k"][s], "v": cache["attn"]["v"][s]}
-        x = x + attention_apply(w["attn"], cfg, rms_norm(x, w["ln1"]),
+        x = x + attention_apply(w["attn"], cfg,
+                                rms_norm(x, w["ln1"], cfg.norm_eps),
                                 positions=positions, cache=kv,
-                                cache_index=index)
-        h2 = rms_norm(x, w["ln2"])
+                                cache_index=index, rope=cfg.rope)
+        if kind == "attn_only":
+            return x, None
+        h2 = rms_norm(x, w["ln2"], cfg.norm_eps)
         if kind == "moe":
             y, aux = moe_apply(w["moe"], cfg, h2)
             return x + y, aux
@@ -366,7 +405,7 @@ class DecoderLM(nn.Module):
                                      image_embeds=image_embeds)
             x, aux = (checkpoint(body, x, aux, use_reentrant=False) if remat
                       else body(x, aux))
-        return rms_norm(x, self.final_ln), aux
+        return rms_norm(x, self.final_ln, cfg.norm_eps), aux
 
     def forward(self, batch: dict):
         """{tokens, [image_embeds]} -> final hidden states (B, S, D)."""
@@ -379,7 +418,7 @@ class DecoderLM(nn.Module):
         times the MoE aux loss."""
         b = self._inputs(batch)
         h, aux = self.hidden(b["tokens"], b.get("image_embeds"))
-        nll = chunked_softmax_xent(h, self.embed, b["labels"],
+        nll = chunked_softmax_xent(h, self.out_head, b["labels"],
                                    chunk=self.config.xent_chunk)
         return nll + 0.01 * aux
 
@@ -414,8 +453,8 @@ class DecoderLM(nn.Module):
                 x, _ = self._block(kind, w, x, positions=positions,
                                    image_embeds=image_embeds,
                                    cache=cache[f"b{j}"], s=s, index=index)
-        x = rms_norm(x, self.final_ln)
-        return logits_last(x[:, 0], emb)
+        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        return logits_last(x[:, 0], wts["head"])
 
 
 def lm_forward(model: DecoderLM, tokens, image_embeds=None):

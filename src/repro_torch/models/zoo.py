@@ -158,6 +158,8 @@ def count_params(cfg: ModelConfig) -> int:
         return v * d + cfg.n_layers * _ssm_layer(cfg)
     if cfg.family == "hybrid":
         return v * d + cfg.n_layers * _ssm_layer(cfg) + attn + mlp
+    if cfg.family == "pattern":
+        return _pattern_params(cfg, cfg.n_experts)
     if cfg.family == "moe":
         e_mlp = cfg.n_experts * mlp + d * cfg.n_experts
         n_moe = cfg.n_layers // max(cfg.moe_every, 1)
@@ -170,8 +172,21 @@ def count_params(cfg: ModelConfig) -> int:
     return v * d + cfg.n_layers * per
 
 
+def _pattern_params(cfg: ModelConfig, experts: int) -> int:
+    """The pattern family's count with `experts` routed experts a MoE
+    block (the untied head counted, as the embedding)."""
+    v, d = cfg.vocab, cfg.d_model
+    moe = (experts * _mlp(cfg, cfg.d_ff) + d * cfg.n_experts
+           + _mlp(cfg, cfg.shared_expert_ff))
+    per = {"M": _ssm_layer(cfg), "E": moe, "*": _attn(cfg)}
+    head = 0 if cfg.tie_embeddings else v * d
+    return v * d + head + sum(per[c] for c in cfg.layer_pattern)
+
+
 def active_params(cfg: ModelConfig) -> int:
     """Active parameters per token (MoE: routed top-k + shared only)."""
+    if cfg.family == "pattern":
+        return _pattern_params(cfg, cfg.top_k)
     if cfg.family != "moe":
         return count_params(cfg)
     d, mlp = cfg.d_model, _mlp(cfg, cfg.d_ff)

@@ -32,7 +32,7 @@ from repro.models import count_params as r_count_params
 from repro_torch import configs
 from repro_torch.launch import dryrun, perf
 from repro_torch.launch.hlo_analysis import analyze_step
-from repro_torch.models import STANDARD_SHAPES, smoke_config
+from repro_torch.models import STANDARD_SHAPES, ModelConfig, smoke_config
 
 torch.set_num_threads(1)
 
@@ -104,6 +104,12 @@ json.dump(out, open(OUT + "/ref.json", "w"))
             assert dryrun.cell_applicable(cfg, spec.name) == want["ok"]
             for k in (2, 4):
                 have = _fields(dryrun._with_supers(cfg, k, spec.seq_len))
+                # the port's own fields (the pattern family's) at their
+                # defaults, the reference's field for field
+                extra = set(have) - set(want[str(k)])
+                assert {f: have.pop(f) for f in extra} == {
+                    f: _fields(ModelConfig())[f] for f in extra}, \
+                    (arch, spec, k)
                 assert have == want[str(k)], (arch, spec, k)
             if not want["ok"]:
                 got = skips[arch]
