@@ -174,7 +174,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      on a copy of the inputs that launch was given (K7 in chunks of 2^20
      lines over every line; E1 over the first 256 events of each launch,
      from its input carry): bit-exact for K1, K2, K4, K5, K7 and E1, within
-     atol = rtol = 2e-3 for K3 (bytes exact) and K6.  A1's launches (the
+     atol = rtol = 2e-3 for K3 (bytes exact, and bit for bit the flat
+     entry's on the same view: a launch of the in-place entry is kept as
+     the physical view of its cache) and K6.  A1's launches (the
      model's decode attention, one or two a layer that attends the cache
      in every decode step) are counted, not copied: a copy of each
      layer's cache would not fit beside the model.  Its output is held
@@ -191,7 +193,13 @@ Phases, each of which makes the script exit non-zero when it fails:
      4,096 all-compressible tokens, every token valid: 256 flat slots),
      each checked once (K3 within 2e-3 with bytes exact, K6 equal to K3's
      row) and timed the same way, so that their byte bound is well above
-     launch latency; K1/K2 at the prefill window (B = 8, W = 8) and at
+     launch latency; K3's in-place entry, which the serve tier's attend
+     takes on the card, at the serve attend's shape and at the kv_long
+     cell's (32 sessions of 16k-57k tokens at its 2,048-group bucket,
+     sliced out of a wider state made on the card), pair and quad: bit
+     for bit the flat route (the physical view copied, then K3 on it)
+     and timed beside it, beside K3 on a ready view and beside the view
+     copy alone ("timing [k3-in-place]"); K1/K2 at the prefill window (B = 8, W = 8) and at
      the zoo's serve windows of olmoe (Hkv 16, D2 256) and zamba2 (Hkv
      32, D2 160; K2 on a synthetic window of the same shape, since zamba2
      runs pair only: "timing [zoo-window]"), and beside every K1/K2 row
@@ -381,6 +389,8 @@ def kernel_resources(cuda_lib) -> list[str]:
         if name == "gqa_decode_split_kernel":     # the K/V element type
             args.insert(0, "bf16" if "bfloat16" in mangled
                         else "f16" if "6__half" in mangled else "f32")
+        if name == "cram_decode_kernel":          # K3's addressing
+            args[4:] = ["in place" if "LeafSlots" in mangled else "flat"]
         label = f"{name}<{', '.join(args)}>" if args else name
         lines.append(f"{label}: {r['registers']} registers, spill stores "
                      f"{r['spill_stores']} B, loads {r['spill_loads']} B")
@@ -501,17 +511,25 @@ class Recorder:
             return {k: self._clone(v) for k, v in x.items()}
         return x
 
-    def wrap(self, name_of, fn, launches: dict, copy: bool = True):
+    def wrap(self, name_of, fn, launches: dict, copy: bool = True,
+             as_flat=None):
+        """`as_flat(args, kw)`, where given, keeps a launch as the
+        arguments of another entry of the same kernel (copies made from
+        the inputs: K3's in-place launches as the flat entry's)."""
         def wrapped(*args, **kw):
             if self.path is None:
                 return fn(*args, **kw)
-            inputs = [self._clone(a) for a in args] if copy else None
+            inputs, kept_kw = None, dict(kw)
+            if as_flat is not None:
+                inputs, kept_kw = as_flat(args, kw)
+            elif copy:
+                inputs = [self._clone(a) for a in args]
             before = sum(launches.values())
             outs = fn(*args, **kw)
             if sum(launches.values()) > before:
                 self.calls.append({
                     "name": name_of(args, kw), "path": self.path,
-                    "part": self.part, "args": inputs, "kw": dict(kw),
+                    "part": self.part, "args": inputs, "kw": kept_kw,
                     "outs": self._clone(outs) if copy else None})
             return outs
         return wrapped
@@ -565,6 +583,23 @@ class Recorder:
             return None
         first = max(by_shape.values(), key=len)[0]
         return first["args"], first["kw"]
+
+
+def in_place_as_flat(torch, args, kw):
+    """A launch of K3's in-place entry (q, cache, valid_per_page,
+    predictor) as the flat entry's arguments over `physical_view` of the
+    same cache, which it must equal bit for bit: new tensors, so the
+    launch's inputs are kept as they were."""
+    from repro_torch.kernels import ops
+
+    q, cache, valid, pred = args
+    lanes = kw.get("lanes", 2)
+    pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+    slots, strips, markers, fvalid = pv(cache, valid)
+    return ([q.clone(), slots.contiguous(), strips.contiguous(),
+             markers.contiguous(), fvalid.to(torch.int32).contiguous(),
+             pred.to(torch.int32).contiguous()],
+            dict(kw, shared_cache=cache["slots"].dim() == 4))
 
 
 def attending_layers(cache: dict) -> int:
@@ -3650,7 +3685,14 @@ def _check_batched_decode(torch, label, args, kw, outs):
     err = _close(torch, label, out, ref)
     if not torch.equal(byts, ref_b):
         fail(f"{label}: bytes {byts.tolist()} != {ref_b.tolist()}")
-    return err, tuple(args[1].shape), f"within atol=rtol={ATOL}, bytes exact"
+    # the flat entry on the physical view: an in-place launch (kept as its
+    # view) gives its bits, and so does a flat launch again
+    flat, flat_b = ca.cram_decode_attention_batched_cuda(*args, **kw)
+    if not (torch.equal(out.view(torch.int32), flat.view(torch.int32))
+            and torch.equal(byts, flat_b)):
+        fail(f"{label}: not bit for bit the flat entry's output and bytes")
+    return err, tuple(args[1].shape), (f"within atol=rtol={ATOL}, bytes "
+                                       "exact, bit for bit the flat entry")
 
 
 def _check_single_decode(torch, label, args, kw, outs):
@@ -4037,6 +4079,140 @@ def long_context_rows(torch, device) -> dict:
     return rows
 
 
+# K3 in place against the flat route: (label, sessions, groups attended,
+# groups in the state, token range of a session); the serve attend's
+# shape, and the kv_long cell's 32 sessions of 16k-57k tokens at its
+# 2,048-group bucket, sliced out of a wider state
+IN_PLACE_SHAPES = (("serve", 8, 16, 20, (200, 248)),
+                   ("kv_long", 32, 4096, 4608, (16384, 57344)))
+
+
+def in_place_inputs(torch, device, lanes, sessions, flat_slots, flat_state,
+                    tokens, seed):
+    """A serve-tier state made on the card from a seeded generator: every
+    fourth session incompressible (raw groups, zero strips), the others
+    packed (strip base rows, the marker on every head's tail), overflow
+    slots of packed groups non-zero garbage, values bf16 bit patterns of
+    magnitude 2^-7 to 2^7 (deltas against them stay finite); the attend's view of it as the tier
+    hands it over (`kernel_cache_slice`, valid counts sliced out of the
+    state's width, the layout as the predictor)."""
+    import numpy as np
+
+    from repro_torch.compression.framing import (DEFAULT_MARKER_KEY,
+                                                 DOMAIN_PAIR, DOMAIN_QUAD)
+    from repro_torch.kernels.ref import slot_markers
+    from repro_torch.kv.cache import kernel_cache_slice
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, n_state = flat_slots // lanes, flat_state // lanes
+    d2 = 2 * HEAD_DIM
+
+    def draw(shape):       # bf16 bits: exponents 2^-7 .. 2^7, either sign
+        x = torch.randint(0x3C00, 0x4300, shape, generator=gen,
+                          device=device, dtype=torch.int16)
+        sign = torch.randint(0, 2, shape, generator=gen, device=device,
+                             dtype=torch.int16).mul_(0x4000)
+        return x.sub_(sign).sub_(sign)
+
+    over = ((sessions, n_state) if lanes == 2
+            else (sessions, n_state, lanes - 1))
+    packed = (torch.arange(sessions, device=device) % 4 != 3)[:, None] \
+        .expand(sessions, n_state).contiguous()
+    markers = torch.from_numpy(slot_markers(
+        n_state, DEFAULT_MARKER_KEY,
+        domain=DOMAIN_PAIR if lanes == 2 else DOMAIN_QUAD).view(np.int32)
+        .copy()).to(device)
+    strips = torch.zeros((sessions, n_state, N_KV, d2 + 2),
+                         dtype=torch.int16, device=device)
+    strips[..., :d2] = draw((sessions, n_state, N_KV, d2))
+    strips[..., d2:] = markers.view(torch.int16).reshape(n_state, 1, 2)
+    strips *= packed[..., None, None]
+    st = {"slots": draw((sessions, n_state, PAGE, N_KV, d2)),
+          "slots_overflow": draw(over + (PAGE, N_KV, d2)),
+          "strips": strips, "packed_mask": packed, "markers": markers}
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(tokens[0], tokens[1] + 1, sessions)
+    pages = np.arange(flat_state)
+    valid = torch.from_numpy(np.clip(toks[:, None] - pages[None] * PAGE, 0,
+                                     PAGE).astype(np.int32)).to(device)
+    cache = kernel_cache_slice(st, n)
+    q = torch.from_numpy(rng.standard_normal(
+        (sessions, N_HEADS, HEAD_DIM)).astype("float32")).to(device)
+    return q, cache, valid[:, :flat_slots], cache["packed_mask"]
+
+
+def in_place_row(torch, label, lanes, q, cache, valid, pred) -> dict:
+    """One shape of `in_place_rows`: the check, then the timings."""
+    from repro_torch.kernels import cram_attention as ca
+    from repro_torch.kernels import ops
+
+    kind = "pair" if lanes == 2 else "quad"
+    pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+    kw = {"lanes": lanes}
+
+    def view():
+        s, st, mk, v = pv(cache, valid)
+        return (s.contiguous(), st.contiguous(), mk.contiguous(),
+                v.to(torch.int32).contiguous(),
+                pred.to(torch.int32).contiguous())
+
+    args = view()
+
+    def in_place():
+        return ca.cram_decode_attention_in_place_cuda(q, cache, valid, pred,
+                                                      **kw)
+
+    def k3_flat():
+        return ca.cram_decode_attention_batched_cuda(q, *args, **kw)
+
+    def route():
+        return ca.cram_decode_attention_batched_cuda(q, *view(), **kw)
+
+    (out, byts), (ref, ref_b) = in_place(), k3_flat()
+    torch.cuda.synchronize()
+    if not (torch.equal(out.view(torch.int32), ref.view(torch.int32))
+            and torch.equal(byts, ref_b)):
+        fail(f"k3-in-place {label} {kind}: not bit for bit the flat route's "
+             "output and bytes")
+    timed = functools.partial(device_ms, torch, **(
+        {"reps": 5, "inner": 2} if label == "kv_long" else {}))
+    return {"kernels_per_call": kernels_per_call(torch, in_place),
+            "in_place_ms": timed(in_place), "k3_flat_ms": timed(k3_flat),
+            "view_ms": timed(view), "flat_route_ms": timed(route),
+            "view_bytes": sum(nbytes(x) for x in args[:3])}
+
+
+def in_place_rows(torch, device) -> dict:
+    """K3's in-place entry (the serve tier's attend on the card) beside the
+    flat route it replaced (the physical view copied out of the cache,
+    then K3 on it) at the serve attend's and the kv_long cell's shapes,
+    pair and quad: the two outputs and byte columns checked equal bit for
+    bit, then the device time of each in a CUDA graph (ten calls at the
+    serve shape, two at kv_long's) and of the view copy alone ("timing
+    [k3-in-place]")."""
+    rows = {}
+    for label, sessions, flat, flat_state, tokens in IN_PLACE_SHAPES:
+        for lanes, kind in ((2, "pair"), (4, "quad")):
+            inputs = in_place_inputs(torch, device, lanes, sessions, flat,
+                                     flat_state, tokens,
+                                     seed=lanes * 1000 + sessions)
+            r = {"sessions": sessions, "flat_slots": flat,
+                 "state_flat_slots": flat_state,
+                 **in_place_row(torch, label, lanes, *inputs)}
+            del inputs
+            torch.cuda.empty_cache()
+            rows[f"{label}_{kind}"] = r
+            print(f"timing [k3-in-place] {label} {kind}: {sessions} "
+                  f"sessions x {flat} flat slots of a {flat_state}-slot "
+                  f"state: output and bytes bit for bit the flat route's; "
+                  f"device time: in place {r['in_place_ms']:.4f} ms, flat "
+                  f"route {r['flat_route_ms']:.4f} ms (view copy "
+                  f"{r['view_ms']:.4f} ms of {r['view_bytes'] / 1e9:.3f} "
+                  f"GB, K3 on it {r['k3_flat_ms']:.4f} ms); kernels per "
+                  f"call {r['kernels_per_call']}")
+    return rows
+
+
 # A1 at the decode cells' shapes: (name, B, T, length, Hkv, Hq, head_dim)
 GQA_SHAPES = (("phi4_decode_ctx2k", 48, 3072, 2304, 8, 24, 128),
               ("olmoe_decode_chat", 1024, 256, 192, 16, 16, 128))
@@ -4351,6 +4527,11 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
         lambda a, kw: ("decode_attention_pair" if kw.get("lanes", 2) == 2
                        else "decode_attention_quad"),
         ca.cram_decode_attention_batched_cuda, ca.LAUNCHES)
+    ca.cram_decode_attention_in_place_cuda = rec.wrap(
+        lambda a, kw: ("decode_attention_pair" if kw.get("lanes", 2) == 2
+                       else "decode_attention_quad"),
+        ca.cram_decode_attention_in_place_cuda, ca.LAUNCHES,
+        as_flat=functools.partial(in_place_as_flat, torch))
     ca.cram_decode_attention_cuda = rec.wrap(
         lambda a, kw: ("decode_single_pair" if kw.get("lanes", 2) == 2
                        else "decode_single_quad"),
@@ -4578,6 +4759,7 @@ def _main(torch, t_start, ckpt_dir, report_path) -> int:
         "scan-source": scan_source_rows(torch, rec,
                                         scan_report["per_source"]),
         "long-context": long_context_rows(torch, device),
+        "k3-in-place": in_place_rows(torch, device),
         "prefill-window": prefill_window_rows(torch, device),
         "zoo-window": zoo_window_rows(torch, rec, device),
         "geometry": geometry_rows(torch, geo_inputs),

@@ -12,6 +12,16 @@
 //   -> out (B, Hq, D) f32 and bytes (B, 2) i32 = (raw, cram) bytes the step
 //      moves for exactly the layout walked, LLP re-probe included.
 //
+// K3 has a second entry, cram_decode_attention_leaves, that takes the
+// cache state's own leaves (slots, slots_overflow, strips, markers,
+// packed_mask, valid_per_page, predictor) with their batch strides, so the
+// serve tier's attend reads its cache in place instead of copying the flat
+// view first.  Only the addressing differs (LeafSlots against FlatSlots in
+// cram_attention.cuh: flat slot s is page lane s % LANES of group
+// s / LANES; an overflow slot's all-zero strip row is made in shared
+// memory); the body, the splits and the merge are the same, so the two
+// entries give the same bits.
+//
 // K6 replaces repro/kernels/cram_attention.py:128 (cram_decode_attention,
 // its pallas_call at :137, grid=(n,)): q (Hq, D) f32 and one sequence's
 // slots (n, page, Hkv, D2), strips, markers (n,), valid (n, LANES) ->
@@ -168,6 +178,18 @@ static int launch_splits_for(const cram_att::DecodeArgs& a, cudaStream_t s) {
                : cram_att::launch_general_quad(a, s);
 }
 
+// K3's split kernel and its merge
+static int run_k3(const cram_att::DecodeArgs& a, void* out, void* bytes,
+                  cudaStream_t s) {
+  const int err = launch_splits_for(a, s);
+  if (err) return err;
+  const int nj = (a.n + a.kk - 1) / a.kk;
+  cram_decode_combine<<<a.B * a.hq, a.D, 0, s>>>(
+      a.part_m, a.part_l, a.part_acc, a.part_bytes, nj, a.D, a.hq,
+      (float*)out, (int32_t*)bytes);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int cram_decode_attention(const void* q, const void* slots,
                                      const void* strips, const void* markers,
                                      const void* valid, const void* pred, int B,
@@ -179,20 +201,39 @@ extern "C" int cram_decode_attention(const void* q, const void* slots,
                                      void* stream) {
   if (!geometry_ok(hq, D, n, hkv, lanes, kk) || n % lanes != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const cram_att::DecodeArgs a{
       (const float*)q, (const int16_t*)slots, (const int16_t*)strips,
-      (const int32_t*)markers, (const int32_t*)valid, (const int32_t*)pred,
-      B, hq, D, n, page, hkv, lanes, kk, shared, scale, slot_bytes,
-      strip_bytes, (float*)part_m, (float*)part_l, (float*)part_acc,
-      (int32_t*)part_bytes, true};
-  const int err = launch_splits_for(a, s);
-  if (err) return err;
-  const int nj = (n + kk - 1) / kk;
-  cram_decode_combine<<<B * hq, D, 0, s>>>(
-      (const float*)part_m, (const float*)part_l, (const float*)part_acc,
-      (const int32_t*)part_bytes, nj, D, hq, (float*)out, (int32_t*)bytes);
-  return (int)cudaGetLastError();
+      (const int32_t*)markers, (const int32_t*)valid, pred, B, hq, D, n, page,
+      hkv, lanes, kk, shared, scale, slot_bytes, strip_bytes, (float*)part_m,
+      (float*)part_l, (float*)part_acc, (int32_t*)part_bytes, true, nullptr};
+  return run_k3(a, out, bytes, (cudaStream_t)stream);
+}
+
+// K3 reading the cache state's leaves in place: slots (B?, n, page, Hkv,
+// D2), over (B?, n, page, ...) or (B?, n, 3, page, ...), strips (B?, n,
+// Hkv, D2+2), markers (n,), mask (B?, n) bool, valid (B?, lanes * n),
+// pred (B?, n) bool, for n groups; each batch stride in elements (0 for a
+// shared cache).  The same body and merge as the flat entry over the slot
+// list physical_view would build from them, so the same bits.
+extern "C" int cram_decode_attention_leaves(
+    const void* q, const void* slots, const void* over, const void* strips,
+    const void* markers, const void* mask, const void* valid, const void* pred,
+    long long sb_slots, long long sb_over, long long sb_strips,
+    long long sb_mask, long long sb_valid, long long sb_pred, int B, int hq,
+    int D, int n_groups, int page, int hkv, int lanes, int kk, float scale,
+    int slot_bytes, int strip_bytes, void* part_m, void* part_l,
+    void* part_acc, void* part_bytes, void* out, void* bytes, void* stream) {
+  const int n = n_groups * lanes;
+  if (!geometry_ok(hq, D, n, hkv, lanes, kk)) return (int)cudaErrorInvalidValue;
+  const cram_att::Leaves leaves{(const int16_t*)over, (const uint8_t*)mask,
+                                sb_slots, sb_over, sb_strips, sb_mask,
+                                sb_valid, sb_pred};
+  const cram_att::DecodeArgs a{
+      (const float*)q, (const int16_t*)slots, (const int16_t*)strips,
+      (const int32_t*)markers, (const int32_t*)valid, pred, B, hq, D, n, page,
+      hkv, lanes, kk, 0, scale, slot_bytes, strip_bytes, (float*)part_m,
+      (float*)part_l, (float*)part_acc, (int32_t*)part_bytes, true, &leaves};
+  return run_k3(a, out, bytes, (cudaStream_t)stream);
 }
 
 extern "C" int cram_decode_attention_single(const void* q, const void* slots,
@@ -210,7 +251,7 @@ extern "C" int cram_decode_attention_single(const void* q, const void* slots,
       (const float*)q, (const int16_t*)slots, (const int16_t*)strips,
       (const int32_t*)markers, (const int32_t*)valid, nullptr, 1, hq, D, n,
       page, hkv, lanes, kk, 0, scale, 0, 0, (float*)part_m, (float*)part_l,
-      (float*)part_acc, nullptr, false};
+      (float*)part_acc, nullptr, false, nullptr};
   const int err = launch_splits_for(a, s);
   if (err) return err;
   const int nj = (n + kk - 1) / kk;

@@ -13,15 +13,27 @@
 
 namespace cram_att {
 
+// the cache's own leaves as K3's in-place entry takes them: each batch
+// stride in elements (0 for a shared cache), the rest of each leaf
+// contiguous; pred and mask are bools
+struct Leaves {
+  const int16_t* over;
+  const uint8_t* mask;
+  long long sb_slots, sb_over, sb_strips, sb_mask, sb_valid, sb_pred;
+};
+
 // one call of K3 (batched) or K6 (single sequence) as the host entries
-// receive it; pred and part_bytes are K3's only
+// receive it; pred and part_bytes are K3's only.  With `leaves` set (K3's
+// in-place entry) slots, strips, markers, valid and pred are the cache's
+// leaves (slots, strips, markers, valid_per_page, the bool predictor) and
+// n is still the flat slot count, lanes x groups.
 struct DecodeArgs {
   const float* q;
   const int16_t* slots;
   const int16_t* strips;
   const int32_t* markers;
   const int32_t* valid;
-  const int32_t* pred;
+  const void* pred;
   int B, hq, D, n, page, hkv, lanes, kk, shared;
   float scale;
   int slot_bytes, strip_bytes;
@@ -30,6 +42,7 @@ struct DecodeArgs {
   float* part_acc;
   int32_t* part_bytes;
   bool batched;
+  const Leaves* leaves;
 };
 
 // the split kernel on the general body, pair and quad
@@ -166,8 +179,119 @@ struct Smem {
   int vc[WIN][LANES];
 };
 
+// Where flat slot s of cache row bs lives.  The body asks its addressing
+// for a slot's page rows, its strip (nullptr: an all-zero strip row, made
+// in shared memory), its marker, its LANES valid counts, whether the
+// row has a valid token, whether the group led by slot s has one, and
+// the predictor's verdict on group g.
+//
+// FlatSlots: the flat slot list of ops.physical_view (K3's flat entry
+// and K6), one strip and one marker a slot.
+template <int LANES>
+struct FlatSlots {
+  const int16_t* slots;
+  const int16_t* strips;
+  const int32_t* markers;
+  const int32_t* valid;
+  const int32_t* pred;
+  int n;                                // flat slots a cache row
+  long long slot_elems, strip_elems;    // page * Hkv * D2, Hkv * (D2 + 2)
+
+  __device__ __forceinline__ const int16_t* slot(int bs, int s) const {
+    return slots + ((long long)bs * n + s) * slot_elems;
+  }
+  __device__ __forceinline__ const int16_t* strip(int bs, int s) const {
+    return strips + ((long long)bs * n + s) * strip_elems;
+  }
+  __device__ __forceinline__ uint32_t marker(int s) const {
+    return (uint32_t)__ldg(markers + s);
+  }
+  __device__ __forceinline__ void counts(int bs, int s, int (&vc)[LANES]) const {
+    const int32_t* v = valid + ((long long)bs * n + s) * LANES;
+#pragma unroll
+    for (int q = 0; q < LANES; ++q) vc[q] = __ldg(v + q);
+  }
+  __device__ __forceinline__ int any_live(int bs, int i0, int step) const {
+    const int32_t* v = valid + (long long)bs * n * LANES;
+    int any = 0;
+    for (int i = i0; i < n * LANES; i += step) any |= __ldg(v + i) > 0;
+    return any;
+  }
+  __device__ __forceinline__ bool group_live(int bs, int s) const {
+    const int32_t* v = valid + ((long long)bs * n + s) * LANES;
+    int live = 0;
+#pragma unroll
+    for (int q = 0; q < LANES * LANES; ++q) live |= __ldg(v + q) > 0;
+    return live != 0;
+  }
+  __device__ __forceinline__ bool predicted(int bs, int g) const {
+    return __ldg(pred + (long long)bs * (n / LANES) + g) != 0;
+  }
+};
+
+// LeafSlots: the cache state's own leaves, read in place.  Flat slot s is
+// page lane j = s % LANES of group g = s / LANES: lane 0 is slots[g] with
+// strips[g], lane j > 0 is the overflow slot j - 1 of group g with an
+// all-zero strip; every lane carries markers[g].  The valid counts are
+// physical_view's: a packed group's lead slot holds the group's LANES
+// counts and its overflow slots none; a raw group's slot j holds page j's
+// count in its first lane.
+template <int LANES>
+struct LeafSlots {
+  const int16_t* slots;
+  const int16_t* over;
+  const int16_t* strips;
+  const int32_t* markers;
+  const uint8_t* mask;
+  const int32_t* valid;
+  const uint8_t* pred;
+  long long sb_slots, sb_over, sb_strips, sb_mask, sb_valid, sb_pred;
+  int n;                                // flat slots: LANES x groups
+  long long slot_elems, strip_elems;
+
+  __device__ __forceinline__ const int16_t* slot(int bs, int s) const {
+    const long long g = s / LANES;
+    const int j = s % LANES;
+    return j == 0 ? slots + bs * sb_slots + g * slot_elems
+                  : over + bs * sb_over + (g * (LANES - 1) + j - 1) * slot_elems;
+  }
+  __device__ __forceinline__ const int16_t* strip(int bs, int s) const {
+    return s % LANES == 0
+               ? strips + bs * sb_strips + (long long)(s / LANES) * strip_elems
+               : nullptr;
+  }
+  __device__ __forceinline__ uint32_t marker(int s) const {
+    return (uint32_t)__ldg(markers + s / LANES);
+  }
+  __device__ __forceinline__ void counts(int bs, int s, int (&vc)[LANES]) const {
+    const int g = s / LANES, j = s % LANES;
+    const int32_t* v = valid + bs * sb_valid + (long long)g * LANES;
+    const bool ok = __ldg(mask + bs * sb_mask + g) != 0;
+#pragma unroll
+    for (int q = 0; q < LANES; ++q)
+      vc[q] = ok ? (j == 0 ? __ldg(v + q) : 0) : (q == 0 ? __ldg(v + j) : 0);
+  }
+  __device__ __forceinline__ int any_live(int bs, int i0, int step) const {
+    const int32_t* v = valid + bs * sb_valid;
+    int any = 0;
+    for (int i = i0; i < n; i += step) any |= __ldg(v + i) > 0;
+    return any;
+  }
+  __device__ __forceinline__ bool group_live(int bs, int s) const {
+    const int32_t* v = valid + bs * sb_valid + (long long)(s / LANES) * LANES;
+    int live = 0;
+#pragma unroll
+    for (int q = 0; q < LANES; ++q) live |= __ldg(v + q) > 0;
+    return live != 0;
+  }
+  __device__ __forceinline__ bool predicted(int bs, int g) const {
+    return __ldg(pred + bs * sb_pred + g) != 0;
+  }
+};
+
 // rows [t0, t0 + rows) of one slot's head (src) and, for a packed slot,
-// its strip base row (sb) -> shared memory, with cp.async.  A global row
+// its strip base row (sb; nullptr for an all-zero row, written with plain
+// stores) -> shared memory, with cp.async.  A global row
 // holds K in [0, D) and V in [D, 2D); the staged row holds them in
 // [0, D) and [DP, DP + D) of its 2 * DP columns.  With PAD (D < DP
 // possible) the pad columns (zeroed once per CTA) are never loaded; D is
@@ -191,7 +315,7 @@ __device__ __forceinline__ void stage_load(int16_t (*tile)[64 * DPL],
         cp_async16(&tile[r][half * DP + e],
                    src + r * row_stride + half * D + e);
     }
-    if (packed)
+    if (packed && sb != nullptr)
       for (int c = threadIdx.x; c < DP; c += NT) {   // 4-byte words
         const int half = c / (DP / 2);
         const int e = (c % (DP / 2)) * 2;
@@ -203,10 +327,12 @@ __device__ __forceinline__ void stage_load(int16_t (*tile)[64 * DPL],
       const int k = c % (2 * CPH);
       cp_async16(&tile[r][k * 8], src + r * row_stride + k * 8);
     }
-    if (packed)
+    if (packed && sb != nullptr)
       for (int c = threadIdx.x; c < DP; c += NT)
         cp_async4(base + 2 * c, sb + 2 * c);
   }
+  if (packed && sb == nullptr)               // an all-zero strip row
+    for (int c = threadIdx.x; c < 2 * DP; c += NT) base[c] = 0;
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
@@ -328,18 +454,17 @@ __device__ __forceinline__ void score_rows(const int16_t (*tile)[64 * DPL],
 }
 
 // One CTA's split: query heads h*G+g0 .. h*G+g0+gn-1 of query row b
-// (cache row bs) over the flat slots [j*kk, min((j+1)*kk, n)); BYTES books
+// (cache row bs) over the flat slots [j*kk, min((j+1)*kk, n)) that `at`
+// (FlatSlots or LeafSlots) addresses; BYTES books
 // K3's byte pair (in the CTA of KV head 0 and head chunk 0).  blockDim.x
 // == DP == 32 * DPL >= D, the head_dim padded to whole warps; gn <= GMAX
 // (2, 3, 4 or 8) sizes the per-head registers.  DFIX is the head_dim when
 // it is fixed at compile time (DFIX == DP, no pad), else 0 (D = d_arg).
-template <int LANES, int DPL, int GMAX, bool BYTES, int DFIX>
+template <int LANES, int DPL, int GMAX, bool BYTES, int DFIX, class Slots>
 __device__ __forceinline__ void decode_split(
-    const float* __restrict__ q, const int16_t* __restrict__ slots,
-    const int16_t* __restrict__ strips, const int32_t* __restrict__ markers,
-    const int32_t* __restrict__ valid, const int32_t* __restrict__ pred, int b,
-    int bs, int h, int g0, int gn, int j, int nj, int n, int page, int hkv,
-    int G, int d_arg, int kk, float scale, int slot_bytes, int strip_bytes,
+    const float* __restrict__ q, const Slots at, int b, int bs, int h,
+    int g0, int gn, int j, int nj, int page, int hkv, int G, int d_arg,
+    int kk, float scale, int slot_bytes, int strip_bytes,
     float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc, int32_t* __restrict__ part_bytes) {
   constexpr int DP = 32 * DPL;
@@ -347,6 +472,7 @@ __device__ __forceinline__ void decode_split(
   constexpr int WARPS = DPL;
   __shared__ __align__(16) Smem<LANES, DPL, GMAX> sm;
   const int D = DFIX ? DFIX : d_arg;        // a compile-time head_dim folds
+  const int n = at.n;
 
   const int hq = hkv * G;
   const int D2 = 2 * D;
@@ -357,7 +483,6 @@ __device__ __forceinline__ void decode_split(
   const int myj = LANES == 2 ? (lane >> 4) & 1
                              : ((lane >> 4) & 1) * 2 + ((lane >> 3) & 1);
   const long long row_stride = (long long)hkv * D2;
-  const int32_t* vseq = valid + (long long)bs * n * LANES;
   const bool books = BYTES && h == 0 && g0 == 0;
 
   if (DFIX == 0 && D < DP) {   // the pad columns of tiles and base rows: 0
@@ -397,8 +522,7 @@ __device__ __forceinline__ void decode_split(
       }
     }
   }
-  int any = 0;
-  for (int i = tid; i < n * LANES; i += NT) any |= vseq[i] > 0;
+  const int any = at.any_live(bs, tid, NT);
 
   float m_run[GMAX], l_run[GMAX], acc[GMAX];
 #pragma unroll
@@ -419,24 +543,25 @@ __device__ __forceinline__ void decode_split(
       int vc[LANES];
       int top = 0;
       uint32_t n_live = 0;
+      at.counts(bs, s, vc);
 #pragma unroll
       for (int q2 = 0; q2 < LANES; ++q2) {
-        vc[q2] = vseq[s * LANES + q2];
         top = max(top, vc[q2]);
         n_live += vc[q2] > 0;
         sm.vc[lane][q2] = vc[q2];
       }
-      // all Hkv strip tails carry the slot's marker (4-byte tail loads)
-      const uint32_t mk = (uint32_t)markers[s];
-      const int16_t* tail =
-          strips + ((long long)bs * n + s) * hkv * srow + D2;
-      bool packed = true;
-      for (int h0 = 0; h0 < hkv; h0 += HCHUNK) {
+      // all Hkv strip tails carry the slot's marker (4-byte tail loads);
+      // every tail of an all-zero strip row reads 0
+      const uint32_t mk = at.marker(s);
+      const int16_t* st = at.strip(bs, s);
+      bool packed = st != nullptr || mk == 0u;
+      for (int h0 = 0; st != nullptr && h0 < hkv; h0 += HCHUNK) {
+        const int16_t* tail = st + D2;
         uint32_t t[HCHUNK];
 #pragma unroll
         for (int c = 0; c < HCHUNK; ++c)
-          t[c] = h0 + c < hkv ? *reinterpret_cast<const uint32_t*>(
-                                    tail + (h0 + c) * srow)
+          t[c] = h0 + c < hkv ? __ldg(reinterpret_cast<const uint32_t*>(
+                                    tail + (h0 + c) * srow))
                               : mk;
 #pragma unroll
         for (int c = 0; c < HCHUNK; ++c) packed &= t[c] == mk;
@@ -450,14 +575,9 @@ __device__ __forceinline__ void decode_split(
                       ? (uint32_t)(slot_bytes + strip_bytes)
                       : n_live * (uint32_t)(slot_bytes + strip_bytes);
         // lead slot: one re-probe per mispredicted live group
-        if (s % LANES == 0) {
-          int glive = 0;
-#pragma unroll
-          for (int q2 = 0; q2 < LANES * LANES; ++q2)
-            glive |= vseq[s * LANES + q2] > 0;
-          const bool p = pred[(long long)bs * (n / LANES) + s / LANES] != 0;
-          if (glive && p != packed) cram_b += (uint32_t)slot_bytes;
-        }
+        if (s % LANES == 0 && at.group_live(bs, s) &&
+            at.predicted(bs, s / LANES) != packed)
+          cram_b += (uint32_t)slot_bytes;
       }
     }
     if (w0 == s_begin)
@@ -477,10 +597,10 @@ __device__ __forceinline__ void decode_split(
       }
     };
     auto load = [&](int i, int t, int buf) {
-      const long long slot = (long long)bs * n + w0 + i;
+      const int16_t* st = at.strip(bs, w0 + i);
       stage_load<DPL, DFIX == 0>(sm.tile[buf], sm.base[buf],
-                      slots + (slot * page + t) * row_stride + h * D2,
-                      strips + (slot * hkv + h) * srow,
+                      at.slot(bs, w0 + i) + t * row_stride + h * D2,
+                      st == nullptr ? nullptr : st + h * srow,
                       min(ROWS, tend(i) - t), sm.packed[i] != 0, row_stride,
                       D);
     };
@@ -642,15 +762,12 @@ __host__ __device__ constexpr int min_ctas() {
   return GMAX > 4 ? 1 : DFIX == 0 && DPL == 4 ? 3 : 5;
 }
 
-template <int LANES, int DPL, int GMAX, int DFIX>
+// K3 on either addressing (FlatSlots: the flat entry; LeafSlots: the
+// in-place entry, whose shared cache has batch strides 0)
+template <int LANES, int DPL, int GMAX, int DFIX, class Slots>
 __global__ void __launch_bounds__(32 * DPL, min_ctas<DPL, GMAX, DFIX>())
-cram_decode_kernel(const float* __restrict__ q,
-                   const int16_t* __restrict__ slots,
-                   const int16_t* __restrict__ strips,
-                   const int32_t* __restrict__ markers,
-                   const int32_t* __restrict__ valid,
-                   const int32_t* __restrict__ pred, int n, int page, int hkv,
-                   int G, int nc, int gc, int D, int kk, int shared,
+cram_decode_kernel(const float* __restrict__ q, const Slots at, int page,
+                   int hkv, int G, int nc, int gc, int D, int kk, int shared,
                    float scale, int slot_bytes, int strip_bytes,
                    float* __restrict__ part_m, float* __restrict__ part_l,
                    float* __restrict__ part_acc,
@@ -659,28 +776,24 @@ cram_decode_kernel(const float* __restrict__ q,
   int h, g0, gn;
   head_chunk<GMAX>(blockIdx.y, nc, gc, G, h, g0, gn);
   decode_split<LANES, DPL, GMAX, true, DFIX>(
-      q, slots, strips, markers, valid, pred, b, shared ? 0 : b, h, g0, gn,
-      blockIdx.z, gridDim.z, n, page, hkv, G, D, kk, scale, slot_bytes,
-      strip_bytes, part_m, part_l, part_acc, part_bytes);
+      q, at, b, shared ? 0 : b, h, g0, gn, blockIdx.z, gridDim.z, page, hkv,
+      G, D, kk, scale, slot_bytes, strip_bytes, part_m, part_l, part_acc,
+      part_bytes);
 }
 
 template <int LANES, int DPL, int GMAX, int DFIX>
 __global__ void __launch_bounds__(32 * DPL, min_ctas<DPL, GMAX, DFIX>())
 cram_decode_single_kernel(const float* __restrict__ q,
-                          const int16_t* __restrict__ slots,
-                          const int16_t* __restrict__ strips,
-                          const int32_t* __restrict__ markers,
-                          const int32_t* __restrict__ valid, int n, int page,
-                          int hkv, int G, int nc, int gc, int D, int kk,
-                          float scale, float* __restrict__ part_m,
+                          const FlatSlots<LANES> at, int page, int hkv, int G,
+                          int nc, int gc, int D, int kk, float scale,
+                          float* __restrict__ part_m,
                           float* __restrict__ part_l,
                           float* __restrict__ part_acc) {
   int h, g0, gn;
   head_chunk<GMAX>(blockIdx.x, nc, gc, G, h, g0, gn);
   decode_split<LANES, DPL, GMAX, false, DFIX>(
-      q, slots, strips, markers, valid, nullptr, 0, 0, h, g0, gn, blockIdx.y,
-      gridDim.y, n, page, hkv, G, D, kk, scale, 0, 0, part_m, part_l,
-      part_acc, nullptr);
+      q, at, 0, 0, h, g0, gn, blockIdx.y, gridDim.y, page, hkv, G, D, kk,
+      scale, 0, 0, part_m, part_l, part_acc, nullptr);
 }
 
 // the G query heads of a KV head in the fewest chunks of at most MAXG, as
@@ -704,21 +817,37 @@ int launch_splits(const cram_att::DecodeArgs& a, cudaStream_t s) {
   int nc, gc;
   head_chunks(G, nc, gc);
   const int nj = (a.n + a.kk - 1) / a.kk;
+  const long long slot_elems = (long long)a.page * a.hkv * 2 * a.D;
+  const long long strip_elems = (long long)a.hkv * (2 * a.D + 2);
+  const FlatSlots<LANES> flat{a.slots, a.strips, a.markers, a.valid,
+                              (const int32_t*)a.pred, a.n, slot_elems,
+                              strip_elems};
   auto launch = [&](auto P, auto M) {
     constexpr int DPL = decltype(P)::value;
     constexpr int GMAX = decltype(M)::value;
     constexpr int DFIX = EXACT ? 32 * DPL : 0;
-    if (a.batched)
-      cram_decode_kernel<LANES, DPL, GMAX, DFIX>
-          <<<dim3(a.B, a.hkv * nc, nj), 32 * DPL, 0, s>>>(
-          a.q, a.slots, a.strips, a.markers, a.valid, a.pred, a.n, a.page,
-          a.hkv, G, nc, gc, a.D, a.kk, a.shared, a.scale, a.slot_bytes,
-          a.strip_bytes, a.part_m, a.part_l, a.part_acc, a.part_bytes);
-    else
+    const dim3 grid(a.B, a.hkv * nc, nj);
+    if (a.leaves != nullptr) {
+      const cram_att::Leaves& l = *a.leaves;
+      const LeafSlots<LANES> leaf{
+          a.slots, l.over, a.strips, a.markers, l.mask, a.valid,
+          (const uint8_t*)a.pred, l.sb_slots, l.sb_over, l.sb_strips,
+          l.sb_mask, l.sb_valid, l.sb_pred, a.n, slot_elems, strip_elems};
+      cram_decode_kernel<LANES, DPL, GMAX, DFIX><<<grid, 32 * DPL, 0, s>>>(
+          a.q, leaf, a.page, a.hkv, G, nc, gc, a.D, a.kk, 0, a.scale,
+          a.slot_bytes, a.strip_bytes, a.part_m, a.part_l, a.part_acc,
+          a.part_bytes);
+    } else if (a.batched) {
+      cram_decode_kernel<LANES, DPL, GMAX, DFIX><<<grid, 32 * DPL, 0, s>>>(
+          a.q, flat, a.page, a.hkv, G, nc, gc, a.D, a.kk, a.shared, a.scale,
+          a.slot_bytes, a.strip_bytes, a.part_m, a.part_l, a.part_acc,
+          a.part_bytes);
+    } else {
       cram_decode_single_kernel<LANES, DPL, GMAX, DFIX>
           <<<dim3(a.hkv * nc, nj), 32 * DPL, 0, s>>>(
-          a.q, a.slots, a.strips, a.markers, a.valid, a.n, a.page, a.hkv, G,
-          nc, gc, a.D, a.kk, a.scale, a.part_m, a.part_l, a.part_acc);
+          a.q, flat, a.page, a.hkv, G, nc, gc, a.D, a.kk, a.scale, a.part_m,
+          a.part_l, a.part_acc);
+    }
   };
   auto by_g = [&](auto P) {
     if (gc > 4)

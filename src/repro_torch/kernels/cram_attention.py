@@ -150,16 +150,20 @@ def _check_geometry(lanes, hq, d, hkv, d2):
              "take a multiple of 8 from 8 to 128")
 
 
-def _check_tensors(q, expect: dict) -> None:
+def _check_tensors(q, expect: dict, nlead: int = 0) -> None:
     """Each of `expect`'s (tensor, dtype, shape) on q's device, of that
-    type and shape, contiguous; q contiguous float32."""
+    type and shape, contiguous past its first `nlead` (0 or 1) axes, whose
+    stride may be anything (a slice of a larger state, a row shard of
+    one); q contiguous float32."""
     for name, (t, dtype, shape) in expect.items():
         _require(t.device == q.device, f"{name} is on {t.device}, "
                  f"q on {q.device}")
         _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
         _require(tuple(t.shape) == shape,
                  f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+        _require((t[0] if nlead else t).is_contiguous(),
+                 f"{name} must be contiguous"
+                 + (" past its batch axis" if nlead else ""))
     _require(q.dtype == torch.float32 and q.is_contiguous(),
              "q must be contiguous float32")
 
@@ -238,6 +242,184 @@ def cram_decode_attention_batched(q, slots, strips, markers, valid,
         q.to(torch.float32).contiguous(), slots, strips, markers,
         valid.to(torch.int32).contiguous(),
         predictor.to(torch.int32).contiguous(), **kw)
+
+
+# ------------------------------------------------------- K3 in place
+
+def _lead(t, nlead: int) -> int:
+    """Batch stride in elements of a leaf with `nlead` (0 or 1) batch
+    axes: 0 for a shared leaf."""
+    return t.stride(0) if nlead else 0
+
+
+def _from_storage(leaf, off, width: int = 1):
+    """The `width` elements at each element offset `off` from `leaf`'s
+    first element, read from its storage as the kernel reads them (so a
+    strided leaf is not made contiguous first): off.shape + (width,)."""
+    flat = torch.as_strided(leaf, (int(off.max()) + width,), (1,))
+    return flat[off[..., None] + torch.arange(width, device=leaf.device)]
+
+
+def leaf_addresses(cache, valid_per_page, *, lanes: int = 2):
+    """The plain counterpart of the in-place entry's addressing (LeafSlots
+    in `csrc/cram_attention.cuh`), from the leaves and their strides as the
+    kernel gets them.  For flat slot s = lanes * g + j of each cache row
+    (one row for a shared cache, whose batch stride is 0): `src` 0 for
+    `slots`, 1 for `slots_overflow`; `slot_off` the element offset of its
+    page rows from that leaf's first element; `strip_off` the offset of
+    its strip row in `strips`, -1 for the all-zero row of an overflow
+    slot; `marker` the index into `markers` (g); `valid` its `lanes`
+    counts, as `physical_view` lays them: a packed group's lead slot holds
+    the group's counts and its overflow slots none, a raw group's slot j
+    holds page j's count in its first lane.  Returns a dict of tensors of
+    shapes (R, lanes * n) (int64) and (R, lanes * n, lanes) (valid, in
+    valid_per_page's dtype)."""
+    slots, over = cache["slots"], cache["slots_overflow"]
+    strips, mask = cache["strips"], cache["packed_mask"]
+    nlead = slots.dim() - 4
+    n, page, hkv, d2 = slots.shape[-4:]
+    rows = slots.shape[0] if nlead else 1
+    slot_elems, strip_elems = page * hkv * d2, hkv * (d2 + MARKER_LANES)
+    dev = slots.device
+    s = torch.arange(lanes * n, device=dev)
+    g, j = s // lanes, s % lanes
+    b = torch.arange(rows, device=dev)[:, None]
+    lead = j == 0
+    src = (~lead).to(torch.int64).expand(rows, -1)
+    slot_off = torch.where(
+        lead, b * _lead(slots, nlead) + g * slot_elems,
+        b * _lead(over, nlead) + (g * (lanes - 1) + j - 1) * slot_elems)
+    strip_off = torch.where(lead, b * _lead(strips, nlead) + g * strip_elems,
+                            torch.full_like(slot_off, -1))
+    vrow = b * _lead(valid_per_page, nlead) + g * lanes
+    ok = _from_storage(mask, b * _lead(mask, nlead) + g)
+    own = _from_storage(valid_per_page, vrow, lanes)
+    first = _from_storage(valid_per_page, vrow + j)
+    q = torch.arange(lanes, device=dev)
+    valid = torch.where(ok, torch.where(lead[:, None], own, 0),
+                        torch.where(q == 0, first, 0))
+    return {"src": src, "slot_off": slot_off, "strip_off": strip_off,
+            "marker": g, "valid": valid}
+
+
+def leaf_view(cache, valid_per_page, *, lanes: int = 2):
+    """The flat slot view K3's in-place entry walks, read from the leaves'
+    storage at `leaf_addresses`' offsets: (slots, strips, markers, valid)
+    of `physical_view`'s shapes, element for element what the kernel
+    reads for each flat slot."""
+    a = leaf_addresses(cache, valid_per_page, lanes=lanes)
+    slots, over = cache["slots"], cache["slots_overflow"]
+    strips = cache["strips"]
+    nlead = slots.dim() - 4
+    n, page, hkv, d2 = slots.shape[-4:]
+    slot_elems = page * hkv * d2
+    lead = a["src"] == 0
+    got = torch.where(
+        lead[..., None],
+        _from_storage(slots, torch.where(lead, a["slot_off"], 0), slot_elems),
+        _from_storage(over, torch.where(lead, 0, a["slot_off"]), slot_elems))
+    zero = a["strip_off"] < 0
+    st = torch.where(zero[..., None], 0, _from_storage(
+        strips, a["strip_off"].clamp(min=0), hkv * (d2 + MARKER_LANES)))
+    out = (got.reshape(-1, lanes * n, page, hkv, d2),
+           st.reshape(-1, lanes * n, hkv, d2 + MARKER_LANES),
+           cache["markers"][a["marker"]], a["valid"])
+    if not nlead:
+        out = (out[0][0], out[1][0], out[2], out[3][0])
+    return out
+
+
+def cram_decode_attention_in_place_plain(q, cache, valid_per_page,
+                                         predictor, *, lanes: int = 2,
+                                         block_groups: int | None = None):
+    """Plain version of the in-place entry: the flat plain version over
+    `leaf_view`."""
+    slots, strips, markers, valid = leaf_view(cache, valid_per_page,
+                                              lanes=lanes)
+    return cram_decode_attention_batched_plain(
+        q, slots, strips, markers, valid, predictor, lanes=lanes,
+        block_groups=block_groups,
+        shared_cache=cache["slots"].dim() == 4)
+
+
+def cram_decode_attention_in_place_cuda(q, cache, valid_per_page, predictor,
+                                        *, lanes: int = 2,
+                                        block_groups: int | None = None):
+    """The CUDA kernel on the same contract as
+    `cram_decode_attention_in_place_plain`: valid_per_page int32 and
+    predictor bool, each leaf contiguous past its batch axis."""
+    b, hq, d = q.shape
+    slots, over = cache["slots"], cache["slots_overflow"]
+    strips, markers = cache["strips"], cache["markers"]
+    mask = cache["packed_mask"]
+    nlead = slots.dim() - 4
+    _require(nlead in (0, 1), "slots must be (B?, n, page, Hkv, D2)")
+    lead = (b,) if nlead else ()
+    n, page, hkv, d2 = slots.shape[-4:]
+    _check_geometry(lanes, hq, d, hkv, d2)
+    _require(n > 0, "the cache needs at least one group")
+    ov = (n, page, hkv, d2) if lanes == 2 else (n, lanes - 1, page, hkv, d2)
+    _check_tensors(q, {
+        "slots": (slots, torch.int16, lead + (n, page, hkv, d2)),
+        "slots_overflow": (over, torch.int16, lead + ov),
+        "strips": (strips, torch.int16, lead + (n, hkv, d2 + MARKER_LANES)),
+        "packed_mask": (mask, torch.bool, lead + (n,)),
+        "valid_per_page": (valid_per_page, torch.int32, lead + (lanes * n,)),
+        "predictor": (predictor, torch.bool, lead + (n,)),
+    }, nlead)
+    _check_tensors(q, {"markers": (markers, torch.int32, (n,))})
+    _check_aligned(q, slots, strips)
+    sb = [_lead(t, nlead) for t in (slots, over, strips, mask,
+                                    valid_per_page, predictor)]
+    _require(over.data_ptr() % 16 == 0 and sb[0] % 8 == 0 and sb[1] % 8 == 0
+             and sb[2] % 2 == 0, "the slot leaves' batch strides must keep "
+             "16-byte rows, the strips' 4-byte ones")
+    nf = lanes * n
+    kk = (split_width(nf) if block_groups is None
+          else resolve_block_groups(n, block_groups) * lanes)
+    nj = -(-nf // kk)
+    dev = q.device
+    part_m = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
+    part_l = torch.empty((b, hq, nj), dtype=torch.float32, device=dev)
+    part_acc = torch.empty((b, hq, nj, d), dtype=torch.float32, device=dev)
+    part_bytes = torch.empty((b, nj, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    byts = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    slot_bytes, strip_bytes = slot_geometry_bytes(page, hkv, d2)
+    p = cuda_lib.ptr
+    code = cuda_lib.load().cram_decode_attention_leaves(
+        p(q), p(slots), p(over), p(strips), p(markers), p(mask),
+        p(valid_per_page), p(predictor), *sb, b, hq, d, n, page, hkv, lanes,
+        kk, 1.0 / math.sqrt(d), slot_bytes, strip_bytes, p(part_m),
+        p(part_l), p(part_acc), p(part_bytes), p(out), p(byts),
+        cuda_lib.stream_ptr(q))
+    cuda_lib.check(code, "cram_decode_attention_leaves")
+    LAUNCHES["decode_attention_pair" if lanes == 2
+             else "decode_attention_quad"] += 1
+    return out, byts
+
+
+@cuda_lib.kernel_wrapper(
+    lambda *a, lanes=2, **kw: ("decode_attention_pair" if lanes == 2
+                               else "decode_attention_quad"))
+def cram_decode_attention_in_place(q, cache, valid_per_page, predictor, *,
+                                   lanes: int = 2,
+                                   block_groups: int | None = None):
+    """K3 over a cache state's own leaves, read in place: q (B, Hq, D);
+    `cache` the dict of `kv.cache.kernel_cache_slice` (slots, slots_overflow,
+    strips, packed_mask with a leading batch axis, or none for a shared
+    cache; markers (n,) int32), each leaf contiguous past its batch axis,
+    whose stride may be anything (a slice `[:, :n]` of a larger state, a
+    row shard of one); valid_per_page (B?, lanes * n) int32; predictor
+    (B?, n) bool.  Returns what `cram_decode_attention_batched` returns on
+    `physical_view` of the same cache, bit for bit, without building it."""
+    kw = dict(lanes=lanes, block_groups=block_groups)
+    if q.device.type == "cpu":
+        return cram_decode_attention_in_place_plain(
+            q, cache, valid_per_page, predictor, **kw)
+    return cram_decode_attention_in_place_cuda(
+        q.to(torch.float32).contiguous(), cache, valid_per_page, predictor,
+        **kw)
 
 
 # ------------------------------------------------------------------ K6

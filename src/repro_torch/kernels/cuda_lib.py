@@ -51,6 +51,12 @@ SIGNATURES = {
     "cram_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P],
+    # q, slots, over, strips, markers, mask, valid, pred, six batch strides
+    # (slots, over, strips, mask, valid, pred), B, hq, D, n_groups, page,
+    # hkv, lanes, kk, scale, slot_bytes, strip_bytes, part_m, part_l,
+    # part_acc, part_bytes, out, bytes, stream
+    "cram_decode_attention_leaves": [_P] * 8 + [_L] * 6 + [_I] * 8
+                                    + [_F, _I, _I] + [_P] * 7,
     # q, slots, strips, markers, valid, hq, D, n, page, hkv, lanes, kk,
     # scale, part_m, part_l, part_acc, out, stream
     "cram_decode_attention_single": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

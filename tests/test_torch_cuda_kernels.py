@@ -26,6 +26,15 @@ CTA of a group's cluster sees, 1,024 groups at the phi4 geometry and
 65,539 groups of one vector, an image whose line count is not a multiple
 of the kernel's block).
 
+K3's in-place entry (the serve tier's attend on the card, reading the
+cache state's leaves) equals the flat entry on `physical_view` of the
+same cache bit for bit, output and byte columns, at every head geometry,
+pair and quad, on a shared cache, on a state sliced out of a wider one
+and on a row shard of that slice, with a zero marker, and with garbage
+in packed groups' overflow that never reaches the output; the serve
+tier's attend counts `cache.k3_in_place` once and copies nothing in
+`cache.view`.
+
 A1 (the model's decode attention, `kernels/gqa_decode.py`, launched by
 `models/attention.py:decode_attention_state` and
 `chunked_decode_attention` on CUDA tensors) holds its state and output
@@ -1094,6 +1103,215 @@ def test_decode_steps_through_the_kernel_equal_the_plain_path(cuda,
         assert counted == (0 if plain else cfg.n_layers)
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------- K3 in place: the cache's own leaves
+
+def _leaf_state(rng, lanes, b, n_state, page, hkv, hd, device):
+    """A serve-tier state of `b` rows of `n_state` groups (compressible,
+    incompressible and mixed rows, as `_window`), whose packed groups'
+    overflow holds non-zero garbage: finite bf16 up to ~1e38 of either
+    sign (the plain version, which decodes every slot, multiplies masked
+    V by 0, and 0 x inf is nan)."""
+    win = _window(rng, b, n_state, lanes, page, hkv, hd, device)
+    build = ops.build_cram_cache if lanes == 2 else ops.build_cram_cache_quad
+    caches = [build(w.reshape(-1, page, hkv, 2 * hd)) for w in win]
+    keys = ("slots", "slots_overflow", "strips", "packed_mask")
+    st = {k: torch.stack([c[k] for c in caches]) for k in keys}
+    st["markers"] = caches[0]["markers"]
+    over = st["slots_overflow"]
+    gen = torch.Generator(device=device).manual_seed(lanes * 100 + n_state)
+    mag = torch.randint(0x80, 0x7F00, tuple(over.shape), generator=gen,
+                        device=device, dtype=torch.int32)
+    neg = torch.randint(0, 2, tuple(over.shape), generator=gen,
+                        device=device, dtype=torch.int32)
+    garbage = (mag - 0x8000 * neg).to(torch.int16)
+    packed = st["packed_mask"].reshape(*st["packed_mask"].shape,
+                                       *([1] * (over.dim() - 2)))
+    st["slots_overflow"] = torch.where(packed, garbage, over)
+    assert bool(st["packed_mask"].any()) and not bool(st["packed_mask"].all())
+    return st
+
+
+def _leaf_args(rng, st, n, hq, *, lanes, shared, rows=None, empty_row=True):
+    """(q, cache, valid, pred) as the serve tier hands them to K3: the
+    state sliced [:, :n] (`kernel_cache_slice`: batch stride n_state),
+    valid counts sliced out of the state's width, a predictor that misses
+    about a third of the groups; `shared` takes row 2 unbatched, `rows` a
+    row shard of the slice."""
+    from repro_torch.kv.cache import kernel_cache_slice
+
+    b, n_state = st["packed_mask"].shape
+    page = st["slots"].shape[2]
+    hd = st["slots"].shape[-1] // 2
+    dev = st["slots"].device
+    cache = kernel_cache_slice(st, n)
+    tokens = rng.integers(1, n * lanes * page, b)
+    if empty_row:
+        tokens[1] = 0                               # no valid token
+    pages = np.arange(n_state * lanes)
+    valid = torch.from_numpy(np.clip(tokens[:, None] - pages[None] * page, 0,
+                                     page).astype(np.int32)).to(dev)
+    valid = valid[:, :lanes * n]
+    flip = torch.from_numpy(rng.random((b, n)) < 0.3).to(dev)
+    pred = cache["packed_mask"] ^ flip
+    if shared:
+        cache = {k: (v if k == "markers" else v[2]) for k, v in cache.items()}
+        valid, pred = valid[2], pred[2]
+    elif rows is not None:
+        cache = {k: (v if k == "markers" else v[rows])
+                 for k, v in cache.items()}
+        valid, pred = valid[rows], pred[rows]
+    nq = (rows.stop - rows.start) if rows is not None else b
+    q = torch.from_numpy(rng.standard_normal((nq, hq, hd)).astype(
+        np.float32)).to(dev)
+    return q, cache, valid, pred
+
+
+def _in_place_and_flat(q, cache, valid, pred, *, lanes, block_groups=None):
+    """The in-place entry and the flat entry on `physical_view` of the same
+    cache: both outputs and byte columns, after checking they are equal
+    bit for bit."""
+    shared = cache["slots"].dim() == 4
+    out, byts = ca.cram_decode_attention_in_place_cuda(
+        q, cache, valid, pred, lanes=lanes, block_groups=block_groups)
+    pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+    s, st, mk, v = pv(cache, valid)
+    ref, ref_b = ca.cram_decode_attention_batched_cuda(
+        q, s.contiguous(), st.contiguous(), mk.contiguous(),
+        v.to(torch.int32).contiguous(), pred.to(torch.int32).contiguous(),
+        lanes=lanes, block_groups=block_groups, shared_cache=shared)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(byts, ref_b)
+    return out, byts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("hkv,hq,hd", [(2, 2, 64), (1, 8, 128),
+                                       (3, 9, 64)] + REFERENCE_GEOMETRIES)
+@pytest.mark.parametrize("block_groups", [None, 1])
+def test_in_place_decode_equals_the_flat_entry(cuda, lanes, shared, hkv, hq,
+                                               hd, block_groups):
+    """K3 over a state sliced out of a wider one, read in place, against
+    K3 over the physical view copied out of it: output and both byte
+    columns bit for bit, at every head geometry K3 takes; the output
+    within the kernels' tolerance of the plain version."""
+    rng = np.random.default_rng([lanes, shared, hkv, hq, hd, 34])
+    st = _leaf_state(rng, lanes, 3, 11, 4, hkv, hd, cuda)
+    q, cache, valid, pred = _leaf_args(rng, st, 8, hq, lanes=lanes,
+                                       shared=shared)
+    out, byts = _in_place_and_flat(q, cache, valid, pred, lanes=lanes,
+                                   block_groups=block_groups)
+    ref, ref_b = ca.cram_decode_attention_in_place_plain(
+        q, cache, valid, pred, lanes=lanes, block_groups=block_groups)
+    live = valid.reshape(-1, valid.shape[-1]).gt(0).any(-1).expand(
+        q.shape[0])                 # a row with none averages the garbage
+    assert torch.isfinite(out[live]).all()
+    torch.testing.assert_close(out[live], ref.to(cuda)[live], **TOL)
+    assert torch.equal(byts, ref_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_in_place_decode_on_a_row_shard_of_a_sliced_state(cuda, lanes):
+    """Rows 1-2 of a sliced state (a shard's strided view, as
+    `serving/shard.py` hands it over) against the flat entry and against
+    the same rows of one launch over every row."""
+    rng = np.random.default_rng([lanes, 2])
+    st = _leaf_state(rng, lanes, 4, 13, 16, 8, 128, cuda)
+    q, cache, valid, pred = _leaf_args(rng, st, 8, 24, lanes=lanes,
+                                       shared=False)
+    whole, whole_b = _in_place_and_flat(q, cache, valid, pred, lanes=lanes)
+    rows = slice(1, 3)
+    part = {k: (v if k == "markers" else v[rows]) for k, v in cache.items()}
+    assert part["slots"].stride(0) == 13 * part["slots"].stride(1)
+    out, byts = _in_place_and_flat(q[rows].contiguous(), part, valid[rows],
+                                   pred[rows], lanes=lanes)
+    assert torch.equal(out.view(torch.int32), whole[rows].view(torch.int32))
+    assert torch.equal(byts, whole_b[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_in_place_decode_never_reads_packed_overflow(cuda, lanes):
+    """Every row has a valid token: the garbage in packed groups' overflow
+    slots never reaches the output or the bytes (the same bits with the
+    overflow of packed groups zeroed)."""
+    rng = np.random.default_rng([lanes, 3])
+    st = _leaf_state(rng, lanes, 3, 9, 16, 8, 128, cuda)
+    args = _leaf_args(np.random.default_rng(5), st, 8, 24, lanes=lanes,
+                      shared=False, empty_row=False)
+    got, got_b = _in_place_and_flat(*args, lanes=lanes)
+    over = st["slots_overflow"]
+    packed = st["packed_mask"].reshape(*st["packed_mask"].shape,
+                                       *([1] * (over.dim() - 2)))
+    clean = dict(st, slots_overflow=torch.where(packed, 0, over))
+    assert not torch.equal(clean["slots_overflow"], over)
+    args = _leaf_args(np.random.default_rng(5), clean, 8, 24, lanes=lanes,
+                      shared=False, empty_row=False)
+    want, want_b = _in_place_and_flat(*args, lanes=lanes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got_b, want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_in_place_decode_with_a_zero_marker(cuda, lanes):
+    """Groups whose marker is 0: the all-zero strip row of an overflow
+    slot then carries the marker, which the in-place entry, making that
+    row in shared memory, must read as the flat entry reads the zero row
+    physical_view copies."""
+    rng = np.random.default_rng([lanes, 4])
+    st = _leaf_state(rng, lanes, 3, 8, 16, 8, 128, cuda)
+    st["markers"] = st["markers"].clone()
+    st["markers"][::3] = 0
+    q, cache, valid, pred = _leaf_args(rng, st, 8, 24, lanes=lanes,
+                                       shared=False)
+    valid = torch.full_like(valid, 16)              # every slot walked
+    _in_place_and_flat(q, cache, valid, pred, lanes=lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["pair", "quad"])
+def test_serve_attend_reads_the_cache_in_place(cuda, packing):
+    """The serve tier's attend on the card takes the in-place entry, once
+    an attend (`cache.k3_in_place`), with no copy of the cache inside
+    `cache.view`, and gives the flat route's bits on the same state."""
+    from repro_torch import obs
+    from repro_torch.serving import ServeLoop
+
+    loop = ServeLoop(device=cuda, slots=4, max_pages=24, page=16, n_kv=8,
+                     head_dim=128, policy="static", packing=packing)
+    rng = np.random.default_rng(9)
+    for sid in range(4):
+        kk, vv = synthetic_kv_stream(rng, 1, 40 + 61 * sid, 8, 128,
+                                     compressible=sid != 2)
+        loop.prefill(sid, kk[0], vv[0])
+    q = rng.standard_normal((4, 24, 128)).astype(np.float32)
+    obs.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = loop.attend({i: q[i] for i in range(4)})
+    snap = obs.snapshot()
+    obs.reset()
+    assert snap["counts"]["cache.k3_in_place"] == snap["spans"][
+        "serve.attend"]["n"] == 1
+    view = [e for e in prof.events() if e.name == "cache.view"]
+    assert len(view) == 1
+    assert not [e for e in prof.events() if e.name in (
+        "aten::stack", "aten::cat", "aten::copy_", "aten::clone")
+        and view[0].time_range.start <= e.time_range.start
+        <= view[0].time_range.end]
+    c = loop.cache
+    n = c._active_bucket()
+    got = torch.stack([out[i] for i in range(4)])
+    want, _ = _in_place_and_flat(
+        torch.from_numpy(q).to(cuda), c._kernel_cache(n), c._valid(n),
+        c._kernel_cache(n)["packed_mask"], lanes=c.group_lanes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ------------------------------------------------- the CPU half (runs here)
