@@ -410,16 +410,17 @@ def cram_decode_attention_in_place(q, cache, valid_per_page, predictor, *,
     strips, packed_mask with a leading batch axis, or none for a shared
     cache; markers (n,) int32), each leaf contiguous past its batch axis,
     whose stride may be anything (a slice `[:, :n]` of a larger state, a
-    row shard of one); valid_per_page (B?, lanes * n) int32; predictor
-    (B?, n) bool.  Returns what `cram_decode_attention_batched` returns on
-    `physical_view` of the same cache, bit for bit, without building it."""
+    row shard of one); valid_per_page (B?, lanes * n) integer; predictor
+    (B?, n) bool or integer.  Returns what `cram_decode_attention_batched`
+    returns on `physical_view` of the same cache, bit for bit, without
+    building it."""
     kw = dict(lanes=lanes, block_groups=block_groups)
     if q.device.type == "cpu":
         return cram_decode_attention_in_place_plain(
             q, cache, valid_per_page, predictor, **kw)
     return cram_decode_attention_in_place_cuda(
-        q.to(torch.float32).contiguous(), cache, valid_per_page, predictor,
-        **kw)
+        q.to(torch.float32).contiguous(), cache,
+        valid_per_page.to(torch.int32), predictor.to(torch.bool), **kw)
 
 
 # ------------------------------------------------------------------ K6

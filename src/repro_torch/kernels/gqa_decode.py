@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import obs
 from . import cuda_lib
 
 # the query heads one CTA serves (a KV head's group is cut into chunks)
@@ -118,7 +117,6 @@ def gqa_decode_cuda(q, k_cache, v_cache, length, *, state: bool):
         p(m), p(l), p(o), cuda_lib.stream_ptr(q))
     cuda_lib.check(code, "cram_gqa_decode")
     LAUNCHES["gqa_decode"] += 1
-    obs.count("attn.gqa_decode")
     # q.k and p.v over the valid positions only; the plain version's two
     # products cover every position of its whole chunks, masked, so a dry
     # run on fake tensors counts all of T and the two agree where

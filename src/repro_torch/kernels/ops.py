@@ -6,10 +6,9 @@
 `pack_quad_window` / `raw_window` / `raw_quad_window` (re)lay a gathered
 window of dirty groups, batched over sequences; `layout_window` is the one
 dispatch the repack, the megastep and the prefill share.
-`decode_attention_fused` runs the batched decode kernel over the physical
-slot view (on the card reading the cache's leaves in place) and returns
-the attention output together with the per-sequence (raw, cram) bytes the
-kernel measured; `decode_attention` /
+`decode_attention_fused` runs the batched decode kernel over the cache's
+leaves in place and returns the attention output together with the
+per-sequence (raw, cram) bytes the kernel measured; `decode_attention` /
 `decode_attention_batched` / `decode_attention_quad_batched` are aliases
 that drop the bytes.  `hbm_bytes_moved` is the standalone byte model the
 kernel's byte output matches bit for bit.  `cram_decode_attention` (K6,
@@ -31,7 +30,6 @@ from ..compression.framing import DEFAULT_MARKER_KEY, DOMAIN_PAIR, DOMAIN_QUAD
 from . import bdi_pack
 from . import ref as _ref
 from .cram_attention import (cram_decode_attention,  # noqa: F401  (K6)
-                             cram_decode_attention_batched,
                              cram_decode_attention_in_place,
                              slot_geometry_bytes)
 from .ref import MARKER_LANES, marker_to_lanes, slot_markers
@@ -185,40 +183,20 @@ def physical_view_quad(cache, valid_per_page):
 
 def decode_attention_fused(q, cache, valid_per_page, predictor=None, *,
                            lanes: int = 2, block_groups: int | None = None):
-    """The serve decode step: batched attention over the physical slot view
-    plus the per-sequence bytes moved.
+    """The serve decode step: batched attention over the cache's leaves,
+    read in place, plus the per-sequence bytes moved.
 
     q (B, Hq, D); cache leaves carry a leading batch axis (per-sequence
     caches) or none (one shared cache walked by every query row) except
     `markers`, which is always shared; valid_per_page (B?, lanes * n);
     `predictor` (B?, n) predicted group packedness, None for a perfect
     predictor.  Returns (out (B, Hq, D) float32, raw (B,) int32,
-    cram (B,) int32).
-
-    On the card K3 reads the leaves in place (`cache.k3_in_place` counts
-    each such attend); on the CPU its plain version walks `physical_view`.
-    Both give the bits of K3 over the physical view."""
+    cram (B,) int32), the bits of K3 over `physical_view`."""
     pred = cache["packed_mask"] if predictor is None else predictor
-    if q.device.type != "cpu":
-        with obs.span("cache.view"):
-            valid = valid_per_page.to(torch.int32)
-            pred = pred if pred.dtype == torch.bool else pred != 0
-        obs.count("cache.k3_in_place")
-        with obs.span("cache.k3"):
-            out, byts = cram_decode_attention_in_place(
-                q, cache, valid, pred, lanes=lanes,
-                block_groups=block_groups)
-        return out, byts[:, 0], byts[:, 1]
-    pv = physical_view if lanes == 2 else physical_view_quad
-    with obs.span("cache.view"):
-        slots, strips, markers, valid = pv(cache, valid_per_page)
-        slots, strips = slots.contiguous(), strips.contiguous()
-        markers = markers.contiguous()
     with obs.span("cache.k3"):
-        out, byts = cram_decode_attention_batched(
-            q, slots, strips, markers, valid, pred, lanes=lanes,
-            block_groups=block_groups,
-            shared_cache=cache["slots"].dim() == 4)
+        out, byts = cram_decode_attention_in_place(
+            q, cache, valid_per_page, pred, lanes=lanes,
+            block_groups=block_groups)
     return out, byts[:, 0], byts[:, 1]
 
 

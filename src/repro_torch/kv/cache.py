@@ -428,16 +428,22 @@ class CRAMKVCache:
         q = torch.as_tensor(q, device=self.device)
         return q[None] if q.dim() == 2 else q
 
+    def _attend_inputs(self):
+        """Repack (span `cache.repack`), then what an attend reads: the
+        active bucket `n`, the state's kernel slice of `n` groups and its
+        valid counts."""
+        with obs.span("cache.repack"):
+            self.repack()
+        n = self._active_bucket()
+        return n, self._kernel_cache(n), self._valid(n)
+
     def attend(self, q, *, account: bool = True):
         """q: (B, Hq, d) one query row per sequence -> (B, Hq, d) float32,
         with per-step bandwidth accounting from the kernel's byte output
         (`account=False` for parity probes that must not charge a step)."""
-        self.repack()
-        q = self._q(q)
-        n = self._active_bucket()
-        valid = self._valid(n)
+        n, kc, valid = self._attend_inputs()
         out, raw_seq, cram_seq = kops.decode_attention_fused(
-            q, self._kernel_cache(n), valid,
+            self._q(q), kc, valid,
             self.state["predictor"][:, :n] if account else None,
             lanes=self.group_lanes)
         if account:
@@ -446,13 +452,11 @@ class CRAMKVCache:
 
     def attend_ref(self, q):
         """Oracle (plain torch) attention over the same physical state."""
-        self.repack()
-        q = self._q(q)
-        n = self._active_bucket()
+        _, kc, valid = self._attend_inputs()
         decode = (kops.decode_attention_ref_batched
                   if self.packing == "pair"
                   else kops.decode_attention_quad_ref_batched)
-        return decode(q, self._kernel_cache(n), self._valid(n))
+        return decode(self._q(q), kc, valid)
 
     def saving(self) -> float:
         """Cumulative decode-bandwidth saving from the ledger's "kv" read

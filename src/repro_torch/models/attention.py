@@ -56,9 +56,8 @@ def _q_chunk_state(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
     for j in range(kb.shape[0]):
         kc, vc = kb[j], vb[j]
         if g > 1:
-            with obs.span("attn.kv_repeat"):
-                kc = torch.repeat_interleave(kc, g, dim=2)
-                vc = torch.repeat_interleave(vc, g, dim=2)
+            kc = torch.repeat_interleave(kc, g, dim=2)
+            vc = torch.repeat_interleave(vc, g, dim=2)
         bias = torch.zeros((q_chunk, kb.shape[2]), dtype=torch.float32,
                            device=dev)
         if causal:
@@ -67,8 +66,7 @@ def _q_chunk_state(qc, kb, vb, qpos, k_pos, causal: bool, kv_length):
         if kv_length is not None:
             bias = bias + torch.where(k_pos[j][None, :] < kv_length, 0.0,
                                       NEG_INF)
-        with obs.span("attn.block"):
-            bm, bl, bo = _block_attend(qc, kc, vc, bias)
+        bm, bl, bo = _block_attend(qc, kc, vc, bias)
         m_new = torch.maximum(m, bm)
         alpha = torch.exp(m - m_new)
         beta = torch.exp(bm - m_new)

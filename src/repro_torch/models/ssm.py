@@ -231,7 +231,6 @@ def ssm_decode_step(p, cfg, x, cache):
     writing its shard)."""
     if is_dtensor(x):
         return _on_mesh(p, cfg, x, cache)
-    obs.count("ssm.decode")
     with obs.span("ssm.decode"):
         return _gated_norm(_decode(p, cfg, x, cache), p["norm"],
                            cfg.ssm_norm_groups, cfg.norm_eps) @ p["out"]

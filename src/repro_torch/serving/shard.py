@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import torch
 
-from .. import obs
 from ..device import device_list, on_device
 from ..kernels import ops as kops
 
@@ -31,21 +30,13 @@ def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto",
     one query row per slot.  Returns (B, Hq, d) float32 on the cache's
     device.  No bandwidth accounting here — callers charge the step
     explicitly."""
-    with obs.span("cache.repack"):
-        cache.repack()
-    q = torch.as_tensor(q, device=cache.device)
-    if q.dim() == 2:
-        q = q[None]
-    n = cache._active_bucket()
-    kc = cache._kernel_cache(n)
-    valid = cache._valid(n)
-    decode = (kops.decode_attention_batched if cache.packing == "pair"
-              else kops.decode_attention_quad_batched)
+    q = cache._q(q)
     devs = device_list(devices, cache.device)
     n_dev, b = len(devs), q.shape[0]
     want = shard is True or (shard == "auto" and n_dev > 1)
     if not want or n_dev <= 1 or b % n_dev:
-        return decode(q, kc, valid)
+        return cache.attend(q, account=False)
+    _, kc, valid = cache._attend_inputs()
     per = b // n_dev
     outs = []
     for i, dev in enumerate(devs):
@@ -53,8 +44,9 @@ def shard_kv_attend(cache, q, *, shard: "bool | str" = "auto",
         with on_device(dev):
             shard_cache = {k: (v if k == "markers" else v[rows]).to(dev)
                            for k, v in kc.items()}
-            outs.append(decode(q[rows].to(dev), shard_cache,
-                               valid[rows].to(dev)))
+            outs.append(kops.decode_attention_fused(
+                q[rows].to(dev), shard_cache, valid[rows].to(dev),
+                lanes=cache.group_lanes)[0])
     return torch.cat([o.to(cache.device) for o in outs])
 
 

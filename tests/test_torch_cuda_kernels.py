@@ -32,8 +32,8 @@ same cache bit for bit, output and byte columns, at every head geometry,
 pair and quad, on a shared cache, on a state sliced out of a wider one
 and on a row shard of that slice, with a zero marker, and with garbage
 in packed groups' overflow that never reaches the output; the serve
-tier's attend counts `cache.k3_in_place` once and copies nothing in
-`cache.view`.
+tier's attend calls it once, opens no span but its repack and K3, and
+copies nothing of the cache.
 
 A1 (the model's decode attention, `kernels/gqa_decode.py`, launched by
 `models/attention.py:decode_attention_state` and
@@ -1072,7 +1072,7 @@ def test_decode_steps_through_the_kernel_equal_the_plain_path(cuda,
     1e-4."""
     import dataclasses
 
-    from repro_torch import configs, obs
+    from repro_torch import configs
     from repro_torch.models import build
 
     cfg = dataclasses.replace(configs.get_smoke("phi4_mini_3_8b"),
@@ -1094,13 +1094,6 @@ def test_decode_steps_through_the_kernel_equal_the_plain_path(cuda,
         launched = gd.LAUNCHES["gqa_decode"] - launches
         assert launched == (0 if plain else 12 * cfg.n_layers)
         runs.append((torch.cat(toks, 1), torch.stack(logits)))
-        # under a profiler the port counts one engagement a layer
-        obs.reset()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU]):
-            model.decode_step(tok, cache, 12)
-        counted = obs.snapshot()["counts"].get("attn.gqa_decode", 0)
-        assert counted == (0 if plain else cfg.n_layers)
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
 
@@ -1276,10 +1269,11 @@ def test_in_place_decode_with_a_zero_marker(cuda, lanes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("packing", ["pair", "quad"])
-def test_serve_attend_reads_the_cache_in_place(cuda, packing):
+def test_serve_attend_reads_the_cache_in_place(cuda, packing, monkeypatch):
     """The serve tier's attend on the card takes the in-place entry, once
-    an attend (`cache.k3_in_place`), with no copy of the cache inside
-    `cache.view`, and gives the flat route's bits on the same state."""
+    an attend, opens no span but its repack, K3 and host syncs, copies
+    nothing of the cache inside K3's span, and gives the flat route's
+    bits on the same state."""
     from repro_torch import obs
     from repro_torch.serving import ServeLoop
 
@@ -1291,20 +1285,29 @@ def test_serve_attend_reads_the_cache_in_place(cuda, packing):
                                      compressible=sid != 2)
         loop.prefill(sid, kk[0], vv[0])
     q = rng.standard_normal((4, 24, 128)).astype(np.float32)
+    calls = []
+    in_place = ca.cram_decode_attention_in_place_cuda
+    monkeypatch.setattr(ca, "cram_decode_attention_in_place_cuda",
+                        lambda *a, **kw: calls.append(1)
+                        or in_place(*a, **kw))
     obs.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         out = loop.attend({i: q[i] for i in range(4)})
     snap = obs.snapshot()
     obs.reset()
-    assert snap["counts"]["cache.k3_in_place"] == snap["spans"][
+    assert calls == [1]
+    assert snap["spans"]["cache.k3"]["n"] == snap["spans"][
         "serve.attend"]["n"] == 1
-    view = [e for e in prof.events() if e.name == "cache.view"]
-    assert len(view) == 1
+    assert {e.name for e in prof.events()
+            if e.name.startswith(("serve.", "cache.", "host."))} <= {
+        "serve.attend", "cache.repack", "cache.k3", "host.sync"}
+    k3 = [e for e in prof.events() if e.name == "cache.k3"]
+    assert len(k3) == 1
     assert not [e for e in prof.events() if e.name in (
         "aten::stack", "aten::cat", "aten::copy_", "aten::clone")
-        and view[0].time_range.start <= e.time_range.start
-        <= view[0].time_range.end]
+        and k3[0].time_range.start <= e.time_range.start
+        <= k3[0].time_range.end]
     c = loop.cache
     n = c._active_bucket()
     got = torch.stack([out[i] for i in range(4)])

@@ -241,9 +241,10 @@ def test_shard_true_raises_only_for_a_real_multi_card_shard(monkeypatch):
     equal to the single-device decode; over one they do not divide it
     falls back to the single-device decode, as the reference does."""
     calls = []
-    decode = T.decode_attention_batched
-    monkeypatch.setattr(T, "decode_attention_batched",
-                        lambda *a: calls.append(len(a[0])) or decode(*a))
+    decode = T.decode_attention_fused
+    monkeypatch.setattr(T, "decode_attention_fused",
+                        lambda *a, **kw: calls.append(len(a[0]))
+                        or decode(*a, **kw))
     for slots, shards in ((4, [2, 2]), (3, [3])):
         _, port, q = _serve_loops("pair", slots)
         single = t_shard.shard_kv_attend(port.cache, _t(q), shard=False)

@@ -30,7 +30,6 @@ def test_import_pulls_in_no_jax_and_no_reference():
         # the model cell
         import repro_torch.launch.steps, repro_torch.launch.variants
         import repro_torch.launch.hlo_analysis, repro_torch.models.zoo
-        import repro_torch.launch.ab_launchers
         # the dry run
         import repro_torch.launch.dryrun, repro_torch.launch.perf
         for mod in pkgutil.walk_packages(repro_torch.__path__,
@@ -68,8 +67,7 @@ def test_no_source_imports_jax_or_reference():
                  "runtime/pipeline.py", "runtime/elastic.py",
                  "optim/grad_compress.py", "launch/steps.py",
                  "launch/variants.py", "launch/hlo_analysis.py",
-                 "models/zoo.py", "launch/ab_launchers.py",
-                 "launch/dryrun.py", "launch/perf.py"):
+                 "models/zoo.py", "launch/dryrun.py", "launch/perf.py"):
         assert PKG / name in files, name
     for path in files:
         for name in _imports(path):

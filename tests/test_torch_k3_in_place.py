@@ -11,7 +11,9 @@ kernel makes in shared memory), its marker and its valid counts.
 `physical_view` / `physical_view_quad` element for element on packed,
 raw and empty groups, for per-sequence and shared caches, for a state
 sliced `[:, :n]` out of a larger one (batch stride `n_groups`, not `n`)
-and for a row shard of that slice.  The CUDA wrapper's own argument
+and for a row shard of that slice.  `ops.decode_attention_fused` takes
+this entry on every device, and its bits are the flat entry's over
+`physical_view`.  The CUDA wrapper's own argument
 handling runs here with the library replaced by a recorder: it passes
 the leaves themselves (no copy), their batch strides and the flat
 entry's split.  The kernel itself is held bit for bit against the flat
@@ -22,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import obs
 from repro_torch.kernels import cram_attention as ca
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import ops
@@ -133,18 +134,28 @@ def test_leaf_view_equals_physical_view(lanes, form):
     assert (a["strip_off"][over_slot] == -1).all()
 
 
+def _flat(q, cache, valid, pred, lanes):
+    """The flat entry's plain version over `physical_view` of the cache:
+    (out, raw, cram)."""
+    pv = ops.physical_view if lanes == 2 else ops.physical_view_quad
+    s, st, mk, v = pv(cache, valid)
+    out, byts = ca.cram_decode_attention_batched_plain(
+        q, s, st, mk, v, pred, lanes=lanes,
+        shared_cache=cache["slots"].dim() == 4)
+    return out, byts[:, 0], byts[:, 1]
+
+
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("lanes", [2, 4])
 def test_in_place_plain_equals_the_fused_cpu_path(lanes, form):
-    """The in-place entry's plain version gives the fused CPU path's bits
-    (output and both byte columns), with a predictor that misses some
-    groups."""
+    """The in-place entry's plain version gives the bits (output and both
+    byte columns) of the flat entry's plain version over `physical_view`,
+    with a predictor that misses some groups."""
     cache, valid, q = _case(lanes, form, seed=1)
     rng = np.random.default_rng([lanes, 7])
     mask = cache["packed_mask"]
     pred = mask ^ torch.from_numpy(rng.random(tuple(mask.shape)) < 0.4)
-    out, raw, cram = ops.decode_attention_fused(q, cache, valid, pred,
-                                                lanes=lanes)
+    out, raw, cram = _flat(q, cache, valid, pred, lanes)
     got, byts = ca.cram_decode_attention_in_place(q, cache, valid, pred,
                                                   lanes=lanes)
     assert torch.equal(got.view(torch.int32), out.view(torch.int32))
@@ -228,15 +239,39 @@ def test_in_place_entry_refuses_what_it_cannot_read(recorder):
     assert recorder.calls == []
 
 
-def test_fused_cpu_path_walks_the_physical_view():
-    """On the CPU the fused attend copies the physical view (span
-    `cache.view`) and never takes the in-place entry."""
-    cache, valid, q = _case(2, "sliced")
-    obs.reset()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        ops.decode_attention_fused(q, cache, valid, lanes=2)
-    snap = obs.snapshot()
-    obs.reset()
-    assert snap["spans"]["cache.view"]["n"] == 1
-    assert "cache.k3_in_place" not in snap["counts"]
+class _Observer:
+    """A `cuda_lib.OBSERVERS` entry: the kernel wrappers entered."""
+
+    def __init__(self):
+        self.entered = []
+
+    def enter(self, name):
+        self.entered.append(name)
+
+    def exit(self, name):
+        pass
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_fused_attend_takes_the_in_place_entry(monkeypatch, lanes, form):
+    """On the CPU as on the card, the fused attend calls K3's in-place
+    wrapper once, whose plain version runs here, and gives the bits of the
+    flat entry's plain version over `physical_view` (perfect
+    predictor)."""
+    cache, valid, q = _case(lanes, form, seed=2)
+    plain = []
+    in_place_plain = ca.cram_decode_attention_in_place_plain
+    monkeypatch.setattr(ca, "cram_decode_attention_in_place_plain",
+                        lambda *a, **kw: plain.append(1)
+                        or in_place_plain(*a, **kw))
+    seen = _Observer()
+    monkeypatch.setattr(cuda_lib, "OBSERVERS", [seen])
+    out, raw, cram = ops.decode_attention_fused(q, cache, valid, lanes=lanes)
+    name = "decode_attention_pair" if lanes == 2 else "decode_attention_quad"
+    assert seen.entered == [name] and plain == [1]
+    want, want_raw, want_cram = _flat(q, cache, valid, cache["packed_mask"],
+                                      lanes)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(raw, want_raw) and torch.equal(cram, want_cram)
+    assert (raw > 0).any() and (cram > 0).any()

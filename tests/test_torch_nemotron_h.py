@@ -384,7 +384,7 @@ def test_ssm_decode_span_and_counter():
     snap = obs.snapshot()
     obs.reset()
     n_ssm = CFG["layer_pattern"].count("M")
-    assert snap["counts"]["ssm.decode"] == 2 * n_ssm
+    assert "ssm.decode" not in snap["counts"]
     assert snap["spans"]["ssm.decode"]["n"] == 2 * n_ssm
     assert snap["spans"]["moe.apply"]["n"] == 2 * CFG[
         "layer_pattern"].count("E")

@@ -36,15 +36,14 @@ SERVE_SPANS = {        # span -> the spans it opens inside, on the serve path
     "cache.lay_window": ("cache.megastep", "cache.prefill"),
     "cache.book": "cache.megastep",
     "cache.prefill": "serve.admit", "cache.repack": "serve.attend",
-    "cache.view": "serve.attend", "cache.k3": "serve.attend",
+    "cache.k3": "serve.attend",
     "spill.encode": "serve.evict", "spill.decode": "serve.wake",
     "host.sync": None,
 }
 MODEL_SPANS = {
-    "dense": {"model.decode_step": None, "attn.decode": "model.decode_step",
-              "attn.kv_repeat": "attn.decode", "attn.block": "attn.decode"},
+    "dense": {"model.decode_step": None, "attn.decode": "model.decode_step"},
     "moe": {"model.decode_step": None, "attn.decode": "model.decode_step",
-            "attn.block": "attn.decode", "moe.apply": "model.decode_step",
+            "moe.apply": "model.decode_step",
             "moe.route": "moe.apply", "moe.dispatch": "moe.apply",
             "moe.experts": "moe.apply", "moe.combine": "moe.apply"},
 }
@@ -154,9 +153,9 @@ def test_spans_nest_as_the_layers(path):
         else:
             _decode(model, cache, 2)
     found = _annotations(prof)
-    _assert_tree(found, SERVE_SPANS if path == "serve" else MODEL_SPANS[path])
-    if path == "moe":          # as many KV heads as query heads: no repeat
-        assert "attn.kv_repeat" not in found
+    tree = SERVE_SPANS if path == "serve" else MODEL_SPANS[path]
+    _assert_tree(found, tree)
+    assert set(found) == set(tree)
 
 
 def test_snapshot_counts_a_step_of_each_layer():
@@ -166,7 +165,6 @@ def test_snapshot_counts_a_step_of_each_layer():
     loop.prefill(1, *_rows(rng, 12))
     model, cache = _model("dense")
     steps, layers = 3, model.config.n_layers
-    chunks = CACHE_LEN // model.config.attn_k_chunk
     with profile(activities=[ProfilerActivity.CPU]):
         for _ in range(steps):
             _tier_step(loop, rng, [0, 1])
@@ -175,10 +173,8 @@ def test_snapshot_counts_a_step_of_each_layer():
     want = {"serve.step": steps, "cache.megastep": steps,
             "cache.append": steps, "cache.lay_window": steps,
             "cache.book": steps, "serve.attend": steps,
-            "cache.repack": steps, "cache.view": steps, "cache.k3": steps,
+            "cache.repack": steps, "cache.k3": steps,
             "model.decode_step": steps, "attn.decode": steps * layers,
-            "attn.kv_repeat": steps * layers * chunks,
-            "attn.block": steps * layers * chunks,
             "host.sync": 7 * steps}      # the staged copies (below)
     assert {k: snap[k]["n"] for k in want} == want
     assert set(snap) == set(want)

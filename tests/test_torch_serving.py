@@ -19,7 +19,7 @@ import torch
 
 from repro.kv import synthetic_kv_stream
 from repro.serving import ServeLoop as RefLoop
-from repro_torch.serving import ServeLoop
+from repro_torch.serving import ServeLoop, shard_kv_attend
 
 torch.set_num_threads(1)
 
@@ -77,11 +77,24 @@ def _attend(ref, port, rng, ctx):
         return
     q = {sid: rng.standard_normal((HQ, HD)).astype(np.float32)
          for sid in live}
+    st = port.cache.state
+    booked = {k: st[k].clone() for k in ("traffic", "pred_hits",
+                                         "pred_misses")}
     out_r = ref.attend(q)
     out_p = port.attend(q)
     for sid in live:
         np.testing.assert_allclose(out_p[sid].numpy(), np.asarray(out_r[sid]),
                                    err_msg=str(ctx), **TOL)
+    # the unsharded attend is the cache's own, charging nothing
+    rows = torch.zeros((SLOTS, HQ, HD))
+    for sid in live:
+        rows[port.seqs[sid].slot] = torch.from_numpy(q[sid])
+    got = shard_kv_attend(port.cache, rows, shard=False)
+    assert torch.equal(got, port.cache.attend(rows, account=False)), ctx
+    for sid in live:
+        assert torch.equal(got[port.seqs[sid].slot], out_p[sid]), ctx
+    for key, was in booked.items():
+        assert torch.equal(st[key], was), (ctx, key)
 
 
 def _run_schedule(seed, policy, packing, n_ops=14):
